@@ -1,0 +1,50 @@
+"""Carry params from the JAX package's layout into the port's tensors.
+
+The JAX package (and the shared ``.npz`` checkpoints) store embedding convs
+as HWIO and head linears as (n_in, n_out), with a head's architecture under
+``"__meta__"``. The port runs convs as OIHW, so conv weights are
+transposed; every other leaf keeps its shape. Leaves may be numpy arrays or
+anything ``numpy.asarray`` accepts; nothing here imports jax.
+"""
+
+from typing import Dict, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+
+
+def _tensor(v, device) -> torch.Tensor:
+    return torch.from_numpy(np.array(v, dtype=np.float32, copy=True)).to(device)
+
+
+def _tree(params: Mapping, device, leaf) -> Dict:
+    return {k: (_tree(v, device, leaf) if isinstance(v, Mapping) else leaf(k, v, device))
+            for k, v in params.items() if k != "__meta__"}
+
+
+def embedding_from_jax(params: Mapping, device="cpu") -> Dict:
+    """Embedding params (BN-folded or not) -> port tensors, HWIO -> OIHW."""
+    def leaf(k, v, dev):
+        a = np.asarray(v)
+        return _tensor(np.transpose(a, (3, 2, 0, 1)) if k == "w" and a.ndim == 4 else a, dev)
+    return _tree(params, device, leaf)
+
+
+def head_from_jax(params: Mapping, device="cpu") -> Dict:
+    """One dnn/mlp head's params -> port tensors; '__meta__' is kept as a
+    plain dict of Python scalars."""
+    out = _tree(params, device, lambda k, v, dev: _tensor(v, dev))
+    if "__meta__" in params:
+        out["__meta__"] = {k: (v.item() if isinstance(v, np.generic) else v)
+                           for k, v in dict(params["__meta__"]).items()}
+    return out
+
+
+def from_jax_params(embedding_params: Optional[Mapping] = None,
+                    head_params: Optional[Mapping[str, Mapping]] = None,
+                    device="cpu") -> Tuple[Optional[Dict], Optional[Dict]]:
+    """(embedding params, {name: head params}) in the JAX layout -> the
+    port's tensors on ``device``; either side may be None."""
+    emb = None if embedding_params is None else embedding_from_jax(embedding_params, device)
+    heads = None if head_params is None else {n: head_from_jax(p, device) for n, p in head_params.items()}
+    return emb, heads

@@ -1,0 +1,213 @@
+"""Google speech_embedding CNN in PyTorch (counterpart of
+``openwakeword_tpu.models.embedding``).
+
+The layer program ``_SPEC`` is the JAX package's, copied. The port's params
+are plain dicts of tensors with convs in PyTorch's OIHW layout (the JAX
+package keeps HWIO; ``openwakeword_tpu_torch.convert`` transposes).
+Activations run as NCHW internally; the public functions keep the JAX
+package's layouts: mel windows (B, 76, 32) in, embeddings (B, 96) out.
+Everything runs in full float32; no function here needs a gradient.
+"""
+
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+BN_EPS = 1e-3  # Keras BatchNormalization default, used by the reference export
+
+# Layer program: ('pad', width_pad) | ('conv', out_ch, (kh, kw), padding, act)
+# | ('bnact',) | ('pool', window, strides, padding)
+# 'bnact' = BatchNorm followed by the clipped leaky activation.
+_SPEC: List[Tuple] = [
+    ("pad", (0, 1)),
+    ("conv", 24, (3, 3), "VALID", "relu"),
+    ("bnact",),
+    # Block 1
+    ("conv", 24, (1, 3), "SAME", None), ("bnact",),
+    ("conv", 24, (3, 1), "VALID", None), ("bnact",),
+    ("pool", (2, 2), (2, 2), "VALID"),
+    ("conv", 48, (1, 3), "SAME", None), ("bnact",),
+    ("conv", 48, (3, 1), "VALID", None), ("bnact",),
+    # Block 2
+    ("conv", 48, (1, 3), "SAME", None), ("bnact",),
+    ("conv", 48, (3, 1), "VALID", None), ("bnact",),
+    ("pool", (1, 2), (1, 2), "SAME"),
+    ("conv", 72, (1, 3), "SAME", None), ("bnact",),
+    ("conv", 72, (3, 1), "VALID", None), ("bnact",),
+    # Block 3
+    ("conv", 72, (1, 3), "SAME", None), ("bnact",),
+    ("conv", 72, (3, 1), "VALID", None), ("bnact",),
+    ("pool", (2, 2), (2, 2), "VALID"),
+    ("conv", 96, (1, 3), "SAME", None), ("bnact",),
+    ("conv", 96, (3, 1), "VALID", None), ("bnact",),
+    # Block 4
+    ("conv", 96, (1, 3), "SAME", None), ("bnact",),
+    ("conv", 96, (3, 1), "VALID", None), ("bnact",),
+    ("pool", (1, 2), (1, 2), "VALID"),
+    ("conv", 96, (1, 3), "SAME", None), ("bnact",),
+    ("conv", 96, (3, 1), "VALID", None), ("bnact",),
+    # Block 5
+    ("conv", 96, (1, 3), "SAME", None), ("bnact",),
+    ("conv", 96, (3, 1), "VALID", None), ("bnact",),
+    ("pool", (2, 2), (2, 2), "VALID"),
+    ("conv", 96, (3, 1), "VALID", None),
+]
+
+INPUT_SHAPE = (76, 32, 1)
+OUTPUT_DIM = 96
+
+
+def spec():
+    """The layer program (read-only copy)."""
+    return list(_SPEC)
+
+
+def _normal(rng: np.random.Generator, shape) -> np.ndarray:
+    """Standard normal draws by Box-Muller over ``Generator.random``, whose
+    stream numpy keeps stable across versions."""
+    n = int(np.prod(shape))
+    u1, u2 = rng.random(n), rng.random(n)
+    z = np.sqrt(-2.0 * np.log1p(-u1)) * np.cos(2.0 * np.pi * u2)
+    return z.reshape(shape)
+
+
+def init_params(rng: np.random.Generator) -> Dict:
+    """He-normal conv weights and identity BatchNorms with the exact layer
+    geometry, as float32 numpy in the checkpoint (JAX) layout: HWIO convs.
+    Convert with ``convert.embedding_from_jax``. The draws differ from the
+    JAX package's ``jax.random`` init."""
+    params: Dict = {}
+    in_ch = INPUT_SHAPE[-1]
+    conv_i = bn_i = 0
+    for op in _SPEC:
+        if op[0] == "conv":
+            _, out_ch, (kh, kw), _, _ = op
+            fan_in = kh * kw * in_ch
+            w = _normal(rng, (kh, kw, in_ch, out_ch)) * np.sqrt(2.0 / fan_in)
+            params[f"conv_{conv_i}"] = {"w": w.astype(np.float32)}
+            conv_i += 1
+            in_ch = out_ch
+        elif op[0] == "bnact":
+            params[f"bn_{bn_i}"] = {
+                "gamma": np.ones((in_ch,), np.float32),
+                "beta": np.zeros((in_ch,), np.float32),
+                "mean": np.zeros((in_ch,), np.float32),
+                "var": np.ones((in_ch,), np.float32),
+            }
+            bn_i += 1
+    return params
+
+
+def clipped_leaky(x: torch.Tensor) -> torch.Tensor:
+    """max(max(0.2*x, x), -0.4) -- the embedding model's activation."""
+    return torch.clamp_min(torch.maximum(0.2 * x, x), -0.4)
+
+
+def _same_pads(size: int, k: int, s: int) -> Tuple[int, int]:
+    """XLA's 'SAME' padding (low, high) for one spatial axis."""
+    out = -(-size // s)
+    total = max((out - 1) * s + k - size, 0)
+    return total // 2, total - total // 2
+
+
+def pool(x: torch.Tensor, window, strides, padding: str) -> torch.Tensor:
+    """Max pool of NCHW ``x`` with ``reduce_window`` semantics: 'VALID'
+    floors, 'SAME' pads with -inf as XLA does."""
+    if padding == "SAME":
+        (tl, th), (wl, wh) = (_same_pads(x.shape[2], window[0], strides[0]),
+                              _same_pads(x.shape[3], window[1], strides[1]))
+        if tl or th or wl or wh:
+            x = F.pad(x, (wl, wh, tl, th), value=-float("inf"))
+    return F.max_pool2d(x, window, strides)
+
+
+def run_program(folded: Dict, x: torch.Tensor,
+                caches_in: Optional[Dict] = None,
+                caches_out: Optional[Dict] = None) -> torch.Tensor:
+    """Run the layer program on NCHW ``x`` with BN-folded params.
+
+    ``caches_in`` (streaming): per time conv, the (B, C, 2, W) input tail
+    prepended to its input, which then runs 'VALID'. ``caches_out``: filled
+    with each time conv's input's last 2 rows. Returns the final (B, 96, T, 1)
+    activation.
+    """
+    streaming = caches_in is not None
+    conv_i = bn_i = 0
+    for layer in _SPEC:
+        kind = layer[0]
+        if kind == "pad":
+            pw = layer[1]
+            # streaming pads the width only; time context comes from caches
+            x = F.pad(x, (pw[1], pw[1], 0, 0) if streaming else (pw[1], pw[1], pw[0], pw[0]))
+        elif kind == "conv":
+            _, _, (kh, kw), padding, act = layer
+            name = f"cache_{conv_i}"
+            if kh > 1 and streaming:
+                if padding == "SAME":
+                    raise ValueError("time-extended SAME convs unsupported in streaming mode")
+                x = torch.cat([caches_in[name], x], dim=2)
+            if kh > 1 and caches_out is not None:
+                caches_out[name] = x[:, :, -2:]
+            c = folded[f"conv_{conv_i}"]
+            x = F.conv2d(x, c["w"], c["b"], padding="same" if padding == "SAME" else 0)
+            if act == "relu":
+                x = torch.relu(x)
+            conv_i += 1
+        elif kind == "bnact":
+            aff = folded.get(f"affine_{bn_i}")
+            if aff is not None:
+                x = x * aff["scale"][:, None, None] + aff["shift"][:, None, None]
+            x = clipped_leaky(x)
+            bn_i += 1
+        elif kind == "pool":
+            _, window, strides, padding = layer
+            x = pool(x, window, strides, padding)
+    return x
+
+
+def fold_batchnorm(params: Dict) -> Dict:
+    """Fold inference BatchNorms into the preceding convs. The stem conv has
+    an in-graph ReLU before its BN, so that BN stays a per-channel affine
+    ('affine_0')."""
+    folded: Dict = {}
+    conv_i = bn_i = 0
+    prev_conv = None
+    for op in _SPEC:
+        if op[0] == "conv":
+            w = params[f"conv_{conv_i}"]["w"]
+            folded[f"conv_{conv_i}"] = {"w": w, "b": torch.zeros(w.shape[0], dtype=w.dtype, device=w.device)}
+            prev_conv = None if op[4] == "relu" else conv_i
+            conv_i += 1
+        elif op[0] == "bnact":
+            bn = params[f"bn_{bn_i}"]
+            scale = bn["gamma"] / torch.sqrt(bn["var"] + BN_EPS)
+            shift = bn["beta"] - bn["mean"] * scale
+            if prev_conv is not None:
+                c = folded[f"conv_{prev_conv}"]
+                folded[f"conv_{prev_conv}"] = {"w": c["w"] * scale[:, None, None, None],
+                                               "b": c["b"] * scale + shift}
+            else:
+                folded[f"affine_{bn_i}"] = {"scale": scale, "shift": shift}
+            prev_conv = None
+            bn_i += 1
+    return folded
+
+
+def is_folded(params: Dict) -> bool:
+    """True if params are already in BN-folded form."""
+    return any(k.startswith("affine_") for k in params) or \
+        ("conv_0" in params and "b" in params["conv_0"])
+
+
+def ensure_folded(params: Dict) -> Dict:
+    return params if is_folded(params) else fold_batchnorm(params)
+
+
+def apply_folded(folded: Dict, x: torch.Tensor) -> torch.Tensor:
+    """(B, 76, 32) transformed log-mel windows -> (B, 96) embeddings."""
+    if x.ndim == 4:                       # (B, 76, 32, 1), the JAX package's NHWC form
+        x = x[..., 0]
+    out = run_program(folded, x.to(torch.float32)[:, None])
+    return out.reshape(out.shape[0], OUTPUT_DIM)

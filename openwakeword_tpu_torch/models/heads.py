@@ -1,0 +1,140 @@
+"""Wake-word classifier heads in PyTorch (counterpart of
+``openwakeword_tpu.models.heads``), for the ``dnn`` and ``mlp``
+architectures:
+
+  * ``dnn`` -- Flatten -> Linear(W) -> LayerNorm -> ReLU ->
+               n x [Linear(W) -> LayerNorm -> ReLU] -> Linear(classes)
+  * ``mlp`` -- Flatten -> Linear(W) -> ReLU -> Linear(W) -> ReLU -> Linear(classes)
+
+Binary heads end in sigmoid; multiclass heads in ReLU'd logits (unless the
+meta says ``relu_logits=False``) and softmax. Params are dicts of tensors
+with linears in the JAX package's (n_in, n_out) layout; the architecture
+meta travels separately. The ``rnn`` head waits for a later slice.
+"""
+
+from typing import Dict, List
+
+import numpy as np
+import torch
+
+from openwakeword_tpu_torch import config
+
+EMB_DIM = config.EMB_DIM
+_ROADMAP_RNN = "rnn heads are not ported yet (ROADMAP.md, queue 1, slice A)"
+
+
+def _linear_init(rng: np.random.Generator, n_in: int, n_out: int) -> Dict:
+    # torch.nn.Linear-style U(-1/sqrt(n_in), 1/sqrt(n_in)) from Generator.random
+    bound = 1.0 / np.sqrt(n_in)
+    return {"w": ((rng.random((n_in, n_out)) * 2.0 - 1.0) * bound).astype(np.float32),
+            "b": ((rng.random((n_out,)) * 2.0 - 1.0) * bound).astype(np.float32)}
+
+
+def init_params(rng: np.random.Generator, model_type: str = "dnn",
+                input_frames: int = config.DEFAULT_HEAD_INPUT_FRAMES,
+                n_classes: int = 1, layer_dim: int = config.DEFAULT_HEAD_WIDTH,
+                n_blocks: int = 1) -> Dict:
+    """Head params as float32 numpy in the checkpoint (JAX) layout, with the
+    architecture under '__meta__'. The draws differ from the JAX package's
+    ``jax.random`` init."""
+    meta = {"model_type": model_type, "input_frames": int(input_frames),
+            "n_classes": int(n_classes), "layer_dim": int(layer_dim),
+            "n_blocks": int(n_blocks)}
+    n_in = input_frames * EMB_DIM
+    params: Dict = {}
+    if model_type == "dnn":
+        params["layer1"] = _linear_init(rng, n_in, layer_dim)
+        params["ln1"] = {"gamma": np.ones(layer_dim, np.float32), "beta": np.zeros(layer_dim, np.float32)}
+        for i in range(n_blocks):
+            params[f"block{i}_fc"] = _linear_init(rng, layer_dim, layer_dim)
+            params[f"block{i}_ln"] = {"gamma": np.ones(layer_dim, np.float32),
+                                      "beta": np.zeros(layer_dim, np.float32)}
+        params["out"] = _linear_init(rng, layer_dim, n_classes)
+    elif model_type == "mlp":
+        params["layer1"] = _linear_init(rng, n_in, layer_dim)
+        params["layer2"] = _linear_init(rng, layer_dim, layer_dim)
+        params["out"] = _linear_init(rng, layer_dim, n_classes)
+    elif model_type == "rnn":
+        raise NotImplementedError(_ROADMAP_RNN)
+    else:
+        raise ValueError(f"Unknown head model_type: {model_type}")
+    params["__meta__"] = meta
+    return params
+
+
+def _layer_norm(p: Dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    # biased variance, as the JAX package (heads.py _layer_norm)
+    mu = x.mean(dim=-1, keepdim=True)
+    var = ((x - mu) ** 2).mean(dim=-1, keepdim=True)
+    return (x - mu) * torch.rsqrt(var + eps) * p["gamma"] + p["beta"]
+
+
+def _activate(logits: torch.Tensor, meta: Dict, inference: bool) -> torch.Tensor:
+    if meta["n_classes"] == 1:
+        return torch.sigmoid(logits)
+    if meta.get("relu_logits", True):
+        logits = torch.relu(logits)
+    return torch.softmax(logits, dim=-1) if inference else logits
+
+
+def check_supported(meta: Dict):
+    """Raise unless the head architecture is one this port runs."""
+    if meta["model_type"] == "rnn":
+        raise NotImplementedError(_ROADMAP_RNN)
+    if meta["model_type"] not in ("dnn", "mlp"):
+        raise ValueError(f"Unsupported head model_type: {meta['model_type']}")
+
+
+def forward(params: Dict, x: torch.Tensor, meta: Dict, inference: bool = True) -> torch.Tensor:
+    """Score a (B, F, 96) embedding window -> (B, n_classes)."""
+    check_supported(meta)
+
+    def linear(p, z):
+        return z @ p["w"] + p["b"]
+
+    h = x.to(torch.float32).reshape(x.shape[0], -1)
+    if meta["model_type"] == "dnn":
+        h = torch.relu(_layer_norm(params["ln1"], linear(params["layer1"], h)))
+        for i in range(meta["n_blocks"]):
+            h = torch.relu(_layer_norm(params[f"block{i}_ln"], linear(params[f"block{i}_fc"], h)))
+    else:
+        h = torch.relu(linear(params["layer1"], h))
+        h = torch.relu(linear(params["layer2"], h))
+    return _activate(linear(params["out"], h), meta, inference)
+
+
+def stack_params(params_list: List[Dict]) -> Dict:
+    """Stack same-architecture heads along a leading head axis so H heads
+    evaluate as single batched einsums."""
+    def stack(trees):
+        first = trees[0]
+        return {k: stack([t[k] for t in trees]) if isinstance(first[k], dict)
+                else torch.stack([t[k] for t in trees]) for k in first if k != "__meta__"}
+    return stack(params_list)
+
+
+def forward_stacked(stacked: Dict, x: torch.Tensor, meta: Dict, inference: bool = True) -> torch.Tensor:
+    """Evaluate H stacked dnn/mlp heads on a shared (S, F, 96) input ->
+    (S, H, n_classes)."""
+    check_supported(meta)
+
+    def linear(p, z):
+        eq = "sd,hdw->shw" if z.ndim == 2 else "shd,hdw->shw"
+        return torch.einsum(eq, z, p["w"]) + p["b"][None]
+
+    def layer_norm(p, z, eps=1e-5):
+        mu = z.mean(dim=-1, keepdim=True)
+        var = ((z - mu) ** 2).mean(dim=-1, keepdim=True)
+        return (z - mu) * torch.rsqrt(var + eps) * p["gamma"][None] + p["beta"][None]
+
+    h = x.to(torch.float32).reshape(x.shape[0], -1)
+    if meta["model_type"] == "dnn":
+        z = torch.relu(layer_norm(stacked["ln1"], linear(stacked["layer1"], h)))
+        i = 0
+        while f"block{i}_fc" in stacked:
+            z = torch.relu(layer_norm(stacked[f"block{i}_ln"], linear(stacked[f"block{i}_fc"], z)))
+            i += 1
+    else:
+        z = torch.relu(linear(stacked["layer1"], h))
+        z = torch.relu(linear(stacked["layer2"], z))
+    return _activate(linear(stacked["out"], z), meta, inference)

@@ -1,0 +1,401 @@
+"""Multi-stream wake-word engine in PyTorch (counterpart of
+``openwakeword_tpu.parallel.engine.MultiStreamEngine``).
+
+All per-stream state -- PCM look-back, mel ring, embedding ring, conv caches,
+score history, warm-up / patience / debounce counters -- lives in tensors on
+one device with a leading stream axis. One step advances every stream by
+80 ms in three stages:
+
+1. mel frontend: the PCM tail and the chunk form a (S, 1760) window, which
+   ``ops.melspec_cuda`` turns into (S, 8, 32) raw dB (the hand-written kernel
+   on CUDA); then the top_db clamp over the valid frames, the /10+2 affine
+   and the 76-row mel ring with the first-frame 5-row rule;
+2. incremental embedding CNN (``models.embedding_stream``), re-primed from
+   the mel ring in blocks of PRIME_BLOCK_STREAMS when a stream starts;
+3. the feature ring, the heads (same-architecture heads stacked) and the
+   gating.
+
+Numerics follow the JAX engine at ``precision="highest"``: scores agree
+within reassociation of float32 sums. Whether a step primes is decided from
+a host-side mirror of ``frames_seen``, which host-known inputs fully
+determine (resets and the ``valid`` masks), so no step reads the device.
+"""
+
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from openwakeword_tpu_torch import config, convert, gating, registry
+from openwakeword_tpu_torch.io import loaders
+from openwakeword_tpu_torch.models import embedding as embedding_model
+from openwakeword_tpu_torch.models import embedding_stream
+from openwakeword_tpu_torch.models import heads as heads_lib
+from openwakeword_tpu_torch.ops import melspec as melspec_ops
+from openwakeword_tpu_torch.ops import melspec_cuda
+
+MEL_RING = config.EMB_WINDOW_FRAMES          # 76 frames
+
+# The port runs every stage in full float32: both tiers the JAX engine
+# keeps inside the 1e-3 score budget map here. 'high' is a 3-pass bf16
+# approximation of float32 in JAX, so float32 is at least as close to
+# 'highest'. The lower tiers wait for their port.
+SUPPORTED_PRECISIONS = ("highest", "high")
+_ROADMAP_PRECISION = ("precision {!r} is not ported yet: the port runs 'highest' and 'high' "
+                      "as float32 (ROADMAP.md, queue 1, slice A: precision tiers)")
+
+
+def seed_embeddings(emb_folded: Dict, noise: torch.Tensor, n_frames: int) -> torch.Tensor:
+    """The last ``n_frames`` embeddings of a noise clip, for feature-ring
+    seeding: full melspectrogram with top_db, every 76-row window at hop 8."""
+    spec = melspec_ops.melspectrogram(noise, top_db=config.MEL_TOP_DB)      # (T, 32)
+    n_windows = (spec.shape[0] - MEL_RING) // 8 + 1
+    wins = torch.stack([spec[i * 8:i * 8 + MEL_RING] for i in range(n_windows)])
+    return embedding_model.apply_folded(emb_folded, wins)[-n_frames:]
+
+
+def _resolve_heads(wakeword_models: Sequence[str]) -> List[Tuple[str, Dict, Dict, Dict]]:
+    """(name, numpy params, class_mapping, file_meta) per head."""
+    resolved, names = registry.resolve_wakeword_models(list(wakeword_models))
+    out = []
+    for path, name in zip(resolved, names):
+        params, meta = loaders.load_head(path, name)
+        n_cls = int(params["__meta__"]["n_classes"])
+        if meta.get("class_mapping"):
+            mapping = dict(meta["class_mapping"])
+        elif registry.model_class_mappings.get(name):
+            mapping = registry.model_class_mappings[name]
+        else:
+            mapping = {str(i): str(i) if n_cls > 1 else name for i in range(n_cls)}
+        out.append((name, params, mapping, meta))
+    return out
+
+
+def _to_device(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+class MultiStreamEngine:
+    """Scores ``n_streams`` independent 16 kHz streams, one 80 ms frame per
+    step, on one device.
+
+    ``device`` defaults to "cuda" and there is no CPU fallback: a CUDA device
+    without CUDA raises. ``device="cpu"`` runs every stage with plain
+    PyTorch ops (the tests' path). ``embedding_params`` takes the port's
+    tensors (``convert.embedding_from_jax``), BN-folded or not. The engine
+    turns TF32 off for cuDNN convolutions and cuBLAS matmuls
+    (``torch.backends``), process-wide, so float32 means float32.
+    """
+
+    def __init__(self,
+                 wakeword_models: Sequence[str] = (),
+                 n_streams: int = 256,
+                 patience: Optional[Dict[str, int]] = None,
+                 threshold: Optional[Dict[str, float]] = None,
+                 debounce_time: float = 0.0,
+                 embedding_params: Optional[Dict] = None,
+                 rng_seed: int = 0,
+                 precision: str = "high",
+                 device="cuda"):
+        gating.validate_gating_args(patience, threshold, debounce_time)
+        if not isinstance(precision, str) or precision not in SUPPORTED_PRECISIONS:
+            raise NotImplementedError(_ROADMAP_PRECISION.format(precision))
+        self.precision = precision
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("MultiStreamEngine(device='cuda') needs a CUDA device; "
+                               "pass device='cpu' to run the plain PyTorch path")
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        self.n_streams = int(n_streams)
+
+        # ---- heads: labels and the execution plan (JAX engine :300-351) ----
+        heads = _resolve_heads(wakeword_models)
+        self.model_names = [h[0] for h in heads]
+        self._head_metas = []
+        head_params = {}
+        self.labels: List[str] = []
+        label_head_slices = []
+        for name, params, mapping, _ in heads:
+            head_params[name] = convert.head_from_jax(params, self.device)
+            meta = head_params[name].pop("__meta__")
+            heads_lib.check_supported(meta)
+            n_cls = int(meta["n_classes"])
+            start = len(self.labels)
+            if n_cls == 1:
+                self.labels.append(name)
+                cols = (0,)
+            else:
+                # label order follows the class mapping's integer keys; the
+                # built-in timer map omits class 0
+                keys = sorted(mapping.keys(), key=int)
+                cols = tuple(int(k) for k in keys)
+                self.labels.extend(mapping[k] for k in keys)
+            self._head_metas.append((name, meta, cols))
+            label_head_slices.append((start, len(self.labels), name, n_cls))
+        self.max_head_frames = max(int(m["input_frames"]) for _, m, _ in self._head_metas)
+
+        label_starts = {name: start for start, _, name, _ in label_head_slices}
+        groups: Dict[tuple, list] = {}
+        for name, meta, cols in self._head_metas:
+            groups.setdefault(tuple(sorted(meta.items())), []).append((name, meta, cols))
+        self._exec_plan = []
+        n_groups = 0
+        for members in groups.values():
+            if len(members) > 1:
+                gid = f"group_{n_groups}"
+                n_groups += 1
+                head_params[gid] = heads_lib.stack_params([head_params.pop(n) for n, _, _ in members])
+                self._exec_plan.append(("stacked", gid, members[0][1],
+                                        [(n, c, label_starts[n]) for n, _, c in members]))
+            else:
+                n, meta, cols = members[0]
+                self._exec_plan.append(("single", n, meta, [(n, cols, label_starts[n])]))
+
+        # ---- gating vectors ----
+        n_labels = len(self.labels)
+        patience_vec = np.zeros(n_labels, dtype=np.int32)
+        threshold_vec = np.full(n_labels, np.inf, dtype=np.float32)
+        self._debounce_frames = min(int(np.ceil(debounce_time / 0.08)),
+                                    config.PREDICTION_BUFFER_MAX) if debounce_time > 0 else 0
+        recycle = np.zeros(n_labels, dtype=np.float32)
+        for start, end, name, n_cls in label_head_slices:
+            if threshold and name in threshold:
+                threshold_vec[start:end] = threshold[name]
+            if patience and name in patience:
+                patience_vec[start:end] = patience[name]
+            if n_cls == 1:
+                # binary labels recycle their previous score on a starved
+                # masked step; multiclass labels read zero
+                recycle[start:end] = 1.0
+        if patience:
+            missing = sorted(m for m, p in patience.items()
+                             if p > 0 and (not threshold or m not in threshold))
+            if missing:
+                raise ValueError(f"patience is set for {missing} but threshold has no "
+                                 "entry for them; the patience filter needs a per-model threshold")
+        self._use_patience = bool(patience)
+        self._use_debounce = debounce_time > 0
+        self._patience_vec = torch.from_numpy(patience_vec).to(self.device)
+        self._threshold_vec = torch.from_numpy(threshold_vec).to(self.device)
+        self._recycle_mask = torch.from_numpy(recycle).to(self.device)
+
+        # ---- embedding ----
+        if embedding_params is None:
+            embedding_params = convert.embedding_from_jax(loaders.load_embedding_params())
+        self.params = {"embedding": _to_device(embedding_model.ensure_folded(embedding_params), self.device),
+                       "heads": head_params}
+
+        # one noise clip seeds every stream's feature ring, at every reset
+        F = self.max_head_frames
+        n_samples = max(16000 * config.FEATURE_SEED_SECONDS, (MEL_RING + 8 * (F - 1) + 4) * 160)
+        noise = np.random.default_rng(rng_seed).integers(-1000, 1000, n_samples).astype(np.float32)
+        self._seed_ring = seed_embeddings(self.params["embedding"], torch.from_numpy(noise).to(self.device), F)
+        self.reset()
+
+    # ------------------------------------------------------------------
+
+    def init_state(self, n_streams: int) -> Dict:
+        """Fresh per-stream state: mel ring of ones and a feature ring seeded
+        with the embeddings of ``default_rng(rng_seed).integers(-1000, 1000, n)``
+        noise, shared by all streams (JAX engine ``init_state``)."""
+        F = self.max_head_frames
+        S, dev, f32 = n_streams, self.device, torch.float32
+        n_labels = len(self.labels)
+        state = {
+            "pcm_tail": torch.zeros((S, config.MEL_LOOKBACK_SAMPLES), dtype=f32, device=dev),
+            "mel_ring": torch.ones((S, MEL_RING, config.N_MELS), dtype=f32, device=dev),
+            "feat_ring": self._seed_ring[None].expand(S, F, config.EMB_DIM).clone(),
+            "score_hist": torch.zeros((S, n_labels, config.PREDICTION_BUFFER_MAX), dtype=f32, device=dev),
+            "frames_seen": torch.zeros((S,), dtype=torch.int32, device=dev),
+            "ticks": torch.zeros((S,), dtype=torch.int32, device=dev),
+            # placeholders: every stream starts at frames_seen == 0, so the
+            # first step primes every cache before a stream step reads one
+            "conv_caches": {k: torch.zeros((S, *shape), dtype=f32, device=dev)
+                            for k, shape in embedding_stream.cache_shapes().items()},
+        }
+        if self._use_patience:
+            state["raw_hist"] = torch.zeros_like(state["score_hist"])
+        return state
+
+    def reset(self):
+        self.state = self.init_state(self.n_streams)
+        self._frames_seen_host = np.zeros(self.n_streams, dtype=np.int64)
+
+    # ------------------------------------------------------------------
+
+    def _prime(self, mel_ring: torch.Tensor) -> Tuple[Dict, torch.Tensor]:
+        """Caches and embeddings of every stream from its 76-row mel ring, in
+        blocks of PRIME_BLOCK_STREAMS streams to bound the stem's temporaries."""
+        folded = self.params["embedding"]
+        blk = int(config.PRIME_BLOCK_STREAMS)
+        if mel_ring.shape[0] <= blk:
+            return embedding_stream.init_caches(folded, mel_ring)
+        parts = [embedding_stream.init_caches(folded, mel_ring[i:i + blk])
+                 for i in range(0, mel_ring.shape[0], blk)]
+        caches = {k: torch.cat([c[k] for c, _ in parts]) for k in parts[0][0]}
+        return caches, torch.cat([e for _, e in parts])
+
+    def _step(self, chunk: torch.Tensor, prime: bool,
+              valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Advance every stream by one (S, 1280) chunk; ``valid`` (S,) bool
+        makes it the masked step. Updates ``self.state``; returns (S, L)."""
+        st = self.state
+        F = self.max_head_frames
+        window = torch.cat([st["pcm_tail"], chunk.to(torch.float32)], dim=-1)      # (S, 1760)
+        mel_raw = melspec_cuda.melspectrogram_frames(window)                       # (S, 8, 32) dB
+
+        # A stream's first frame has no PCM look-back: frames 0..2 come from
+        # the zero tail, so they are left out of the top_db peak and of the
+        # ring (the ring keeps 5 rows instead of 8).
+        is_first = st["frames_seen"] == 0
+        first_valid = torch.where(is_first, 3, 0)
+        frame_valid = torch.arange(8, device=self.device)[None, :] >= first_valid[:, None]
+        peak = torch.where(frame_valid[:, :, None], mel_raw,
+                           torch.full_like(mel_raw, -float("inf"))).amax(dim=(-2, -1), keepdim=True)
+        mel_raw = torch.maximum(mel_raw, peak - config.MEL_TOP_DB)
+        mel = mel_raw * config.MEL_TRANSFORM_SCALE + config.MEL_TRANSFORM_SHIFT
+        ring8 = torch.cat([st["mel_ring"][:, 8:], mel], dim=1)
+        ring5 = torch.cat([st["mel_ring"][:, 5:], mel[:, 3:]], dim=1)
+        mel_ring = torch.where(is_first[:, None, None], ring5, ring8)
+
+        if prime:
+            conv_caches, emb = self._prime(mel_ring)
+        else:
+            conv_caches, emb = embedding_stream.step(self.params["embedding"], st["conv_caches"], mel)
+        feat_ring = torch.cat([st["feat_ring"][:, 1:], emb[:, None, :]], dim=1)
+
+        label_cols = [None] * len(self.labels)
+        for kind, key, meta, members in self._exec_plan:
+            w = feat_ring[:, F - int(meta["input_frames"]):, :]
+            if kind == "stacked":
+                out = heads_lib.forward_stacked(self.params["heads"][key], w, meta)     # (S, H, C)
+                for h, (_, cols, start) in enumerate(members):
+                    for j, c in enumerate(cols):
+                        label_cols[start + j] = out[:, h, c]
+            else:
+                out = heads_lib.forward(self.params["heads"][key], w, meta)             # (S, C)
+                _, cols, start = members[0]
+                for j, c in enumerate(cols):
+                    label_cols[start + j] = out[:, c]
+        scores = torch.stack(label_cols, dim=-1)                                        # (S, L)
+
+        if valid is not None:
+            recycled = st["score_hist"][:, :, -1] * self._recycle_mask
+            scores = torch.where(valid[:, None], scores, recycled)
+
+        scores = gating.warmup_zero(scores, st["ticks"])
+        raw_scores = scores
+        if self._use_patience:
+            scores = gating.patience_filter(scores, st["raw_hist"], self._patience_vec, self._threshold_vec)
+        elif self._use_debounce:
+            scores = gating.debounce_filter(scores, st["score_hist"], self._threshold_vec,
+                                            self._debounce_frames)
+
+        new = {
+            "pcm_tail": window[:, -config.MEL_LOOKBACK_SAMPLES:],
+            "mel_ring": mel_ring,
+            "feat_ring": feat_ring,
+            "score_hist": gating.push_history(st["score_hist"], scores),
+            "frames_seen": st["frames_seen"] + 1,
+            "ticks": st["ticks"] + 1,
+            "conv_caches": conv_caches,
+        }
+        if self._use_patience:
+            raw_push = raw_scores
+            if valid is not None:
+                # a starved stream repeats its last raw score (binary labels)
+                prev_raw = st["raw_hist"][:, :, -1] * self._recycle_mask
+                raw_push = torch.where(valid[:, None], raw_scores, prev_raw)
+            new["raw_hist"] = gating.push_history(st["raw_hist"], raw_push)
+        if valid is not None:
+            # streams without a frame keep their audio-path state; score
+            # history and ticks advance for every call
+            def keep(n, o):
+                return torch.where(valid.reshape((-1,) + (1,) * (n.ndim - 1)), n, o)
+            for k in ("pcm_tail", "mel_ring", "feat_ring", "frames_seen"):
+                new[k] = keep(new[k], st[k])
+            new["conv_caches"] = {k: keep(v, st["conv_caches"][k]) for k, v in conv_caches.items()}
+        self.state = new
+        return scores
+
+    # ------------------------------------------------------------------
+
+    def _feed(self, arr) -> torch.Tensor:
+        """Host PCM -> device tensor; int16 travels as int16 and is cast on
+        the device, other dtypes are cast to float32 on the host."""
+        arr = np.asarray(arr)
+        if arr.dtype != np.int16:
+            arr = arr.astype(np.float32, copy=False)
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+
+    def _advance(self, chunk: torch.Tensor, valid_host: Optional[np.ndarray] = None,
+                 valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+        first = self._frames_seen_host == 0
+        if valid_host is None:
+            prime = bool(first.any())
+            self._frames_seen_host += 1
+        else:
+            # only streams that start on this step trigger the prime: a
+            # frozen slot keeps frames_seen == 0 indefinitely
+            prime = bool((first & valid_host).any())
+            self._frames_seen_host += valid_host
+        return self._step(chunk, prime, valid)
+
+    def predict(self, chunks: np.ndarray) -> np.ndarray:
+        """Advance every stream by one 80 ms frame.
+
+        Args:
+            chunks: (n_streams, 1280) int16/float PCM.
+        Returns:
+            (n_streams, n_labels) float32 scores, ordered like ``self.labels``.
+        """
+        return self._advance(self._feed(chunks)).cpu().numpy()
+
+    def predict_masked(self, chunks: np.ndarray, valid: np.ndarray) -> np.ndarray:
+        """Advance only the streams with ``valid[i]``; the others keep their
+        audio state and recycle their previous score (binary labels) or read
+        zero (multiclass labels).
+
+        Args:
+            chunks: (n_streams, 1280) PCM (rows of invalid streams ignored).
+            valid: (n_streams,) bool.
+        Returns:
+            (n_streams, n_labels) float32 scores.
+        """
+        valid_host = np.asarray(valid, dtype=bool).reshape(self.n_streams)
+        v = torch.from_numpy(valid_host).to(self.device)
+        return self._advance(self._feed(chunks), valid_host, v).cpu().numpy()
+
+    def predict_frames(self, frames: np.ndarray) -> np.ndarray:
+        """Advance every stream by T frames.
+
+        Args:
+            frames: (T, n_streams, 1280) PCM.
+        Returns:
+            (T, n_streams, n_labels) scores.
+        """
+        x = self._feed(frames)
+        if x.shape[0] == 0:
+            return np.zeros((0, self.n_streams, len(self.labels)), dtype=np.float32)
+        return torch.stack([self._advance(x[t]) for t in range(x.shape[0])]).cpu().numpy()
+
+    def predict_clips(self, clips: np.ndarray, padding: int = 1) -> np.ndarray:
+        """Score a batch of equal-length clips (n_streams, samples) with 1 s
+        of zero padding on each side (by default), from a fresh state.
+        Returns (T, S, L) scores."""
+        S = clips.shape[0]
+        if S != self.n_streams:
+            raise ValueError(f"Engine built for {self.n_streams} streams, got {S} clips")
+        if padding:
+            z = np.zeros((S, 16000 * padding), dtype=clips.dtype)
+            clips = np.concatenate([z, clips, z], axis=1)
+        n = clips.shape[1]
+        T = -(-(n - config.CHUNK_SAMPLES) // config.CHUNK_SAMPLES)
+        if T <= 0:
+            return np.zeros((0, S, len(self.labels)), dtype=np.float32)
+        frames = np.stack([clips[:, i * 1280:(i + 1) * 1280] for i in range(T)])
+        self.reset()
+        return self.predict_frames(frames)

@@ -1,0 +1,182 @@
+"""The PyTorch port's MultiStreamEngine (device='cpu') against the JAX engine,
+both at precision 'highest', on the same numpy weights and audio.
+
+Both sides are float32 on the CPU, so scores differ by reassociation only:
+the bound is 1e-4 against the port's 1e-3 budget (BASELINE.json)."""
+
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from openwakeword_tpu.parallel.engine import MultiStreamEngine as JaxEngine
+from openwakeword_tpu_torch import config, convert
+from openwakeword_tpu_torch.io.checkpoints import save_checkpoint
+from openwakeword_tpu_torch.models import embedding, heads
+from openwakeword_tpu_torch.parallel.engine import MultiStreamEngine
+
+S = 3
+SCORE_ATOL = 1e-4
+STATE_ATOL = 1e-4
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _few_threads():
+    torch.set_num_threads(2)
+
+
+@pytest.fixture(scope="module")
+def weights(tmp_path_factory):
+    """alexa (dnn) + timer (mlp) head checkpoints and embedding params."""
+    rng = np.random.default_rng(5)
+    d = tmp_path_factory.mktemp("heads")
+    paths = []
+    for name, spec in [("alexa", dict(model_type="dnn")),
+                       ("timer", dict(model_type="mlp", input_frames=34, n_classes=7, layer_dim=128))]:
+        paths.append(str(d / f"{name}.npz"))
+        save_checkpoint(paths[-1], "head", heads.init_params(rng, **spec))
+    return paths, embedding.init_params(rng)
+
+
+def _engines(weights, **kwargs):
+    paths, emb = weights
+    je = JaxEngine(wakeword_models=paths, n_streams=S, precision="highest",
+                   embedding_params=jax.tree.map(jnp.asarray, emb), **kwargs)
+    te = MultiStreamEngine(wakeword_models=paths, n_streams=S, precision="highest", device="cpu",
+                           embedding_params=convert.embedding_from_jax(emb), **kwargs)
+    return je, te
+
+
+@pytest.fixture(scope="module")
+def engines(weights):
+    return _engines(weights)
+
+
+def _pcm(seed, *shape):
+    rng = np.random.default_rng(seed)
+    amp = np.array([500.0, 4000.0, 20000.0])[:, None]
+    return np.round((rng.random(shape) * 2 - 1) * amp).astype(np.int16)
+
+
+def _assert_states_match(je, te):
+    for k in ("pcm_tail", "mel_ring", "feat_ring", "score_hist", "frames_seen", "ticks"):
+        np.testing.assert_allclose(te.state[k].numpy(), np.asarray(je.state[k]), rtol=0, atol=STATE_ATOL,
+                                   err_msg=k)
+    for k, v in je.state["conv_caches"].items():
+        np.testing.assert_allclose(te.state["conv_caches"][k].numpy(), np.asarray(v), rtol=0,
+                                   atol=STATE_ATOL, err_msg=k)
+    np.testing.assert_array_equal(te._frames_seen_host, np.asarray(je.state["frames_seen"]))
+
+
+def test_labels_and_plan_match(engines):
+    je, te = engines
+    assert te.labels == je.labels and len(te.labels) == 7
+    assert [(k, n) for k, n, _, _ in te._exec_plan] == [(k, n) for k, n, _, _ in je._exec_plan]
+    assert te.max_head_frames == je.max_head_frames == 34
+
+
+def test_predict_matches_jax(engines):
+    je, te = engines
+    je.reset()
+    te.reset()
+    pcm = _pcm(1, 12, S, 1280)
+    for t in range(12):                      # frame 0 primes every stream
+        want, got = je.predict(pcm[t]), te.predict(pcm[t])
+        assert got.dtype == np.float32 and got.shape == (S, 7)
+        np.testing.assert_allclose(got, want, rtol=0, atol=SCORE_ATOL, err_msg=f"frame {t}")
+    assert np.abs(got).max() > 0            # past warm-up
+    _assert_states_match(je, te)
+
+
+def test_predict_masked_matches_jax(engines):
+    je, te = engines
+    je.reset()
+    te.reset()
+    pcm = _pcm(2, 12, S, 1280)
+    valid = np.ones((12, S), bool)
+    valid[:4, 2] = False                    # stream 2 starts late: a second prime at frame 4
+    valid[1::2, 1] = False                  # stream 1 starves every other frame
+    for t in range(12):
+        want = je.predict_masked(pcm[t], valid[t])
+        got = te.predict_masked(pcm[t], valid[t])
+        np.testing.assert_allclose(got, want, rtol=0, atol=SCORE_ATOL, err_msg=f"frame {t}")
+    _assert_states_match(je, te)
+    assert list(te._frames_seen_host) == [12, 6, 8]
+
+
+def test_predict_frames_matches_jax(engines):
+    je, te = engines
+    je.reset()
+    te.reset()
+    pcm = _pcm(3, 12, S, 1280)
+    for part in (pcm[:8], pcm[8:], pcm[:0]):
+        want, got = je.predict_frames(part), te.predict_frames(part)
+        assert got.shape == (part.shape[0], S, 7)
+        np.testing.assert_allclose(got, want, rtol=0, atol=SCORE_ATOL)
+    _assert_states_match(je, te)
+
+
+def test_predict_clips_matches_jax(engines):
+    je, te = engines
+    clips = _pcm(4, S, 12000)
+    want, got = je.predict_clips(clips), te.predict_clips(clips)
+    assert got.shape == want.shape == (34, S, 7)
+    np.testing.assert_allclose(got, want, rtol=0, atol=SCORE_ATOL)
+    assert te.predict_clips(clips[:, :1000], padding=0).shape == (0, S, 7)
+
+
+def test_blocked_prime_matches_one_block(engines, monkeypatch):
+    _, te = engines
+    pcm = _pcm(5, 3, S, 1280)
+    te.reset()
+    want = te.predict_frames(pcm)
+    monkeypatch.setattr(config, "PRIME_BLOCK_STREAMS", 2)     # blocks of 2 + 1 streams
+    te.reset()
+    np.testing.assert_allclose(te.predict_frames(pcm), want, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("gating_kwargs", [
+    dict(patience={"alexa": 2}, threshold={"alexa": 0.45, "timer": 0.2}),
+    dict(debounce_time=0.25, threshold={"alexa": 0.45, "timer": 0.2}),
+])
+def test_gated_engines_match_jax(weights, gating_kwargs):
+    je, te = _engines(weights, **gating_kwargs)
+    pcm = _pcm(6, 14, S, 1280)
+    valid = np.random.default_rng(6).random((14, S)) < 0.7
+    for t in range(14):
+        if t < 8:
+            want, got = je.predict(pcm[t]), te.predict(pcm[t])
+        else:
+            want, got = je.predict_masked(pcm[t], valid[t]), te.predict_masked(pcm[t], valid[t])
+        np.testing.assert_allclose(got, want, rtol=0, atol=SCORE_ATOL, err_msg=f"frame {t}")
+    _assert_states_match(je, te)
+
+
+@pytest.mark.parametrize("precision", ["fast", "bf16", "mixed", {"mel": "high"}])
+def test_unported_precisions_raise(weights, precision):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        MultiStreamEngine(wakeword_models=weights[0], n_streams=1, precision=precision, device="cpu")
+
+
+def test_cuda_device_without_cuda_raises(weights):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="needs a CUDA device"):
+        MultiStreamEngine(wakeword_models=weights[0], n_streams=1)
+
+
+def test_import_leaves_jax_out():
+    code = ("import sys, openwakeword_tpu_torch, openwakeword_tpu_torch.testing, "
+            "openwakeword_tpu_torch.ops.melspec_cuda, openwakeword_tpu_torch.utils.cuda_build; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'openwakeword_tpu')]; "
+            "assert not bad, bad")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=root, env=env, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr

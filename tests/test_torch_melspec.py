@@ -1,0 +1,80 @@
+"""Mel frontend of the PyTorch port against the JAX package: the constant
+factories, the plain ``melspectrogram`` and kernel 1's plain version
+(``ops.melspec_cuda``) against ``melspectrogram_pallas`` in interpret mode."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from openwakeword_tpu.ops import melspec as jax_melspec
+from openwakeword_tpu.ops.melspec_pallas import melspectrogram_pallas
+from openwakeword_tpu_torch.ops import melspec, melspec_cuda
+
+MEL_ATOL_DB = 2e-3    # the JAX package's own kernel tolerance (tests/test_pallas.py)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _few_threads():
+    torch.set_num_threads(2)
+
+
+def _windows(rng, n, n_samples=1760):
+    return (rng.uniform(-1, 1, (n, n_samples)) * 25000).astype(np.float32)
+
+
+@pytest.mark.parametrize("name", ["hann_window", "mel_filterbank", "stft_power_basis"])
+def test_constant_factories_bit_equal(name):
+    want, got = getattr(jax_melspec, name)(), getattr(melspec, name)()
+    assert got.dtype == want.dtype == np.float64
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(melspec.f32_const(got, "cpu").numpy(), np.asarray(jax_melspec._f32(want)))
+
+
+@pytest.mark.parametrize("n_samples", [512, 1760, 16000])
+def test_frame_signal_matches_jax(rng, n_samples):
+    x = _windows(rng, 2, n_samples)
+    got = melspec.frame_signal(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(got, np.asarray(jax_melspec.frame_signal(jnp.asarray(x))))
+    assert melspec.num_frames(n_samples) == jax_melspec.num_frames(n_samples) == got.shape[1]
+
+
+@pytest.mark.parametrize("apply_transform", [True, False])
+def test_melspectrogram_matches_jax(rng, apply_transform):
+    x = _windows(rng, 3, 16000)
+    x[1, :4000] = 0.0                       # quiet stretch: the top_db clamp engages
+    want = np.asarray(jax_melspec.melspectrogram(jnp.asarray(x), apply_transform=apply_transform))
+    got = melspec.melspectrogram(torch.from_numpy(x), apply_transform=apply_transform).numpy()
+    assert got.shape == want.shape == (3, 97, 32)
+    np.testing.assert_allclose(got, want, rtol=0, atol=MEL_ATOL_DB)
+
+
+def test_frames_plain_matches_pallas_and_reference_op(rng):
+    windows = _windows(rng, 5)
+    got = melspec_cuda.melspectrogram_frames_plain(torch.from_numpy(windows)).numpy()
+    pallas = np.asarray(melspectrogram_pallas(jnp.asarray(windows), tile_s=4, interpret=True,
+                                              precision=jax.lax.Precision.HIGHEST))
+    reference = np.asarray(jax_melspec.melspectrogram(jnp.asarray(windows), apply_transform=False,
+                                                      top_db=None))
+    assert got.shape == pallas.shape == (5, 8, 32)
+    np.testing.assert_allclose(got, pallas, rtol=0, atol=MEL_ATOL_DB)
+    np.testing.assert_allclose(got, reference, rtol=0, atol=MEL_ATOL_DB)
+
+
+def test_silence_gives_amin_floor():
+    got = melspec_cuda.melspectrogram_frames_plain(torch.zeros((3, 1760))).numpy()
+    np.testing.assert_allclose(got, -100.0, atol=1e-4)
+
+
+def test_wrapper_takes_plain_path_for_cpu_tensors(rng):
+    x = torch.from_numpy(_windows(rng, 4))
+    before = melspec_cuda.melspectrogram_frames.launches
+    got = melspec_cuda.melspectrogram_frames(x)
+    torch.testing.assert_close(got, melspec_cuda.melspectrogram_frames_plain(x), rtol=0, atol=0)
+    assert melspec_cuda.melspectrogram_frames.launches == before == 0
+
+
+def test_wrapper_rejects_other_devices():
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        melspec_cuda.melspectrogram_frames(torch.empty((2, 1760), device="meta"))
