@@ -7,19 +7,34 @@ Phases, each of which exits nonzero on failure:
 
 1. device: needs ``torch.cuda.is_available()``; prints the card's name and
    power limit as nvidia-smi reports them;
-2. build: compiles ``openwakeword_tpu_torch/csrc/*.cu`` with nvcc for sm_90a;
-3. kernel vs plain: the mel kernel against its plain PyTorch version on the
-   card, S in {1, 5, 1000, 4096}, max |dB diff| <= 2e-3, plus silence
-   (-100 dB); times both at S=4096 with CUDA events;
+2. build: compiles ``openwakeword_tpu_torch/csrc/*.cu`` with nvcc for sm_90a,
+   one nvcc per source, all at once;
+3. mel kernels vs plain: kernels 1 (direct DFT) and 2 (factored DFT) against
+   their plain PyTorch versions on the card, S in {1, 5, 1000, 4096}, max
+   |dB diff| <= 2e-3, plus silence (-100 dB); times each pair at S=4096 with
+   CUDA events (plain, kernel, kernel, plain);
 4. golden: the port's engine on the card against the JAX engine's committed
-   scores (tests/fixtures/torch_port_golden.npz), max |dscore| < 1e-3;
+   scores (tests/fixtures/torch_port_golden.npz), max |dscore| < 1e-3, with
+   ``mel_dft="direct"`` and with ``mel_dft="factored"`` (kernel 2 must
+   launch);
 5. scale: the bench configuration (all six published heads, default CNN,
    seeded random weights) at 4096 streams, ``predict_frames`` over 50 frames
    twice (the first warms up); scores must be finite, in [0, 1], shaped
    (50, 4096, 11), and the mel kernel must have launched during the timed run.
+   Then the same with ``mel_dft="factored"`` (kernel 2 must launch), whose
+   scores must agree with the direct run's within 1e-3;
+6. CNN kernels vs plain: kernel 4 (prime) and kernel 3 (step) of
+   ``ops.cnn_step`` against their plain versions, S in {1, 5, 130, 4096}, a
+   prime and 4 steps, max |diff| <= 1e-4 on embeddings and all 11 caches; at
+   S=5 also against the engine's NHWC ``embedding_stream`` step;
+7. CNN path at scale: ``CnnStepKernel.prime`` (kernel 4) and 50
+   ``CnnStepKernel.step`` calls at S=4096, held against the plain versions;
+8. CNN timing at S=4096: kernel 3 vs its plain version vs the engine's NHWC
+   eager step, kernel 4 vs its plain version.
 
-Then it prints one JSON line describing each kernel and, last, the result
-line ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
+Then it prints one JSON line describing each kernel, the card's name and
+power limit, and last the result line ``{"ok": true, "device": {...}}``. It
+imports nothing of JAX.
 """
 
 import json
@@ -33,6 +48,7 @@ import numpy as np
 
 MEL_TOL_DB = 2e-3          # the JAX package's own mel tolerance (tests/test_pallas.py)
 SCORE_TOL = 1e-3           # the port's score budget against JAX 'highest' (BASELINE.json)
+CNN_TOL = 1e-4             # the JAX CNN kernel tests' tolerance (tests/test_cnn_pallas.py)
 SCALE_STREAMS = 4096
 SCALE_FRAMES = 50
 
@@ -55,6 +71,38 @@ def cuda_ms(fn, n_iter: int = 50, n_warm: int = 5) -> float:
     return start.elapsed_time(end) / n_iter
 
 
+def sandwich(name: str, kernel, plain, n_iter: int = 50):
+    """(kernel ms, plain ms): the better of two runs each, timed in the order
+    plain, kernel, kernel, plain."""
+    p1 = cuda_ms(plain, n_iter)
+    k1 = cuda_ms(kernel, n_iter)
+    k2 = cuda_ms(kernel, n_iter)
+    p2 = cuda_ms(plain, n_iter)
+    print(f"{name} at S={SCALE_STREAMS}: kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms "
+          f"(plain, kernel, kernel, plain)")
+    return min(k1, k2), min(p1, p2)
+
+
+def max_diff(got, want) -> float:
+    return float((got - want).abs().max())
+
+
+def cnn_weights():
+    """Folded port params from seeded He-normal convs and non-trivial
+    BatchNorm statistics."""
+    from openwakeword_tpu_torch import convert
+    from openwakeword_tpu_torch.models import embedding
+    rng = np.random.default_rng(11)
+    p = embedding.init_params(rng)
+    for k in [k for k in p if k.startswith("bn_")]:
+        c = p[k]["gamma"].shape[0]
+        p[k] = {"gamma": (0.7 + 0.5 * rng.random(c)).astype(np.float32),
+                "beta": (0.3 * (rng.random(c) - 0.5)).astype(np.float32),
+                "mean": (0.3 * (rng.random(c) - 0.5)).astype(np.float32),
+                "var": (0.8 + 0.4 * rng.random(c)).astype(np.float32)}
+    return embedding.fold_batchnorm(convert.embedding_from_jax(p))
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -62,13 +110,16 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
         from openwakeword_tpu_torch import convert, testing
-        from openwakeword_tpu_torch.ops import melspec_cuda
+        from openwakeword_tpu_torch.models import embedding_stream
+        from openwakeword_tpu_torch.ops import cnn_step, cnn_step_cuda, melspec_cuda
         from openwakeword_tpu_torch.parallel.engine import MultiStreamEngine
         from openwakeword_tpu_torch.utils import cuda_build
     except ImportError as e:
         fail(f"cannot import the port ({e}); run from the root of a checkout")
     if "jax" in sys.modules:
         fail("the port imported jax")
+    torch.backends.cuda.matmul.allow_tf32 = False      # plain versions in full fp32
+    torch.backends.cudnn.allow_tf32 = False
 
     # 1. device
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -83,89 +134,189 @@ def main():
     print(f"build: {built.path} in {built.build_seconds:.2f} s "
           f"(nvcc {' '.join(cuda_build.NVCC_FLAGS)})")
     for line in built.log.splitlines():
-        if "registers" in line or "spill" in line:
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"  ptxas: {line.strip()}")
 
-    # 3. kernel vs plain on the card
+    # 3. mel kernels vs plain on the card
     dev = torch.device("cuda", 0)
-    mel, plain = melspec_cuda.melspectrogram_frames, melspec_cuda.melspectrogram_frames_plain
-    max_err = 0.0
-    for n in (1, 5, 1000, SCALE_STREAMS):
-        w = (np.random.default_rng(n).uniform(-1, 1, (n, melspec_cuda.WINDOW)) * 25000).astype(np.float32)
-        w[n // 2] = 0.0                                       # one silent stream
-        x = torch.from_numpy(w).to(dev)
-        got, want = mel(x), plain(x)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        print(f"mel kernel vs plain, S={n}: max |diff| {err:.3e} dB")
-        if not err <= MEL_TOL_DB:
-            fail(f"mel kernel disagrees with the plain version at S={n}: {err} dB > {MEL_TOL_DB}")
-        max_err = max(max_err, err)
-    silence = mel(torch.zeros((7, melspec_cuda.WINDOW), device=dev))
-    if float((silence + 100.0).abs().max()) > 1e-4:
-        fail("silence does not give -100 dB")
-    x = torch.from_numpy((np.random.default_rng(0).uniform(-1, 1, (SCALE_STREAMS, melspec_cuda.WINDOW))
-                          * 25000).astype(np.float32)).to(dev)
-    ms_plain_1 = cuda_ms(lambda: plain(x))
-    ms_kernel_1 = cuda_ms(lambda: mel(x))
-    ms_kernel_2 = cuda_ms(lambda: mel(x))
-    ms_plain_2 = cuda_ms(lambda: plain(x))
-    ms_kernel, ms_plain = min(ms_kernel_1, ms_kernel_2), min(ms_plain_1, ms_plain_2)
-    print(f"mel at S={SCALE_STREAMS}: kernel {ms_kernel_1:.4f} / {ms_kernel_2:.4f} ms, "
-          f"plain {ms_plain_1:.4f} / {ms_plain_2:.4f} ms (plain, kernel, kernel, plain)")
+    mel, mel_plain = melspec_cuda.melspectrogram_frames, melspec_cuda.melspectrogram_frames_plain
+    mel_err, mel_ms = {}, {}
+    x_scale = torch.from_numpy((np.random.default_rng(0).uniform(-1, 1, (SCALE_STREAMS, melspec_cuda.WINDOW))
+                                * 25000).astype(np.float32)).to(dev)
+    for dft in melspec_cuda.DFTS:
+        mel_err[dft] = 0.0
+        for n in (1, 5, 1000, SCALE_STREAMS):
+            w = (np.random.default_rng(n).uniform(-1, 1, (n, melspec_cuda.WINDOW)) * 25000).astype(np.float32)
+            w[n // 2] = 0.0                                   # one silent stream
+            x = torch.from_numpy(w).to(dev)
+            got, want = mel(x, dft), mel_plain(x, dft)
+            torch.cuda.synchronize()
+            err = max_diff(got, want)
+            print(f"mel kernel ({dft}) vs plain, S={n}: max |diff| {err:.3e} dB")
+            if not err <= MEL_TOL_DB:
+                fail(f"mel kernel ({dft}) disagrees with the plain version at S={n}: {err} dB > {MEL_TOL_DB}")
+            mel_err[dft] = max(mel_err[dft], err)
+        silence = mel(torch.zeros((7, melspec_cuda.WINDOW), device=dev), dft)
+        if float((silence + 100.0).abs().max()) > 1e-4:
+            fail(f"silence does not give -100 dB ({dft})")
+        mel_ms[dft] = sandwich(f"mel ({dft})", lambda: mel(x_scale, dft), lambda: mel_plain(x_scale, dft))
 
-    # 4. golden against the JAX engine's committed scores
+    # 4. golden against the JAX engine's committed scores, both mel DFTs
     with np.load(testing.FIXTURE) as z:
         fixture = {k: z[k] for k in z.files}
     inputs = testing.golden_inputs(int(fixture["seed"]))
     if inputs["sha256"] != str(fixture["inputs_sha256"]):
         fail("golden inputs do not regenerate bit-exactly with this numpy")
-    with tempfile.TemporaryDirectory() as d:
-        engine = MultiStreamEngine(wakeword_models=testing.write_head_checkpoints(inputs["heads"], d),
-                                   n_streams=testing.GOLDEN_STREAMS, precision="highest", device=dev,
-                                   embedding_params=convert.embedding_from_jax(inputs["embedding"]))
-    if engine.labels != list(fixture["labels"]):
-        fail(f"labels {engine.labels} != golden {list(fixture['labels'])}")
-    golden_err = float(np.abs(testing.run_golden(engine, inputs) - fixture["scores"]).max())
-    print(f"golden: max |dscore| vs the JAX engine ('highest') = {golden_err:.3e} over "
-          f"{fixture['scores'].shape}")
-    if not golden_err < SCORE_TOL:
-        fail(f"golden scores off by {golden_err} >= {SCORE_TOL}")
-    del engine
+    mel_launches = {}
+    for dft in melspec_cuda.DFTS:
+        with tempfile.TemporaryDirectory() as d:
+            engine = MultiStreamEngine(wakeword_models=testing.write_head_checkpoints(inputs["heads"], d),
+                                       n_streams=testing.GOLDEN_STREAMS, precision="highest", mel_dft=dft,
+                                       device=dev, embedding_params=convert.embedding_from_jax(inputs["embedding"]))
+        if engine.labels != list(fixture["labels"]):
+            fail(f"labels {engine.labels} != golden {list(fixture['labels'])}")
+        mel.launches[dft] = 0
+        golden_err = float(np.abs(testing.run_golden(engine, inputs) - fixture["scores"]).max())
+        mel_launches[dft] = mel.launches[dft]
+        print(f"golden (mel_dft={dft}): max |dscore| vs the JAX engine ('highest') = {golden_err:.3e} over "
+              f"{fixture['scores'].shape}, {mel_launches[dft]} {dft} mel launches")
+        if not golden_err < SCORE_TOL:
+            fail(f"golden scores (mel_dft={dft}) off by {golden_err} >= {SCORE_TOL}")
+        if mel_launches[dft] < 3 * testing.PHASE_FRAMES:
+            fail(f"the {dft} mel kernel launched {mel_launches[dft]} times in the golden run")
+        del engine
 
-    # 5. scale: the bench configuration at 4096 streams
-    t0 = time.perf_counter()
-    engine = MultiStreamEngine(n_streams=SCALE_STREAMS, precision="high", device=dev)
-    torch.cuda.synchronize()
-    print(f"scale: engine with {len(engine.labels)} labels built in {time.perf_counter() - t0:.2f} s")
+    # 5. scale: the bench configuration at 4096 streams, both mel DFTs
     frames = np.random.default_rng(1).integers(-2000, 2000, (SCALE_FRAMES, SCALE_STREAMS, 1280),
                                                dtype=np.int16)
-    t0 = time.perf_counter()
-    engine.predict_frames(frames)                            # warm-up, includes the prime
-    warm_s = time.perf_counter() - t0
-    mel.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    scores = engine.predict_frames(frames)
-    wall = time.perf_counter() - t0
-    launches = mel.launches
-    if scores.shape != (SCALE_FRAMES, SCALE_STREAMS, 11):
-        fail(f"scale scores have shape {scores.shape}")
-    if not (np.isfinite(scores).all() and scores.min() >= 0.0 and scores.max() <= 1.0):
-        fail("scale scores are not finite values in [0, 1]")
-    if launches < SCALE_FRAMES:
-        fail(f"the mel kernel launched {launches} times in {SCALE_FRAMES} steps")
-    rt = SCALE_STREAMS * SCALE_FRAMES * 0.08 / wall
-    print(f"scale: {SCALE_FRAMES} frames x {SCALE_STREAMS} streams in {wall:.4f} s "
-          f"({wall / SCALE_FRAMES * 1e3:.3f} ms per step; warm-up run {warm_s:.2f} s), "
-          f"{rt:.0f} streams in real time, on {card}")
+    scale_scores = {}
+    for dft in melspec_cuda.DFTS:
+        t0 = time.perf_counter()
+        engine = MultiStreamEngine(n_streams=SCALE_STREAMS, precision="high", mel_dft=dft, device=dev)
+        torch.cuda.synchronize()
+        print(f"scale ({dft}): engine with {len(engine.labels)} labels built in {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        engine.predict_frames(frames)                        # warm-up, includes the prime
+        warm_s = time.perf_counter() - t0
+        mel.launches[dft] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scores = engine.predict_frames(frames)
+        wall = time.perf_counter() - t0
+        mel_launches[dft] = mel.launches[dft]
+        if scores.shape != (SCALE_FRAMES, SCALE_STREAMS, 11):
+            fail(f"scale scores ({dft}) have shape {scores.shape}")
+        if not (np.isfinite(scores).all() and scores.min() >= 0.0 and scores.max() <= 1.0):
+            fail(f"scale scores ({dft}) are not finite values in [0, 1]")
+        if mel_launches[dft] < SCALE_FRAMES:
+            fail(f"the {dft} mel kernel launched {mel_launches[dft]} times in {SCALE_FRAMES} steps")
+        rt = SCALE_STREAMS * SCALE_FRAMES * 0.08 / wall
+        print(f"scale ({dft}): {SCALE_FRAMES} frames x {SCALE_STREAMS} streams in {wall:.4f} s "
+              f"({wall / SCALE_FRAMES * 1e3:.3f} ms per step; warm-up run {warm_s:.2f} s), "
+              f"{rt:.0f} streams in real time, {mel_launches[dft]} mel launches, on {card}")
+        scale_scores[dft] = scores
+        del engine, scores
+    dft_err = float(np.abs(scale_scores["factored"] - scale_scores["direct"]).max())
+    print(f"scale: max |dscore| factored vs direct {dft_err:.3e}")
+    if not dft_err < SCORE_TOL:
+        fail(f"the factored and direct engines disagree at scale: {dft_err} >= {SCORE_TOL}")
+    del frames, scale_scores
 
-    print(json.dumps({"kernels": [{
-        "name": "melspec_frames", "route": "cuda",
-        "source": "openwakeword_tpu_torch/csrc/melspec.cu",
-        "replaces": "openwakeword_tpu/ops/melspec_pallas.py:73",
-        "launches": launches, "max_abs_err": max_err,
-        "ms": ms_kernel, "plain_ms": ms_plain}]}))
+    # 6. CNN kernels vs plain on the card
+    kernel = cnn_step.CnnStepKernel(cnn_weights(), precision="high", device=dev)
+    params = kernel.params
+    folded = params.folded
+    cnn_err = {"prime": 0.0, "step": 0.0}
+    for n in (1, 5, 130, SCALE_STREAMS):
+        rng = np.random.default_rng(100 + n)
+        window = torch.from_numpy(rng.uniform(-2, 8, (76, 32, n)).astype(np.float32)).to(dev)
+        k_emb, k_caches = cnn_step_cuda.cnn_prime(params, window)
+        p_emb, p_caches = cnn_step_cuda.cnn_prime_plain(params, window)
+        if n == 5:
+            n_caches, n_emb = embedding_stream.init_caches(folded, window.permute(2, 0, 1))
+        n_err = 0.0
+        for i in range(5):
+            torch.cuda.synchronize()
+            what = "prime" if i == 0 else "step"
+            err = max([max_diff(k_emb, p_emb)] + [max_diff(a, b) for a, b in zip(k_caches, p_caches)])
+            if not (torch.isfinite(k_emb).all() and err <= CNN_TOL):
+                fail(f"CNN {what} kernel disagrees with the plain version at S={n}: {err} > {CNN_TOL}")
+            cnn_err[what] = max(cnn_err[what], err)
+            n_err = max(n_err, err)
+            if n == 5:
+                nhwc = max([max_diff(k_emb.t(), n_emb)]
+                           + [max_diff(k_caches[j], n_caches[name].permute(3, 1, 2, 0))
+                              for j, name in enumerate(kernel.cache_names)])
+                if not nhwc <= CNN_TOL:
+                    fail(f"CNN {what} kernel disagrees with the NHWC engine step at S=5: {nhwc}")
+            if i == 4:
+                break
+            new = torch.from_numpy(rng.uniform(-2, 8, (8, 32, n)).astype(np.float32)).to(dev)
+            k_emb, k_caches = cnn_step_cuda.cnn_step(params, k_caches, new)
+            p_emb, p_caches = cnn_step_cuda.cnn_step_plain(params, p_caches, new)
+            if n == 5:
+                n_caches, n_emb = embedding_stream.step(folded, n_caches, new.permute(2, 0, 1))
+        print(f"CNN kernels vs plain, S={n}: max |diff| over a prime and 4 steps {n_err:.3e}")
+    print(f"CNN kernels vs plain: prime {cnn_err['prime']:.3e}, step {cnn_err['step']:.3e} (tolerance {CNN_TOL})")
+
+    # 7. CNN path at scale: prime with kernel 4, then 50 steps of kernel 3
+    rng = np.random.default_rng(7)
+    window = torch.from_numpy(rng.uniform(-2, 8, (76, 32, SCALE_STREAMS)).astype(np.float32)).to(dev)
+    cnn_frames = torch.from_numpy(rng.uniform(-2, 8, (SCALE_FRAMES, 8, 32, SCALE_STREAMS))
+                                  .astype(np.float32)).to(dev)
+    kernel.prime(window)                                     # warm-up
+    torch.cuda.synchronize()
+    cnn_step_cuda.cnn_prime.launches = cnn_step_cuda.cnn_step.launches = 0
+    t0 = time.perf_counter()
+    caches, _ = kernel.prime(window)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for f in range(SCALE_FRAMES):
+        caches, emb = kernel.step(caches, cnn_frames[f])
+    torch.cuda.synchronize()
+    cnn_wall = time.perf_counter() - t1
+    cnn_launches = {"prime": cnn_step_cuda.cnn_prime.launches, "step": cnn_step_cuda.cnn_step.launches}
+    if cnn_launches != {"prime": 1, "step": SCALE_FRAMES}:
+        fail(f"the CNN path launched {cnn_launches}")
+    p_emb, p_caches = cnn_step_cuda.cnn_prime_plain(params, window)
+    for f in range(SCALE_FRAMES):
+        p_emb, p_caches = cnn_step_cuda.cnn_step_plain(params, p_caches, cnn_frames[f])
+    scale_err = max([max_diff(emb, p_emb)] + [max_diff(caches[name], c)
+                                              for name, c in zip(kernel.cache_names, p_caches)])
+    if not (emb.shape == (96, SCALE_STREAMS) and torch.isfinite(emb).all() and scale_err <= CNN_TOL):
+        fail(f"the CNN path at scale is off: shape {tuple(emb.shape)}, max |diff| {scale_err}")
+    print(f"CNN path: prime {(t1 - t0) * 1e3:.3f} ms, {SCALE_FRAMES} steps x {SCALE_STREAMS} streams in "
+          f"{cnn_wall:.4f} s ({cnn_wall / SCALE_FRAMES * 1e3:.3f} ms per step), "
+          f"{SCALE_STREAMS * SCALE_FRAMES * 0.08 / cnn_wall:.0f} streams in real time, "
+          f"max |diff| vs plain after {SCALE_FRAMES} steps {scale_err:.3e}, on {card}")
+
+    # 8. CNN timing at S=4096
+    new = cnn_frames[0]
+    caches_list = [caches[name] for name in kernel.cache_names]
+    nhwc_caches = {name: c.permute(3, 1, 2, 0).contiguous() for name, c in caches.items()}
+    new_nhwc = new.permute(2, 0, 1).contiguous()
+    nhwc_ms_1 = cuda_ms(lambda: embedding_stream.step(folded, nhwc_caches, new_nhwc))
+    step_ms = sandwich("CNN step", lambda: cnn_step_cuda.cnn_step(params, caches_list, new),
+                       lambda: cnn_step_cuda.cnn_step_plain(params, caches_list, new))
+    nhwc_ms_2 = cuda_ms(lambda: embedding_stream.step(folded, nhwc_caches, new_nhwc))
+    print(f"CNN step at S={SCALE_STREAMS}: engine's NHWC eager step {nhwc_ms_1:.4f} / {nhwc_ms_2:.4f} ms")
+    prime_ms = sandwich("CNN prime", lambda: cnn_step_cuda.cnn_prime(params, window),
+                        lambda: cnn_step_cuda.cnn_prime_plain(params, window), n_iter=10)
+
+    kernels = [
+        ("melspec_frames", "melspec.cu", "openwakeword_tpu/ops/melspec_pallas.py:73",
+         mel_launches["direct"], mel_err["direct"], mel_ms["direct"]),
+        ("melspec_frames_factored", "melspec.cu", "openwakeword_tpu/ops/melspec_pallas.py:110",
+         mel_launches["factored"], mel_err["factored"], mel_ms["factored"]),
+        ("cnn_step", "cnn_step.cu", "openwakeword_tpu/ops/cnn_pallas.py:167",
+         cnn_launches["step"], cnn_err["step"], step_ms),
+        ("cnn_prime", "cnn_step.cu", "openwakeword_tpu/ops/cnn_pallas.py:167",
+         cnn_launches["prime"], cnn_err["prime"], prime_ms),
+    ]
+    print(json.dumps({"kernels": [
+        {"name": name, "route": "cuda", "source": f"openwakeword_tpu_torch/csrc/{src}", "replaces": replaces,
+         "launches": launches, "max_abs_err": err, "ms": ms[0], "plain_ms": ms[1]}
+        for name, src, replaces, launches, err, ms in kernels]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -3,7 +3,8 @@
 The port imports nothing from the JAX package (whose ``__init__`` pulls in
 jax), so the framework-free constants are duplicated here verbatim. They
 mirror the fixed DSP/model geometry of the reference pipeline (reference
-openwakeword/utils.py:163-170 and the conversion notebook).
+openwakeword/utils.py:163-170 and the conversion notebook). The precision
+check at the end is the port's own.
 """
 
 # Audio
@@ -55,3 +56,18 @@ VAD_GATE_HI = -4
 # Default head geometry (reference docs/models/alexa.md:11-36)
 DEFAULT_HEAD_INPUT_FRAMES = 16   # 1.28 s of embeddings
 DEFAULT_HEAD_WIDTH = 64
+
+# Precision tiers (port only). The port runs every stage in full float32:
+# both tiers the JAX engine keeps inside the 1e-3 score budget map here.
+# 'high' is a 3-pass bf16 approximation of float32 in JAX, so float32 is at
+# least as close to 'highest'. The lower tiers wait for their port.
+SUPPORTED_PRECISIONS = ("highest", "high")
+
+
+def check_precision(precision) -> str:
+    """``precision`` if the port runs it, else NotImplementedError."""
+    if not isinstance(precision, str) or precision not in SUPPORTED_PRECISIONS:
+        raise NotImplementedError(
+            f"precision {precision!r} is not ported yet: the port runs 'highest' and 'high' "
+            "as float32 (ROADMAP.md, queue 1, slice A: precision tiers)")
+    return precision

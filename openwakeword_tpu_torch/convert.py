@@ -40,6 +40,13 @@ def head_from_jax(params: Mapping, device="cpu") -> Dict:
     return out
 
 
+def to_device(tree, device):
+    """A nested dict of tensors, moved to ``device``."""
+    if isinstance(tree, dict):
+        return {k: to_device(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
 def from_jax_params(embedding_params: Optional[Mapping] = None,
                     head_params: Optional[Mapping[str, Mapping]] = None,
                     device="cpu") -> Tuple[Optional[Dict], Optional[Dict]]:

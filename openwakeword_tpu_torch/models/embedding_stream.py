@@ -3,13 +3,15 @@
 
 Every layer is time-invariant, with valid time convolutions and
 phase-aligned stride-2 time pools, so caching the last 2 input rows of each
-time conv lets a step compute only the 8 new mel rows. Caches keep the JAX
-package's layout, (S, 2, W, C) per conv, in ``cache_spec`` order.
+time conv lets a step compute only the 8 new mel rows. ``init_caches`` and
+``step`` keep the JAX package's NHWC layout, (S, 2, W, C) per conv, in
+``cache_spec`` order; the ``*_t`` functions run stream-minor, (C, T, W, S).
 """
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from openwakeword_tpu_torch.models import embedding as E
 
@@ -78,3 +80,99 @@ def step(folded: Dict, caches: Dict, new_mel: torch.Tensor) -> Tuple[Dict, torch
                         caches_in=caches_in, caches_out=new_caches)
     emb = out.permute(0, 2, 3, 1).reshape(out.shape[0], out.shape[2], E.OUTPUT_DIM)   # (S, k, 96)
     return _to_public(new_caches), (emb[:, 0] if emb.shape[1] == 1 else emb)
+
+
+# ---------------------------------------------------------------------------
+# Stream-minor layout: activations as (C, T, W, S)
+# ---------------------------------------------------------------------------
+# Each conv is one tap-concatenated (Cout, kh*kw*Cin) @ (kh*kw*Cin, T*W*S)
+# product; these are the plain versions of the CNN step kernels
+# (ops.cnn_step). Caches are (C, 2, W, S).
+
+
+def _weight_mat(w: torch.Tensor) -> torch.Tensor:
+    """OIHW (Cout, Cin, kh, kw) -> (Cout, kh*kw*Cin), tap order (dt, dw, c)."""
+    cout = w.shape[0]
+    return w.permute(0, 2, 3, 1).reshape(cout, -1)
+
+
+def _conv_t(x: torch.Tensor, wmat: torch.Tensor, kh: int, kw: int) -> torch.Tensor:
+    """x: (Cin, T, W, S) unpadded/valid, wmat from ``_weight_mat`` ->
+    (Cout, T-kh+1, W-kw+1, S)."""
+    _, t, wd, s = x.shape
+    t_out, w_out = t - kh + 1, wd - kw + 1
+    taps = [x[:, dt:dt + t_out, dw:dw + w_out, :] for dt in range(kh) for dw in range(kw)]
+    col = torch.cat(taps, dim=0) if len(taps) > 1 else taps[0]
+    out = torch.matmul(wmat, col.reshape(col.shape[0], -1))
+    return out.reshape(wmat.shape[0], t_out, w_out, s)
+
+
+def _pool_t(x: torch.Tensor, window) -> torch.Tensor:
+    """Exact-tiling max pool in (C, T, W, S) layout (every pool of the spec
+    tiles its input exactly at streaming and priming shapes)."""
+    c, t, wd, s = x.shape
+    if window[0] > 1:
+        x = x.reshape(c, t // window[0], window[0], wd, s).amax(dim=2)
+        t //= window[0]
+    if window[1] > 1:
+        x = x.reshape(c, t, wd // window[1], window[1], s).amax(dim=3)
+    return x
+
+
+def _forward_t(folded: Dict, x: torch.Tensor, caches: Optional[Dict] = None,
+               weight_mats: Optional[List[torch.Tensor]] = None) -> Tuple[Dict, torch.Tensor]:
+    """The layer program in (C, T, W, S) layout.
+
+    With ``caches`` given, runs one streaming step (consuming and refreshing
+    the 2-row tails); with ``caches=None`` primes from a full window,
+    capturing the tails. ``weight_mats`` (one ``_weight_mat`` per conv) skips
+    rebuilding them. Returns (new caches, embedding (96, S)).
+    """
+    new_caches: Dict[str, torch.Tensor] = {}
+    prime = caches is None
+    conv_i = bn_i = 0
+    for layer in E.spec():
+        kind = layer[0]
+        if kind == "pad":
+            pw = layer[1]
+            x = F.pad(x, (0, 0, pw[1], pw[1]) + ((pw[0], pw[0]) if prime else (0, 0)))
+        elif kind == "conv":
+            _, _, (kh, kw), padding, act = layer
+            if kw > 1 and padding == "SAME":
+                x = F.pad(x, (0, 0, kw // 2, kw // 2))
+            name = f"cache_{conv_i}"
+            if kh > 1:
+                if not prime:
+                    x = torch.cat([caches[name], x], dim=1)
+                new_caches[name] = x[:, -2:].contiguous()
+            c = folded[f"conv_{conv_i}"]
+            wmat = weight_mats[conv_i] if weight_mats is not None else _weight_mat(c["w"])
+            x = _conv_t(x, wmat, kh, kw) + c["b"][:, None, None, None]
+            if act == "relu":
+                x = torch.relu(x)
+            conv_i += 1
+        elif kind == "bnact":
+            aff = folded.get(f"affine_{bn_i}")
+            if aff is not None:
+                x = x * aff["scale"][:, None, None, None] + aff["shift"][:, None, None, None]
+            x = E.clipped_leaky(x)
+            bn_i += 1
+        elif kind == "pool":
+            x = _pool_t(x, layer[1])
+    return new_caches, x.reshape(E.OUTPUT_DIM, x.shape[-1])
+
+
+def init_caches_t(folded: Dict, mel_window: torch.Tensor) -> Tuple[Dict, torch.Tensor]:
+    """Prime in stream-minor layout: (S, 76, 32) mel window -> (caches in
+    (C, 2, W, S) layout, embedding (S, 96))."""
+    x = mel_window.to(torch.float32).permute(1, 2, 0)[None]              # (1, 76, 32, S)
+    caches, emb = _forward_t(folded, x)
+    return caches, emb.t()
+
+
+def step_t(folded: Dict, caches: Dict, new_mel: torch.Tensor) -> Tuple[Dict, torch.Tensor]:
+    """Streaming step in stream-minor layout: (S, 8, 32) new mel rows ->
+    (new caches, embedding (S, 96))."""
+    x = new_mel.to(torch.float32).permute(1, 2, 0)[None]                 # (1, 8, 32, S)
+    new_caches, emb = _forward_t(folded, x, caches)
+    return new_caches, emb.t()

@@ -1,0 +1,159 @@
+"""The incremental embedding-CNN step in stream-minor layout (counterpart of
+``openwakeword_tpu.ops.cnn_pallas``).
+
+State for this path is stream-minor: conv caches are (C, 2, W, S), the mel
+rows arrive as (8, 32, S) and the embedding leaves as (96, S). On a CUDA
+tensor ``CnnStepKernel.step`` runs kernel 3 and ``prime`` kernel 4
+(``ops.cnn_step_cuda``, ``csrc/cnn_step.cu``); on a CPU tensor both run
+their plain PyTorch versions. The stream tile is the kernels' own
+choice, so any S >= 1 works.
+"""
+
+from typing import Dict, List, Tuple
+
+import torch
+
+from openwakeword_tpu_torch import config, convert
+from openwakeword_tpu_torch.models import embedding as E
+from openwakeword_tpu_torch.models import embedding_stream
+from openwakeword_tpu_torch.ops import cnn_step_cuda
+from openwakeword_tpu_torch.ops.cnn_step_cuda import CnnParams
+
+
+def _layer_plan() -> List[Tuple]:
+    """Static layer program with per-layer geometry, derived from the
+    embedding spec. Entries:
+      ("stem_pad", w_pad)
+      ("conv", kh, kw, padding, relu)
+      ("bnact",)
+      ("pool", (ph, pw))
+    """
+    plan = []
+    for layer in E.spec():
+        kind = layer[0]
+        if kind == "pad":
+            plan.append(("stem_pad", layer[1][1]))
+        elif kind == "conv":
+            _, _, (kh, kw), padding, act = layer
+            plan.append(("conv", kh, kw, padding, act == "relu"))
+        elif kind == "bnact":
+            plan.append(("bnact",))
+        elif kind == "pool":
+            plan.append(("pool", layer[1]))
+    return plan
+
+
+STEM, LEAKY, BIAS_ONLY = 0, 1, 2       # conv epilogues, as csrc/cnn_step.cu numbers them
+
+
+def conv_table() -> List[Tuple[int, int, int, int, int, int, int]]:
+    """Per conv (kh, kw, Cin, Cout, pool_h, pool_w, epilogue), from
+    ``_layer_plan``: the program ``csrc/cnn_step.cu`` compiles in, through
+    the header ``cnn_program.h`` that ``utils.cuda_build`` writes from it.
+    The stem's epilogue is ReLU -> affine -> clipped leaky, every other
+    conv's with a 'bnact' the clipped leaky, the last conv's the bias only."""
+    couts = [layer[1] for layer in E.spec() if layer[0] == "conv"]
+    rows: List[List[int]] = []
+    relu = False
+    cin = E.INPUT_SHAPE[-1]
+    for entry in _layer_plan():
+        if entry[0] == "conv":
+            _, kh, kw, _, relu = entry
+            rows.append([kh, kw, cin, couts[len(rows)], 1, 1, BIAS_ONLY])
+            cin = rows[-1][3]
+        elif entry[0] == "bnact":
+            rows[-1][6] = STEM if relu else LEAKY
+        elif entry[0] == "pool":
+            rows[-1][4:6] = entry[1]
+    return [tuple(r) for r in rows]
+
+
+def cache_shapes() -> List[Tuple[str, Tuple[int, int, int]]]:
+    """[(cache_name, (C, rows, W))] in program order for the stream-minor
+    cache layout (rows = kh - 1 = 2 everywhere)."""
+    shapes = []
+    t, w, c = E.INPUT_SHAPE
+    conv_i = 0
+    for layer in E.spec():
+        kind = layer[0]
+        if kind == "pad":
+            w += 2 * layer[1][1]
+        elif kind == "conv":
+            _, cout, (kh, kw), padding, _ = layer
+            if kh > 1:
+                shapes.append((f"cache_{conv_i}", (c, 2, w)))
+            t = t - kh + 1
+            if padding == "VALID":
+                w = w - kw + 1
+            c = cout
+            conv_i += 1
+        elif kind == "pool":
+            _, (ph, pw), _, _ = layer
+            t //= ph
+            w //= pw
+    return shapes
+
+
+def prep_params(folded: Dict) -> CnnParams:
+    """The port's BN-folded params (OIHW convs) -> per conv a
+    (kh*kw, Cout, Cin) tap stack and a (Cout, 1) bias, the stem affine as
+    (24, 1) scale and shift, and the (Cout, kh*kw*Cin) weight matrices of
+    the plain version; all float32 and contiguous on the params' device."""
+    taps, biases, mats = [], [], []
+    conv_i = 0
+    for layer in E.spec():
+        if layer[0] != "conv":
+            continue
+        c = folded[f"conv_{conv_i}"]
+        w = c["w"]                                            # (Cout, Cin, kh, kw)
+        if w.dtype != torch.float32:
+            raise NotImplementedError(
+                f"conv_{conv_i} weights are {w.dtype}: the CNN step runs float32 weights only "
+                "(ROADMAP.md, queue 1, slice A: precision tiers)")
+        cout, cin, kh, kw = w.shape
+        taps.append(w.permute(2, 3, 0, 1).reshape(kh * kw, cout, cin).contiguous())
+        biases.append(c["b"].to(torch.float32).reshape(cout, 1).contiguous())
+        mats.append(embedding_stream._weight_mat(w).contiguous())
+        conv_i += 1
+    aff = folded.get("affine_0")
+    dev = taps[0].device
+    scale = aff["scale"] if aff is not None else torch.ones(24, device=dev)
+    shift = aff["shift"] if aff is not None else torch.zeros(24, device=dev)
+    return CnnParams(tuple(taps), tuple(biases),
+                     scale.to(torch.float32).reshape(-1, 1).contiguous(),
+                     shift.to(torch.float32).reshape(-1, 1).contiguous(),
+                     tuple(mats), folded, tuple(cache_shapes()))
+
+
+class CnnStepKernel:
+    """Holds the prepped params and the cache layout.
+
+    step(caches, new_mel_t (8, 32, S))  -> (new caches, emb (96, S))
+    prime(mel_window_t (76, 32, S))     -> (caches, emb (96, S))
+
+    ``precision`` takes 'highest' and 'high', both run as float32; the other
+    tiers raise NotImplementedError. ``device`` (default: that of the params)
+    is where the params live.
+    """
+
+    def __init__(self, folded: Dict, precision: str = "high", device=None):
+        self.precision = config.check_precision(precision)
+        if device is not None:
+            folded = convert.to_device(folded, torch.device(device))
+        self.params = prep_params(folded)
+        self.cache_names = [name for name, _ in self.params.cache_shapes]
+
+    def _named(self, caches: List[torch.Tensor]) -> Dict[str, torch.Tensor]:
+        return dict(zip(self.cache_names, caches))
+
+    def prime(self, mel_window_t: torch.Tensor):
+        """Derive the caches from a full (76, 32, S) window: kernel 4 on a
+        CUDA tensor. (The JAX kernel primes through XLA unless
+        ``use_pallas=True``, because its Mosaic compile over the full window
+        takes minutes; kernel 4 builds with the others and always runs.)"""
+        emb, caches = cnn_step_cuda.cnn_prime(self.params, mel_window_t)
+        return self._named(caches), emb
+
+    def step(self, caches: Dict[str, torch.Tensor], new_mel_t: torch.Tensor):
+        emb, new = cnn_step_cuda.cnn_step(self.params, [caches[n] for n in self.cache_names], new_mel_t)
+        return self._named(new), emb

@@ -1,0 +1,159 @@
+"""Kernels 3 and 4: the streaming embedding-CNN step and its prime in
+stream-minor layout (counterpart of ``openwakeword_tpu.ops.cnn_pallas._run``).
+
+``cnn_step`` (kernel 3) advances the 20-conv program by 8 new mel rows
+(8, 32, S), reading the eleven 2-row caches (C, 2, W, S); ``cnn_prime``
+(kernel 4) runs it over a full (76, 32, S) window and reads no cache. Both
+return (embedding (96, S), the eleven new caches). A CPU tensor goes through
+the plain PyTorch version (``cnn_step_plain`` / ``cnn_prime_plain``, built on
+``models.embedding_stream._forward_t``); a CUDA tensor goes through
+``csrc/cnn_step.cu`` or the call raises. The new caches are fresh tensors:
+the kernel never writes a cache it reads. Each wrapper counts its launches in
+``.launches``.
+"""
+
+import contextlib
+import ctypes
+import functools
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
+
+import torch
+
+from openwakeword_tpu_torch.models import embedding_stream
+from openwakeword_tpu_torch.utils import cuda_build
+
+STEP_ROWS = 8            # new mel rows per step
+WINDOW_ROWS = 76         # mel rows of a prime window
+MEL_WIDTH = 32
+EMB_DIM = 96
+
+
+class CnnParams(NamedTuple):
+    """The BN-folded CNN as the kernels and their plain versions take it
+    (built by ``ops.cnn_step.prep_params``)."""
+    taps: Tuple[torch.Tensor, ...]      # per conv: (kh*kw, Cout, Cin), the kernels'
+    biases: Tuple[torch.Tensor, ...]    # per conv: (Cout, 1)
+    scale: torch.Tensor                 # the stem's affine, (24, 1)
+    shift: torch.Tensor                 # (24, 1)
+    mats: Tuple[torch.Tensor, ...]      # per conv: (Cout, kh*kw*Cin), the plain versions'
+    folded: Dict                        # the folded params (biases and affine of the plain versions)
+    cache_shapes: Tuple[Tuple[str, Tuple[int, int, int]], ...]   # (name, (C, 2, W)), program order
+
+
+@contextlib.contextmanager
+def _fp32_matmul():
+    """Full fp32 products (TF32 off) for the duration, whatever the caller set."""
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+
+
+def _plain(params: CnnParams, x: torch.Tensor, caches: Optional[Sequence[torch.Tensor]]):
+    names = [name for name, _ in params.cache_shapes]
+    caches = None if caches is None else dict(zip(names, caches))
+    with _fp32_matmul():
+        new, emb = embedding_stream._forward_t(params.folded, x[None], caches, list(params.mats))
+    return emb, [new[name] for name in names]
+
+
+def cnn_step_plain(params: CnnParams, caches: Sequence[torch.Tensor],
+                   mel_t: torch.Tensor) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """Plain PyTorch version of kernel 3: ``embedding_stream`` step in
+    (C, T, W, S) layout."""
+    return _plain(params, mel_t, caches)
+
+
+def cnn_prime_plain(params: CnnParams, mel_window_t: torch.Tensor
+                    ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """Plain PyTorch version of kernel 4: ``embedding_stream`` prime in
+    (C, T, W, S) layout."""
+    return _plain(params, mel_window_t, None)
+
+
+@functools.lru_cache(maxsize=None)
+def _lib():
+    lib = cuda_build.load_library().lib
+    ptrs = ctypes.POINTER(ctypes.c_void_p)
+    lib.owwt_cnn_forward.argtypes = [ctypes.c_void_p, ctypes.c_int, ptrs, ptrs, ptrs, ptrs,
+                                     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                                     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    lib.owwt_cnn_forward.restype = ctypes.c_int
+    lib.owwt_cnn_scratch_floats.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.owwt_cnn_scratch_floats.restype = ctypes.c_longlong
+    return lib
+
+
+def _pointers(tensors: Sequence[torch.Tensor]):
+    return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+
+
+def _check(name: str, t: torch.Tensor, shape: Tuple[int, ...], device: torch.device):
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, the mel rows on {device}")
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _launch(wrapper, params: CnnParams, x: torch.Tensor, caches: Optional[Sequence[torch.Tensor]],
+            rows: int) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """Checks, allocates and launches; counts in ``wrapper.launches``."""
+    what = wrapper.__name__
+    if x.device.type != "cuda":
+        raise ValueError(f"{what} takes CPU or CUDA tensors, got {x.device}")
+    n_streams = x.shape[-1] if x.ndim == 3 else 0
+    _check("mel rows", x, (rows, MEL_WIDTH, n_streams), x.device)
+    if caches is not None:
+        if len(caches) != len(params.cache_shapes):
+            raise ValueError(f"{what} needs {len(params.cache_shapes)} caches, got {len(caches)}")
+        for (name, shape), c in zip(params.cache_shapes, caches):
+            _check(name, c, shape + (n_streams,), x.device)
+    if params.scale.device != x.device:
+        raise ValueError(f"the CNN params are on {params.scale.device}, the mel rows on {x.device}")
+    emb = torch.empty((EMB_DIM, n_streams), dtype=torch.float32, device=x.device)
+    new = [torch.empty(shape + (n_streams,), dtype=torch.float32, device=x.device)
+           for _, shape in params.cache_shapes]
+    if n_streams == 0:
+        return emb, new
+    lib = _lib()
+    per_stream = lib.owwt_cnn_scratch_floats(rows, int(caches is None))
+    if per_stream < 0:
+        raise ValueError(f"the CNN program does not fit a {rows}-row input")
+    scratch = torch.empty((2, per_stream * n_streams), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.owwt_cnn_forward(x.data_ptr(), rows, None if caches is None else _pointers(caches),
+                                  _pointers(new), _pointers(params.taps), _pointers(params.biases),
+                                  params.scale.data_ptr(), params.shift.data_ptr(), emb.data_ptr(),
+                                  scratch[0].data_ptr(), scratch[1].data_ptr(), n_streams, stream)
+    if rc != 0:
+        raise RuntimeError(f"{what} kernel launch failed with cudaError {rc}")
+    wrapper.launches += 1
+    return emb, new
+
+
+def cnn_step(params: CnnParams, caches: Sequence[torch.Tensor],
+             mel_t: torch.Tensor) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """Kernel 3: (8, 32, S) new mel rows and the eleven (C, 2, W, S) caches
+    -> (embedding (96, S), new caches)."""
+    if mel_t.device.type == "cpu":
+        return cnn_step_plain(params, caches, mel_t)
+    return _launch(cnn_step, params, mel_t, caches, STEP_ROWS)
+
+
+def cnn_prime(params: CnnParams, mel_window_t: torch.Tensor
+              ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """Kernel 4: (76, 32, S) mel window -> (embedding (96, S), caches)."""
+    if mel_window_t.device.type == "cpu":
+        return cnn_prime_plain(params, mel_window_t)
+    return _launch(cnn_prime, params, mel_window_t, None, WINDOW_ROWS)
+
+
+cnn_step.launches = 0
+cnn_prime.launches = 0

@@ -1,11 +1,13 @@
 """Log-mel spectrogram frontend in PyTorch (counterpart of
-``openwakeword_tpu.ops.melspec``, ``dft="direct"``).
+``openwakeword_tpu.ops.melspec``).
 
 The constant factories are the JAX package's numpy code, copied: float64 on
 the host, bit-equal to JAX's, cast to float32 at the point of use. The
 tensor ops are the plain reference path of the port: the STFT is one
-(T, 512) x (512, 514) matmul against the windowed cos/-sin basis, then
-power, the (257, 32) Slaney mel projection and librosa-style power_to_db.
+(T, 512) x (512, 514) matmul against the windowed cos/-sin basis
+(``dft="direct"``) or four (T, 128) x (128, 256) branch products and a
+radix-4 butterfly (``dft="factored"``), then power, the (257, 32) Slaney mel
+projection and librosa-style power_to_db.
 Inputs are raw int16-range float32 values, not normalized to [-1, 1].
 """
 
@@ -96,6 +98,39 @@ def stft_power_basis(n_fft: int = config.N_FFT,
     return basis
 
 
+RADIX = 4  # factored-DFT branch count (512 = 4 * 128)
+
+
+@functools.lru_cache(maxsize=None)
+def factored_dft_bases(n_fft: int = config.N_FFT,
+                       win_length: int = config.WIN_LENGTH):
+    """Stage-1 bases of the radix-4 factored DFT, shape (4, n_fft//4, 2*(n_fft//4)).
+
+    Decimation n = 4a + b splits the length-512 windowed DFT into four
+    length-128 sub-DFTs plus a constant radix-4 butterfly:
+
+        X[128c + d] = sum_b e^{-2pi i bc/4} * Z[b, d]
+        Z[b, d]     = sum_a x[4a + b] * w[4a + b] * e^{-2pi i ad/128}
+                                                  * e^{-2pi i bd/512}
+
+    The Hann window and the (b, d) twiddle fold into the per-branch basis
+    ``B_b[a, d]``: column 2d holds Re, 2d+1 holds -Im (the interleave of
+    ``stft_power_basis``). The butterfly is ``_factored_power``.
+    """
+    assert n_fft % RADIX == 0
+    m = n_fft // RADIX                      # 128 sub-DFT length / output bins
+    w = hann_window(win_length, n_fft)      # (512,) float64
+    a = np.arange(m, dtype=np.float64)
+    d = np.arange(m, dtype=np.float64)
+    bases = np.empty((RADIX, m, 2 * m), dtype=np.float64)
+    for b in range(RADIX):
+        ang = 2.0 * np.pi * (np.outer(a, d) / m + b * d[None, :] / n_fft)
+        wb = w[b::RADIX][:, None]           # window samples of branch b
+        bases[b, :, 0::2] = wb * np.cos(ang)
+        bases[b, :, 1::2] = wb * -np.sin(ang)
+    return bases
+
+
 def f32_const(x: np.ndarray, device) -> torch.Tensor:
     """float64 host constant -> float32 tensor on ``device`` (the JAX
     package's ``_f32``: round to float32 on the host, then transfer)."""
@@ -125,6 +160,36 @@ def frame_signal(x: torch.Tensor,
     return x[..., :(t - 1) * hop + n_fft].unfold(-1, n_fft, hop)
 
 
+def deinterleave_branches(frames: torch.Tensor) -> torch.Tensor:
+    """(..., n_fft) frames -> (..., RADIX, n_fft//RADIX) branch slices
+    (branch b = samples b::RADIX), the stage-1 operand layout."""
+    n = frames.shape[-1]
+    return frames.reshape(frames.shape[:-1] + (n // RADIX, RADIX)).transpose(-1, -2)
+
+
+def _factored_power(z: torch.Tensor) -> torch.Tensor:
+    """Radix-4 butterfly + |X|^2 for the one-sided spectrum.
+
+    ``z``: (..., 4, 2*m) interleaved per-branch sub-spectra, column 2d Re and
+    2d+1 Im of Z_b[d]. Returns (..., n_fft//2 + 1) power from c = 0, c = 1
+    and the single c = 2, d = 0 bin (k = 256):
+
+        c=0: X[d]     = Z0 + Z1 + Z2 + Z3
+        c=1: X[128+d] = (Z0 - Z2) - i(Z1 - Z3)
+        k=256:        = (Z0 + Z2) - (Z1 + Z3) at d = 0
+    """
+    re, im = z[..., 0::2], z[..., 1::2]
+    e_re, e_im = re[..., 0, :] + re[..., 2, :], im[..., 0, :] + im[..., 2, :]
+    o_re, o_im = re[..., 1, :] + re[..., 3, :], im[..., 1, :] + im[..., 3, :]
+    p0 = (e_re + o_re) ** 2 + (e_im + o_im) ** 2
+    # c = 1: D - iF with D = Z0 - Z2, F = Z1 - Z3: Re = D_re + F_im, Im = D_im - F_re
+    d_re, d_im = re[..., 0, :] - re[..., 2, :], im[..., 0, :] - im[..., 2, :]
+    f_re, f_im = re[..., 1, :] - re[..., 3, :], im[..., 1, :] - im[..., 3, :]
+    p1 = (d_re + f_im) ** 2 + (d_im - f_re) ** 2
+    p2 = ((e_re - o_re) ** 2 + (e_im - o_im) ** 2)[..., :1]
+    return torch.cat([p0, p1, p2], dim=-1)
+
+
 def power_to_db(mel: torch.Tensor,
                 amin: float = config.MEL_AMIN,
                 ref: float = config.MEL_REF,
@@ -141,15 +206,24 @@ def power_to_db(mel: torch.Tensor,
 
 def melspectrogram(x: torch.Tensor,
                    apply_transform: bool = True,
-                   top_db: float = config.MEL_TOP_DB) -> torch.Tensor:
+                   top_db: float = config.MEL_TOP_DB,
+                   dft: str = "direct") -> torch.Tensor:
     """Log-mel spectrogram of raw int16-range audio (..., N) -> (..., T, 32),
     in full float32 (JAX's ``precision=HIGHEST``). With ``apply_transform``
-    the downstream affine spec/10 + 2 is applied."""
+    the downstream affine spec/10 + 2 is applied. ``dft='factored'`` computes
+    the spectrum by the radix-4 factored DFT (``factored_dft_bases``): equal
+    to 'direct' up to float32 rounding, not bit-equal."""
     x = x.to(torch.float32)
     frames = frame_signal(x)                                   # (..., T, 512)
-    basis = f32_const(stft_power_basis(), x.device)            # (512, 514)
-    spec = torch.matmul(frames, basis)
-    power = spec[..., 0::2] ** 2 + spec[..., 1::2] ** 2        # (..., T, 257)
+    if dft == "factored":
+        bases = f32_const(factored_dft_bases(), x.device)      # (4, 128, 256)
+        z = torch.einsum("...ba,bad->...bd", deinterleave_branches(frames), bases)
+        power = _factored_power(z)                             # (..., T, 257)
+    elif dft == "direct":
+        spec = torch.matmul(frames, f32_const(stft_power_basis(), x.device))   # (..., T, 514)
+        power = spec[..., 0::2] ** 2 + spec[..., 1::2] ** 2    # (..., T, 257)
+    else:
+        raise ValueError(f"unknown dft mode {dft!r} (expected 'direct' or 'factored')")
     mel = torch.matmul(power, f32_const(mel_filterbank(), x.device))
     out = power_to_db(mel, top_db=top_db)
     if apply_transform:

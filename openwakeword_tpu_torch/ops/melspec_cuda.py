@@ -1,17 +1,20 @@
-"""Kernel 1: the streaming mel frontend, (S, 1760) PCM windows -> (S, 8, 32)
-raw dB (counterpart of ``openwakeword_tpu.ops.melspec_pallas``,
-``dft="direct"``).
+"""Kernels 1 and 2: the streaming mel frontend, (S, 1760) PCM windows ->
+(S, 8, 32) raw dB (counterpart of ``openwakeword_tpu.ops.melspec_pallas``).
 
-``melspectrogram_frames`` is the wrapper the engine calls. A CPU tensor goes
-through ``melspectrogram_frames_plain``, the plain PyTorch version; a CUDA
-tensor goes through the hand-written kernel in ``csrc/melspec.cu`` or the
-call raises. There is no fallback between the two. The wrapper counts its
-kernel launches in ``melspectrogram_frames.launches``.
+``melspectrogram_frames(windows, dft)`` is the wrapper the engine calls:
+``dft="direct"`` is kernel 1 (the windowed (512, 257) cos/sin DFT),
+``dft="factored"`` kernel 2 (the radix-4 factored DFT), both in
+``csrc/melspec.cu``. A CPU tensor goes through
+``melspectrogram_frames_plain``, the plain PyTorch version; a CUDA tensor
+goes through the hand-written kernel or the call raises. There is no
+fallback between the two. The wrapper counts each kernel's launches in
+``melspectrogram_frames.launches[dft]``.
 """
 
 import ctypes
 import functools
 
+import numpy as np
 import torch
 
 from openwakeword_tpu_torch import config
@@ -21,34 +24,49 @@ from openwakeword_tpu_torch.utils import cuda_build
 WINDOW = config.CHUNK_SAMPLES + config.MEL_LOOKBACK_SAMPLES   # 1760
 FRAMES = config.MELS_PER_CHUNK                                # 8
 N_MELS = config.N_MELS                                        # 32
+DFTS = ("direct", "factored")
+_ENTRY = {"direct": "owwt_melspec_frames", "factored": "owwt_melspec_frames_factored"}
 
 
-def melspectrogram_frames_plain(windows: torch.Tensor) -> torch.Tensor:
+def melspectrogram_frames_plain(windows: torch.Tensor, dft: str = "direct") -> torch.Tensor:
     """Plain PyTorch version: ``melspectrogram(apply_transform=False,
-    top_db=None)`` of each window, (S, 1760) -> (S, 8, 32) dB."""
-    return melspec.melspectrogram(windows, apply_transform=False, top_db=None)
+    top_db=None, dft=dft)`` of each window, (S, 1760) -> (S, 8, 32) dB."""
+    return melspec.melspectrogram(windows, apply_transform=False, top_db=None, dft=dft)
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel_fn():
-    fn = cuda_build.load_library().lib.owwt_melspec_frames
+def _kernel_fn(dft: str):
+    fn = getattr(cuda_build.load_library().lib, _ENTRY[dft])
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
+def _kernel_basis(dft: str) -> np.ndarray:
+    """Kernel 1: the (512, 514) interleaved cos/-sin basis. Kernel 2: the
+    factored bases reordered to (128 a, 128 d, 4 b, 2) so that thread 4d + b
+    reads (Re, Im) of branch b as one float2."""
+    if dft == "direct":
+        return melspec.stft_power_basis()
+    sub = config.N_FFT // melspec.RADIX                                         # 128
+    bases = melspec.factored_dft_bases().reshape(melspec.RADIX, sub, sub, 2)    # (b, a, d, 2)
+    return np.transpose(bases, (1, 2, 0, 3))
+
+
 @functools.lru_cache(maxsize=None)
-def _device_consts(device: torch.device):
-    """The (512, 514) interleaved cos/-sin basis and the (257, 32) mel
-    weights, float32, resident on ``device``."""
-    return (melspec.f32_const(melspec.stft_power_basis(), device),
+def _device_consts(device: torch.device, dft: str):
+    """The kernel's DFT basis and the (257, 32) mel weights, float32,
+    resident on ``device``."""
+    return (melspec.f32_const(_kernel_basis(dft), device),
             melspec.f32_const(melspec.mel_filterbank(), device))
 
 
-def melspectrogram_frames(windows: torch.Tensor) -> torch.Tensor:
+def melspectrogram_frames(windows: torch.Tensor, dft: str = "direct") -> torch.Tensor:
     """(S, 1760) float32 windows -> (S, 8, 32) float32 raw dB mel frames."""
+    if dft not in DFTS:
+        raise ValueError(f"unknown dft mode {dft!r} (expected 'direct' or 'factored')")
     if windows.device.type == "cpu":
-        return melspectrogram_frames_plain(windows)
+        return melspectrogram_frames_plain(windows, dft)
     if windows.device.type != "cuda":
         raise ValueError(f"melspectrogram_frames takes CPU or CUDA tensors, got {windows.device}")
     if windows.dtype != torch.float32:
@@ -61,15 +79,15 @@ def melspectrogram_frames(windows: torch.Tensor) -> torch.Tensor:
     out = torch.empty((n_streams, FRAMES, N_MELS), dtype=torch.float32, device=windows.device)
     if n_streams == 0:
         return out
-    basis, melw = _device_consts(windows.device)
+    basis, melw = _device_consts(windows.device, dft)
     with torch.cuda.device(windows.device):
         stream = torch.cuda.current_stream(windows.device).cuda_stream
-        rc = _kernel_fn()(windows.data_ptr(), basis.data_ptr(), melw.data_ptr(),
-                          out.data_ptr(), n_streams, stream)
+        rc = _kernel_fn(dft)(windows.data_ptr(), basis.data_ptr(), melw.data_ptr(),
+                             out.data_ptr(), n_streams, stream)
     if rc != 0:
-        raise RuntimeError(f"melspec kernel launch failed with cudaError {rc}")
-    melspectrogram_frames.launches += 1
+        raise RuntimeError(f"melspec kernel ({dft}) launch failed with cudaError {rc}")
+    melspectrogram_frames.launches[dft] += 1
     return out
 
 
-melspectrogram_frames.launches = 0
+melspectrogram_frames.launches = dict.fromkeys(DFTS, 0)

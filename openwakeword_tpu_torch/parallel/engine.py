@@ -7,8 +7,9 @@ one device with a leading stream axis. One step advances every stream by
 80 ms in three stages:
 
 1. mel frontend: the PCM tail and the chunk form a (S, 1760) window, which
-   ``ops.melspec_cuda`` turns into (S, 8, 32) raw dB (the hand-written kernel
-   on CUDA); then the top_db clamp over the valid frames, the /10+2 affine
+   ``ops.melspec_cuda`` turns into (S, 8, 32) raw dB (a hand-written kernel
+   on CUDA: the direct DFT, or the factored one with ``mel_dft="factored"``);
+   then the top_db clamp over the valid frames, the /10+2 affine
    and the 76-row mel ring with the first-frame 5-row rule;
 2. incremental embedding CNN (``models.embedding_stream``), re-primed from
    the mel ring in blocks of PRIME_BLOCK_STREAMS when a stream starts;
@@ -35,14 +36,6 @@ from openwakeword_tpu_torch.ops import melspec as melspec_ops
 from openwakeword_tpu_torch.ops import melspec_cuda
 
 MEL_RING = config.EMB_WINDOW_FRAMES          # 76 frames
-
-# The port runs every stage in full float32: both tiers the JAX engine
-# keeps inside the 1e-3 score budget map here. 'high' is a 3-pass bf16
-# approximation of float32 in JAX, so float32 is at least as close to
-# 'highest'. The lower tiers wait for their port.
-SUPPORTED_PRECISIONS = ("highest", "high")
-_ROADMAP_PRECISION = ("precision {!r} is not ported yet: the port runs 'highest' and 'high' "
-                      "as float32 (ROADMAP.md, queue 1, slice A: precision tiers)")
 
 
 def seed_embeddings(emb_folded: Dict, noise: torch.Tensor, n_frames: int) -> torch.Tensor:
@@ -71,12 +64,6 @@ def _resolve_heads(wakeword_models: Sequence[str]) -> List[Tuple[str, Dict, Dict
     return out
 
 
-def _to_device(tree, device):
-    if isinstance(tree, dict):
-        return {k: _to_device(v, device) for k, v in tree.items()}
-    return tree.to(device)
-
-
 class MultiStreamEngine:
     """Scores ``n_streams`` independent 16 kHz streams, one 80 ms frame per
     step, on one device.
@@ -98,11 +85,15 @@ class MultiStreamEngine:
                  embedding_params: Optional[Dict] = None,
                  rng_seed: int = 0,
                  precision: str = "high",
+                 mel_dft: str = "direct",
                  device="cuda"):
         gating.validate_gating_args(patience, threshold, debounce_time)
-        if not isinstance(precision, str) or precision not in SUPPORTED_PRECISIONS:
-            raise NotImplementedError(_ROADMAP_PRECISION.format(precision))
-        self.precision = precision
+        self.precision = config.check_precision(precision)
+        # 'direct' = kernel 1, the (512, 257) windowed DFT; 'factored' =
+        # kernel 2, the radix-4 factored DFT: equal up to float32 rounding
+        if mel_dft not in melspec_cuda.DFTS:
+            raise ValueError(f"mel_dft must be 'direct' or 'factored'; got {mel_dft!r}")
+        self.mel_dft = mel_dft
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("MultiStreamEngine(device='cuda') needs a CUDA device; "
@@ -185,7 +176,7 @@ class MultiStreamEngine:
         # ---- embedding ----
         if embedding_params is None:
             embedding_params = convert.embedding_from_jax(loaders.load_embedding_params())
-        self.params = {"embedding": _to_device(embedding_model.ensure_folded(embedding_params), self.device),
+        self.params = {"embedding": convert.to_device(embedding_model.ensure_folded(embedding_params), self.device),
                        "heads": head_params}
 
         # one noise clip seeds every stream's feature ring, at every reset
@@ -245,7 +236,7 @@ class MultiStreamEngine:
         st = self.state
         F = self.max_head_frames
         window = torch.cat([st["pcm_tail"], chunk.to(torch.float32)], dim=-1)      # (S, 1760)
-        mel_raw = melspec_cuda.melspectrogram_frames(window)                       # (S, 8, 32) dB
+        mel_raw = melspec_cuda.melspectrogram_frames(window, self.mel_dft)         # (S, 8, 32) dB
 
         # A stream's first frame has no PCM look-back: frames 0..2 come from
         # the zero tail, so they are left out of the top_db peak and of the

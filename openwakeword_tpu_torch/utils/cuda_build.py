@@ -1,11 +1,14 @@
 """Build the port's CUDA sources with ``nvcc`` at first use and load them
 with ctypes (counterpart of ``openwakeword_tpu.utils.native_lib``).
 
-Every ``csrc/*.cu`` file compiles into one shared library with a plain C
-interface, for ``sm_90a`` (Hopper). The library goes into
-``build/openwakeword_tpu_torch/<hash>/`` beside the package, keyed by a hash
-of the sources and the flags, so an edited source rebuilds and an unchanged
-one loads at once. A missing ``nvcc`` or a failed build raises.
+Every ``csrc/*.cu`` file compiles, one ``nvcc`` process each and all at
+once, into an object for ``sm_90a`` (Hopper); the objects link into one
+shared library with a plain C interface. Headers that are derived from the
+Python side (``generated_headers``) are written next to the objects. The
+library goes into ``build/openwakeword_tpu_torch/<hash>/`` beside the
+package, keyed by a hash of the sources, the generated headers and the flags,
+so an edited source rebuilds and an unchanged one loads at once. A missing
+``nvcc`` or a failed build raises.
 """
 
 import ctypes
@@ -17,20 +20,20 @@ import shutil
 import subprocess
 import tempfile
 import time
-from typing import NamedTuple
+from typing import Dict, NamedTuple
 
 PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_ROOT = PKG.parent / "build" / "openwakeword_tpu_torch"
 LIB_NAME = "libowwt_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 class Built(NamedTuple):
     lib: ctypes.CDLL
     path: pathlib.Path
-    build_seconds: float     # 0.0 when the library was already built
+    build_seconds: float     # wall time of the parallel build; 0.0 when already built
     log: str                 # nvcc's output (ptxas register/spill report)
 
 
@@ -51,12 +54,26 @@ def _sources():
     return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
 
 
-def _digest() -> str:
+def generated_headers() -> Dict[str, str]:
+    """{file name: text} of the headers the sources include from the build
+    directory: ``cnn_program.h``, the CNN's per-conv table
+    ``ops.cnn_step.conv_table()`` as the body of ``csrc/cnn_step.cu``'s
+    ``kConvs``."""
+    from openwakeword_tpu_torch.ops import cnn_step      # imports this module
+    rows = "".join("{%s},\n" % ", ".join(map(str, row)) for row in cnn_step.conv_table())
+    return {"cnn_program.h": "// Written by utils/cuda_build.py from ops/cnn_step.py::conv_table:\n"
+                             "// (kh, kw, cin, cout, pool_h, pool_w, epilogue) per conv.\n" + rows}
+
+
+def _digest(headers: Dict[str, str]) -> str:
     cu, cuh = _sources()
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for p in cu + cuh:
         h.update(p.name.encode())
         h.update(p.read_bytes())
+    for name, text in sorted(headers.items()):
+        h.update(name.encode())
+        h.update(text.encode())
     return h.hexdigest()[:16]
 
 
@@ -66,26 +83,40 @@ def load_library() -> Built:
     cu, _ = _sources()
     if not cu:
         raise RuntimeError(f"no CUDA sources under {CSRC}")
-    out_dir = BUILD_ROOT / _digest()
+    headers = generated_headers()
+    out_dir = BUILD_ROOT / _digest(headers)
     lib_path = out_dir / LIB_NAME
     log_path = out_dir / "build.log"
     seconds = 0.0
     if not lib_path.exists():
         out_dir.mkdir(parents=True, exist_ok=True)
         nvcc = find_nvcc()
-        # build to a private name, then rename: a concurrent process never
+        # build to private names, then rename: a concurrent process never
         # loads a half-written library
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-        os.close(fd)
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, cu)]
+        work = pathlib.Path(tempfile.mkdtemp(dir=out_dir))
+        for name, text in headers.items():
+            (work / name).write_text(text)
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        objs = [work / (src.stem + ".o") for src in cu]
+        cmds = [[nvcc, *NVCC_FLAGS, "-I", str(work), "-c", "-o", str(obj), str(src)]
+                for src, obj in zip(cu, objs)]
+        cmds.append([nvcc, "-shared", "-o", str(work / LIB_NAME), *map(str, objs)])
+        log = ""
+        for batch in (cmds[:-1], cmds[-1:]):
+            procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                     for cmd in batch]
+            for cmd, proc in zip(batch, procs):
+                out = proc.communicate()[0]
+                log += out
+                if proc.returncode != 0:
+                    for other in procs:
+                        other.kill()
+                        other.wait()
+                    shutil.rmtree(work, ignore_errors=True)
+                    raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}")
         seconds = time.perf_counter() - t0
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                               f"{proc.stdout}{proc.stderr}")
-        log_path.write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, lib_path)
+        log_path.write_text(log)
+        os.replace(work / LIB_NAME, lib_path)
+        shutil.rmtree(work, ignore_errors=True)
     log = log_path.read_text() if log_path.exists() else ""
     return Built(ctypes.CDLL(str(lib_path)), lib_path, seconds, log)

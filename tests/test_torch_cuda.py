@@ -1,12 +1,17 @@
-"""The port's CUDA kernel on the card: built from ``csrc/``, held against its
-plain PyTorch version. Marked ``cuda``; skipped where no NVIDIA GPU is
-present. Run on a GPU host with ``python -m pytest tests/test_torch_cuda.py -m cuda``."""
+"""The port's CUDA kernels on the card: built from ``csrc/``, each held
+against its plain PyTorch version (mel frontend: kernels 1 and 2, 2e-3 dB;
+CNN step and prime: kernels 3 and 4, 1e-4). Marked ``cuda``; skipped where
+no NVIDIA GPU is present. Run on a GPU host with
+``python -m pytest --noconftest tests/test_torch_cuda.py -m cuda``
+(``conftest.py`` imports jax, which the port's GPU host need not have)."""
 
 import numpy as np
 import pytest
 import torch
 
-from openwakeword_tpu_torch.ops import melspec_cuda
+from openwakeword_tpu_torch import convert
+from openwakeword_tpu_torch.models import embedding
+from openwakeword_tpu_torch.ops import cnn_step, cnn_step_cuda, melspec_cuda
 
 pytestmark = pytest.mark.cuda
 
@@ -18,16 +23,17 @@ def cuda():
     return torch.device("cuda", 0)
 
 
+@pytest.mark.parametrize("dft", ["direct", "factored"])
 @pytest.mark.parametrize("n_streams", [1, 5, 17, 1000])
-def test_mel_kernel_matches_plain(cuda, n_streams):
+def test_mel_kernel_matches_plain(cuda, n_streams, dft):
     w = (np.random.default_rng(n_streams).uniform(-1, 1, (n_streams, 1760)) * 25000).astype(np.float32)
     w[n_streams // 2] = 0.0
     x = torch.from_numpy(w).to(cuda)
-    before = melspec_cuda.melspectrogram_frames.launches
-    got = melspec_cuda.melspectrogram_frames(x)
-    want = melspec_cuda.melspectrogram_frames_plain(x)
+    before = melspec_cuda.melspectrogram_frames.launches[dft]
+    got = melspec_cuda.melspectrogram_frames(x, dft)
+    want = melspec_cuda.melspectrogram_frames_plain(x, dft)
     torch.cuda.synchronize()
-    assert melspec_cuda.melspectrogram_frames.launches == before + 1
+    assert melspec_cuda.melspectrogram_frames.launches[dft] == before + 1
     assert got.shape == (n_streams, 8, 32)
     assert float((got - want).abs().max()) <= 2e-3
     assert float((got[n_streams // 2] + 100.0).abs().max()) <= 1e-4
@@ -40,3 +46,47 @@ def test_mel_kernel_rejects_bad_inputs(cuda):
         melspec_cuda.melspectrogram_frames(torch.zeros((2, 1761), device=cuda))
     with pytest.raises(ValueError):
         melspec_cuda.melspectrogram_frames(torch.zeros((1760, 2), device=cuda).t())
+
+
+@pytest.fixture(scope="module")
+def cnn_params():
+    rng = np.random.default_rng(11)
+    p = embedding.init_params(rng)
+    for k in [k for k in p if k.startswith("bn_")]:
+        c = p[k]["gamma"].shape[0]
+        p[k] = {"gamma": (0.7 + 0.5 * rng.random(c)).astype(np.float32),
+                "beta": (0.3 * (rng.random(c) - 0.5)).astype(np.float32),
+                "mean": (0.3 * (rng.random(c) - 0.5)).astype(np.float32),
+                "var": (0.8 + 0.4 * rng.random(c)).astype(np.float32)}
+    return embedding.fold_batchnorm(convert.embedding_from_jax(p))
+
+
+@pytest.mark.parametrize("n_streams", [1, 5, 33, 130])
+def test_cnn_kernels_match_plain(cuda, cnn_params, n_streams):
+    params = cnn_step.prep_params({k: {n: t.to(cuda) for n, t in v.items()} for k, v in cnn_params.items()})
+    rng = np.random.default_rng(n_streams)
+    window = torch.from_numpy(rng.uniform(-2, 8, (76, 32, n_streams)).astype(np.float32)).to(cuda)
+    before = (cnn_step_cuda.cnn_prime.launches, cnn_step_cuda.cnn_step.launches)
+    emb, caches = cnn_step_cuda.cnn_prime(params, window)
+    want_emb, want_caches = cnn_step_cuda.cnn_prime_plain(params, window)
+    for _ in range(4):
+        torch.cuda.synchronize()
+        assert float((emb - want_emb).abs().max()) <= 1e-4
+        assert max(float((a - b).abs().max()) for a, b in zip(caches, want_caches)) <= 1e-4
+        new = torch.from_numpy(rng.uniform(-2, 8, (8, 32, n_streams)).astype(np.float32)).to(cuda)
+        emb, caches = cnn_step_cuda.cnn_step(params, caches, new)
+        want_emb, want_caches = cnn_step_cuda.cnn_step_plain(params, want_caches, new)
+    torch.cuda.synchronize()
+    assert float((emb - want_emb).abs().max()) <= 1e-4
+    assert (cnn_step_cuda.cnn_prime.launches, cnn_step_cuda.cnn_step.launches) == (before[0] + 1, before[1] + 4)
+
+
+def test_cnn_kernel_rejects_bad_inputs(cuda, cnn_params):
+    params = cnn_step.prep_params({k: {n: t.to(cuda) for n, t in v.items()} for k, v in cnn_params.items()})
+    emb, caches = cnn_step_cuda.cnn_prime(params, torch.zeros((76, 32, 3), device=cuda))
+    with pytest.raises(ValueError):
+        cnn_step_cuda.cnn_step(params, caches, torch.zeros((16, 32, 3), device=cuda))
+    with pytest.raises(ValueError):
+        cnn_step_cuda.cnn_step(params, caches[:-1], torch.zeros((8, 32, 3), device=cuda))
+    with pytest.raises(TypeError):
+        cnn_step_cuda.cnn_step(params, caches, torch.zeros((8, 32, 3), dtype=torch.float64, device=cuda))

@@ -1,5 +1,6 @@
 """The PyTorch port's MultiStreamEngine (device='cpu') against the JAX engine,
-both at precision 'highest', on the same numpy weights and audio.
+both at precision 'highest' and with the same ``mel_dft``, on the same numpy
+weights and audio.
 
 Both sides are float32 on the CPU, so scores differ by reassociation only:
 the bound is 1e-4 against the port's 1e-3 budget (BASELINE.json)."""
@@ -52,9 +53,10 @@ def _engines(weights, **kwargs):
     return je, te
 
 
-@pytest.fixture(scope="module")
-def engines(weights):
-    return _engines(weights)
+@pytest.fixture(scope="module", params=["direct", "factored"])
+def engines(weights, request):
+    """(JAX engine, port engine) with the same mel DFT."""
+    return _engines(weights, mel_dft=request.param)
 
 
 def _pcm(seed, *shape):
@@ -163,6 +165,11 @@ def test_unported_precisions_raise(weights, precision):
         MultiStreamEngine(wakeword_models=weights[0], n_streams=1, precision=precision, device="cpu")
 
 
+def test_unknown_mel_dft_raises(weights):
+    with pytest.raises(ValueError, match="mel_dft"):
+        MultiStreamEngine(wakeword_models=weights[0], n_streams=1, mel_dft="fft", device="cpu")
+
+
 def test_cuda_device_without_cuda_raises(weights):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -172,7 +179,8 @@ def test_cuda_device_without_cuda_raises(weights):
 
 def test_import_leaves_jax_out():
     code = ("import sys, openwakeword_tpu_torch, openwakeword_tpu_torch.testing, "
-            "openwakeword_tpu_torch.ops.melspec_cuda, openwakeword_tpu_torch.utils.cuda_build; "
+            "openwakeword_tpu_torch.ops.melspec_cuda, openwakeword_tpu_torch.ops.cnn_step, "
+            "openwakeword_tpu_torch.utils.cuda_build; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'openwakeword_tpu')]; "
             "assert not bad, bad")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -55,13 +55,14 @@ def test_jax_engine_reproduces_fixture(golden, tmp_path):
     np.testing.assert_allclose(scores, fixture["scores"], rtol=0, atol=1e-6)
 
 
-def test_port_cpu_matches_fixture(golden, head_paths):
+@pytest.mark.parametrize("mel_dft", ["direct", "factored"])
+def test_port_cpu_matches_fixture(golden, head_paths, mel_dft):
     import torch
     from openwakeword_tpu_torch.parallel.engine import MultiStreamEngine
     torch.set_num_threads(2)
     fixture, inputs = golden
     engine = MultiStreamEngine(wakeword_models=head_paths, n_streams=testing.GOLDEN_STREAMS,
-                               precision="highest", device="cpu",
+                               precision="highest", mel_dft=mel_dft, device="cpu",
                                embedding_params=convert.embedding_from_jax(inputs["embedding"]))
     assert engine.labels == list(fixture["labels"])
     scores = testing.run_golden(engine, inputs)

@@ -1,6 +1,7 @@
 """Mel frontend of the PyTorch port against the JAX package: the constant
-factories, the plain ``melspectrogram`` and kernel 1's plain version
-(``ops.melspec_cuda``) against ``melspectrogram_pallas`` in interpret mode."""
+factories, the plain ``melspectrogram`` (direct and factored DFT) and the
+plain versions of kernels 1 and 2 (``ops.melspec_cuda``) against
+``melspectrogram_pallas`` in interpret mode."""
 
 import jax
 import jax.numpy as jnp
@@ -24,7 +25,7 @@ def _windows(rng, n, n_samples=1760):
     return (rng.uniform(-1, 1, (n, n_samples)) * 25000).astype(np.float32)
 
 
-@pytest.mark.parametrize("name", ["hann_window", "mel_filterbank", "stft_power_basis"])
+@pytest.mark.parametrize("name", ["hann_window", "mel_filterbank", "stft_power_basis", "factored_dft_bases"])
 def test_constant_factories_bit_equal(name):
     want, got = getattr(jax_melspec, name)(), getattr(melspec, name)()
     assert got.dtype == want.dtype == np.float64
@@ -40,39 +41,59 @@ def test_frame_signal_matches_jax(rng, n_samples):
     assert melspec.num_frames(n_samples) == jax_melspec.num_frames(n_samples) == got.shape[1]
 
 
+@pytest.mark.parametrize("dft", ["direct", "factored"])
 @pytest.mark.parametrize("apply_transform", [True, False])
-def test_melspectrogram_matches_jax(rng, apply_transform):
+def test_melspectrogram_matches_jax(rng, apply_transform, dft):
     x = _windows(rng, 3, 16000)
     x[1, :4000] = 0.0                       # quiet stretch: the top_db clamp engages
-    want = np.asarray(jax_melspec.melspectrogram(jnp.asarray(x), apply_transform=apply_transform))
-    got = melspec.melspectrogram(torch.from_numpy(x), apply_transform=apply_transform).numpy()
+    want = np.asarray(jax_melspec.melspectrogram(jnp.asarray(x), apply_transform=apply_transform, dft=dft))
+    got = melspec.melspectrogram(torch.from_numpy(x), apply_transform=apply_transform, dft=dft).numpy()
     assert got.shape == want.shape == (3, 97, 32)
     np.testing.assert_allclose(got, want, rtol=0, atol=MEL_ATOL_DB)
 
 
-def test_frames_plain_matches_pallas_and_reference_op(rng):
+@pytest.mark.parametrize("dft", ["direct", "factored"])
+def test_frames_plain_matches_pallas_and_reference_op(rng, dft):
     windows = _windows(rng, 5)
-    got = melspec_cuda.melspectrogram_frames_plain(torch.from_numpy(windows)).numpy()
+    got = melspec_cuda.melspectrogram_frames_plain(torch.from_numpy(windows), dft).numpy()
     pallas = np.asarray(melspectrogram_pallas(jnp.asarray(windows), tile_s=4, interpret=True,
-                                              precision=jax.lax.Precision.HIGHEST))
+                                              precision=jax.lax.Precision.HIGHEST, dft=dft))
     reference = np.asarray(jax_melspec.melspectrogram(jnp.asarray(windows), apply_transform=False,
-                                                      top_db=None))
+                                                      top_db=None, dft=dft))
     assert got.shape == pallas.shape == (5, 8, 32)
     np.testing.assert_allclose(got, pallas, rtol=0, atol=MEL_ATOL_DB)
     np.testing.assert_allclose(got, reference, rtol=0, atol=MEL_ATOL_DB)
 
 
-def test_silence_gives_amin_floor():
-    got = melspec_cuda.melspectrogram_frames_plain(torch.zeros((3, 1760))).numpy()
+def test_factored_stages_match_jax(rng):
+    frames = _windows(rng, 6, 512).reshape(2, 3, 512)
+    got = melspec.deinterleave_branches(torch.from_numpy(frames))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jax_melspec.deinterleave_branches(jnp.asarray(frames))))
+    z = rng.standard_normal((2, 3, 4, 256)).astype(np.float32) * 1e3
+    np.testing.assert_allclose(melspec._factored_power(torch.from_numpy(z)).numpy(),
+                               np.asarray(jax_melspec._factored_power(jnp.asarray(z))), rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("dft", ["direct", "factored"])
+def test_silence_gives_amin_floor(dft):
+    got = melspec_cuda.melspectrogram_frames_plain(torch.zeros((3, 1760)), dft).numpy()
     np.testing.assert_allclose(got, -100.0, atol=1e-4)
 
 
-def test_wrapper_takes_plain_path_for_cpu_tensors(rng):
+def test_unknown_dft_raises(rng):
+    x = torch.from_numpy(_windows(rng, 2))
+    with pytest.raises(ValueError, match="dft"):
+        melspec.melspectrogram(x, dft="fft")
+    with pytest.raises(ValueError, match="dft"):
+        melspec_cuda.melspectrogram_frames(x, dft="fft")
+
+
+@pytest.mark.parametrize("dft", ["direct", "factored"])
+def test_wrapper_takes_plain_path_for_cpu_tensors(rng, dft):
     x = torch.from_numpy(_windows(rng, 4))
-    before = melspec_cuda.melspectrogram_frames.launches
-    got = melspec_cuda.melspectrogram_frames(x)
-    torch.testing.assert_close(got, melspec_cuda.melspectrogram_frames_plain(x), rtol=0, atol=0)
-    assert melspec_cuda.melspectrogram_frames.launches == before == 0
+    got = melspec_cuda.melspectrogram_frames(x, dft)
+    torch.testing.assert_close(got, melspec_cuda.melspectrogram_frames_plain(x, dft), rtol=0, atol=0)
+    assert melspec_cuda.melspectrogram_frames.launches == {"direct": 0, "factored": 0}
 
 
 def test_wrapper_rejects_other_devices():
