@@ -8,7 +8,8 @@ Phases, each of which exits nonzero on failure:
 1. device: needs ``torch.cuda.is_available()``; prints the card's name and
    power limit as nvidia-smi reports them;
 2. build: compiles ``openwakeword_tpu_torch/csrc/*.cu`` with nvcc for sm_90a,
-   one nvcc per source, all at once;
+   one nvcc per source, all at once, and ``native/ingest.cpp`` with g++ into
+   ``build/`` (the serving ingest copies);
 3. mel kernels vs plain: kernels 1 (direct DFT) and 2 (factored DFT) against
    their plain PyTorch versions on the card, S in {1, 5, 1000, 4096}, max
    |dB diff| <= 2e-3, plus silence (-100 dB); times each pair at S=4096 with
@@ -30,7 +31,27 @@ Phases, each of which exits nonzero on failure:
 7. CNN path at scale: ``CnnStepKernel.prime`` (kernel 4) and 50
    ``CnnStepKernel.step`` calls at S=4096, held against the plain versions;
 8. CNN timing at S=4096: kernel 3 vs its plain version vs the engine's NHWC
-   eager step, kernel 4 vs its plain version.
+   eager step, kernel 4 vs its plain version;
+9. Model golden: the port's single-stream ``Model`` on the card with the
+   golden weights over ``testing.model_packets()``, against the JAX
+   ``Model``'s committed scores (tests/fixtures/torch_serving_golden.npz),
+   max |dscore| < 1e-3; kernel 1 must launch once per call that completes a
+   steady-state block; times ``Model.predict``;
+10. server golden: ``StreamServer(capacity=8)`` with the golden weights
+   through ``testing.run_server_golden``'s schedule under ``step()`` and
+   under ``step_async()`` + ``drain()``, against the JAX server's committed
+   score matrices (max |dscore| < 1e-3) and activation lists (scores within
+   1e-3 of the threshold left out); kernel 1 once per tick;
+11. serving at scale: two ``StreamServer(capacity=4096)`` in the bench
+   configuration fed the same 50 ticks of ``push_block`` over all slots with
+   1% churn per tick, one driven by ``step()``, one by ``step_async()``; the
+   score matrices must agree within 1e-6, every score finite in [0, 1],
+   kernel 1 once per tick. Prints host ms per tick (ingest + dispatch), wall
+   ms per tick for each mode, with and without churn, and
+   ``engine.measure_realtime()``;
+12. bulk: eight synthetic WAVs of different lengths; ``bulk_predict`` and
+   ``bulk_predict_streaming`` must equal ``engine.predict_clips`` on the same
+   audio within 1e-5.
 
 Then it prints one JSON line describing each kernel, the card's name and
 power limit, and last the result line ``{"ok": true, "device": {...}}``. It
@@ -43,6 +64,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import wave
 
 import numpy as np
 
@@ -51,6 +73,9 @@ SCORE_TOL = 1e-3           # the port's score budget against JAX 'highest' (BASE
 CNN_TOL = 1e-4             # the JAX CNN kernel tests' tolerance (tests/test_cnn_pallas.py)
 SCALE_STREAMS = 4096
 SCALE_FRAMES = 50
+SYNC_ASYNC_TOL = 1e-6      # step() vs step_async() on one card: the same kernels on the same inputs
+BULK_TOL = 1e-5
+SCALE_THRESHOLD = 0.7
 
 
 def fail(msg: str):
@@ -103,7 +128,193 @@ def cnn_weights():
     return embedding.fold_batchnorm(convert.embedding_from_jax(p))
 
 
+def serving(card: str) -> int:
+    """Phases 9-12, the serving slice; returns kernel 1's launches in phase
+    11's two runs at 4096 slots (this slice's main path)."""
+    import torch
+    from openwakeword_tpu_torch import Model, convert, testing
+    from openwakeword_tpu_torch.ops import melspec_cuda
+    from openwakeword_tpu_torch.parallel import MultiStreamEngine, StreamServer, bulk_predict
+    from openwakeword_tpu_torch.parallel.bulk import bulk_predict_streaming
+    dev = torch.device("cuda", 0)
+    launches = melspec_cuda.melspectrogram_frames.launches
+    with np.load(testing.SERVING_FIXTURE) as z:
+        fixture = {k: z[k] for k in z.files}
+    inputs = testing.golden_inputs(int(fixture["seed"]))
+    if inputs["sha256"] != str(fixture["inputs_sha256"]):
+        fail("serving golden inputs do not regenerate bit-exactly with this numpy")
+    emb = convert.embedding_from_jax(inputs["embedding"])
+    head_dir = tempfile.mkdtemp()
+    head_paths = testing.write_head_checkpoints(inputs["heads"], head_dir)
+
+    t_serving = time.perf_counter()
+    # 9. Model golden
+    model = Model(wakeword_models=head_paths, device=dev, embedding_params=emb)
+    packets = testing.model_packets()
+    launches["direct"] = 0
+    t0 = time.perf_counter()
+    scores = testing.run_model_golden(model, packets)
+    model_s = time.perf_counter() - t0
+    k1 = launches["direct"]
+    err = float(np.abs(scores - fixture["model_scores"]).max())
+    expect = testing.steady_block_calls(packets)
+    print(f"model golden: max |dscore| vs the JAX Model {err:.3e} over {scores.shape}, {k1} mel launches "
+          f"for {expect} calls with steady-state blocks")
+    if not err < SCORE_TOL:
+        fail(f"Model golden scores off by {err} >= {SCORE_TOL}")
+    if k1 != expect:
+        fail(f"the mel kernel launched {k1} times in the Model golden run, expected {expect}")
+    frame = np.zeros(1280, np.int16)
+    for _ in range(5):
+        model.predict(frame)
+    t0 = time.perf_counter()
+    for _ in range(50):
+        model.predict(frame)
+    per_call = (time.perf_counter() - t0) / 50
+    print(f"model: Model.predict {per_call * 1e3:.3f} ms per 1280-sample call (6 heads, 11 labels; "
+          f"golden run {model_s * 1e3 / len(packets):.3f} ms per call over mixed packets), on {card}")
+    del model
+
+    # 10. server golden, step() and step_async()
+    want = {k[len("server_"):]: v for k, v in fixture.items() if k.startswith("server_")}
+
+    def clear(a):
+        return a[np.abs(a[:, 3] - testing.SERVER_THRESHOLD) > SCORE_TOL]
+    for mode in ("sync", "async"):
+        server = StreamServer(wakeword_models=head_paths, capacity=testing.SERVER_CAPACITY,
+                              threshold=testing.SERVER_THRESHOLD, queue_frames=testing.SERVER_QUEUE_FRAMES,
+                              precision="highest", device=dev, embedding_params=emb)
+        launches["direct"] = 0
+        run = testing.run_server_golden(server, mode)
+        k1 = launches["direct"]
+        err = float(np.abs(run["scores"] - want["scores"]).max())
+        g, w = clear(run["activations"]), clear(want["activations"])
+        print(f"server golden ({mode}): max |dscore| vs the JAX server {err:.3e} over {run['scores'].shape}, "
+              f"{len(run['activations'])} activations (JAX {len(want['activations'])}), {k1} mel launches")
+        if not (err < SCORE_TOL and np.array_equal(run["valid"], want["valid"])):
+            fail(f"server golden ({mode}) scores off by {err} or valid masks differ")
+        if not np.array_equal(g[:, :3], w[:, :3]):
+            fail(f"server golden ({mode}) activation lists differ")
+        if k1 != testing.SERVER_TICKS:
+            fail(f"the mel kernel launched {k1} times in {testing.SERVER_TICKS} server ticks ({mode})")
+        del server
+
+    # 11. serving at scale: 4096 slots, step() vs step_async()
+    S, T = SCALE_STREAMS, SCALE_FRAMES
+    rng = np.random.default_rng(3)
+    pcm = rng.integers(-2000, 2000, (T, S, 1280), dtype=np.int16)
+    churn = [rng.choice(S, S // 100, replace=False) for _ in range(T)]
+    # random heads score noise up to ~0.68; a threshold above that keeps activations sparse, as
+    # wake words are in real traffic (the goldens above exercise activation-heavy ticks)
+    servers = {m: StreamServer(capacity=S, threshold=SCALE_THRESHOLD, device=dev, warm_compile=True)
+               for m in ("sync", "async")}
+    for srv in servers.values():
+        for _ in range(S):
+            srv.add_stream()
+    sids = np.arange(S)
+
+    def drive(mode, ticks, with_churn):
+        srv = servers[mode]
+        tick = srv.step if mode == "sync" else srv.step_async
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in ticks:
+            if with_churn:
+                for sid in churn[t]:
+                    srv.remove_stream(int(sid))
+                    srv.add_stream()
+            srv.push_block(sids, pcm[t])
+            tick()
+        srv.drain()
+        return time.perf_counter() - t0
+
+    results, walls = {}, {}
+    for mode in ("sync", "async"):
+        with testing.recording(servers[mode]) as recorded:
+            launches["direct"] = 0
+            walls[mode, "churn"] = drive(mode, range(T), True)
+            if launches["direct"] != T:
+                fail(f"the mel kernel launched {launches['direct']} times in {T} ticks ({mode})")
+        results[mode] = np.stack([recorded[f][0] for f in sorted(recorded)])
+    k1_scale = 2 * T
+    sa_err = float(np.abs(results["sync"] - results["async"]).max())
+    r = results["sync"]
+    print(f"serving at scale: step() vs step_async() max |dscore| {sa_err:.3e} over {r.shape}, "
+          f"{int((r >= SCALE_THRESHOLD).sum())} activations")
+    if r.shape != (T, S, 11) or not (np.isfinite(r).all() and r.min() >= 0.0 and r.max() <= 1.0):
+        fail(f"serving scores at scale are not finite values in [0, 1] of shape {(T, S, 11)}: {r.shape}")
+    if not sa_err <= SYNC_ASYNC_TOL:
+        fail(f"step() and step_async() disagree at scale: {sa_err} > {SYNC_ASYNC_TOL}")
+    del results, r
+    # without churn, in turns sync, async, async, sync
+    for i, mode in enumerate(("sync", "async", "async", "sync")):
+        walls[mode, i] = drive(mode, range(T), False)
+    # host cost of a tick: ingest + dispatch from an idle card
+    srv, host, ingest_s = servers["async"], [], []
+    for t in range(20):
+        srv.drain()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        srv.push_block(sids, pcm[t % T])
+        t1 = time.perf_counter()
+        srv.step_async()
+        host.append(time.perf_counter() - t0)
+        ingest_s.append(t1 - t0)
+    srv.drain()
+    host_ms = 1e3 * float(np.median(host))
+    for label, key in (("with 1% churn", "churn"), ("no churn", None)):
+        for mode in ("sync", "async"):
+            wall = walls[mode, key] if key else min(walls[mode, i] for i in range(4) if (mode, i) in walls)
+            print(f"serving at scale ({label}, {mode}): {wall / T * 1e3:.3f} ms per tick over {T} ticks x {S} "
+                  f"slots, {S * 0.08 * T / wall:.0f} streams in real time, on {card}")
+    print(f"serving at scale: host ms per tick (push_block + step_async dispatch from an idle card) "
+          f"median {host_ms:.3f} (min {1e3 * min(host):.3f}, max {1e3 * max(host):.3f}; push_block alone "
+          f"median {1e3 * float(np.median(ingest_s)):.3f}) over 20 ticks, on {card}")
+    m = servers["sync"].engine.measure_realtime()
+    print(f"serving at scale: engine.measure_realtime(): {m['per_frame_s'] * 1e3:.3f} ms per frame, "
+          f"rt_streams {m['rt_streams']:.0f}, realtime {m['realtime']}, on {card}")
+    del servers, pcm
+
+    # 12. bulk against predict_clips
+    lengths = [16000, 23456, 8000, 40000, 1300, 31111, 12800, 20000]
+    wav_dir = tempfile.mkdtemp()
+    wavs, clips = [], []
+    for i, n in enumerate(lengths):
+        clips.append(np.random.default_rng(50 + i).integers(-6000, 6000, n).astype(np.int16))
+        wavs.append(os.path.join(wav_dir, f"clip{i}.wav"))
+        with wave.open(wavs[-1], "wb") as f:
+            f.setnchannels(1)
+            f.setsampwidth(2)
+            f.setframerate(16000)
+            f.writeframes(clips[-1].tobytes())
+    batch = np.zeros((len(clips), max(lengths)), np.int16)
+    for i, c in enumerate(clips):
+        batch[i, :len(c)] = c
+    engine = MultiStreamEngine(n_streams=len(clips), device=dev)
+    want = engine.predict_clips(batch)                                 # (T, 8, 11)
+    launches["direct"] = 0
+    one_shot = bulk_predict(wavs, [], batch_size=len(wavs), device=dev)
+    streamed, labels = bulk_predict_streaming(wavs, [], batch_size=len(wavs), segment_seconds=1.0, device=dev)
+    if labels != engine.labels or launches["direct"] == 0:
+        fail(f"bulk labels {labels} or {launches['direct']} mel launches")
+    bulk_err = 0.0
+    for i, (w, n) in enumerate(zip(wavs, lengths)):
+        t_i = -(-(n + 32000 - 1280) // 1280)
+        got = np.array([list(d.values()) for d in one_shot[w]], np.float32)
+        if got.shape != (t_i, 11) or streamed[w].shape != (t_i, 11):
+            fail(f"bulk output for {w} has shapes {got.shape} / {streamed[w].shape}, expected {(t_i, 11)}")
+        bulk_err = max(bulk_err, float(np.abs(got - want[:t_i, i]).max()),
+                       float(np.abs(streamed[w] - want[:t_i, i]).max()))
+    print(f"bulk: bulk_predict and bulk_predict_streaming vs engine.predict_clips over {len(wavs)} WAVs: "
+          f"max |dscore| {bulk_err:.3e}")
+    if not bulk_err <= BULK_TOL:
+        fail(f"bulk scoring disagrees with predict_clips: {bulk_err} > {BULK_TOL}")
+    print(f"serving phases 9-12 took {time.perf_counter() - t_serving:.1f} s")
+    return k1_scale
+
+
 def main():
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs an NVIDIA GPU")
@@ -112,6 +323,7 @@ def main():
         from openwakeword_tpu_torch import convert, testing
         from openwakeword_tpu_torch.models import embedding_stream
         from openwakeword_tpu_torch.ops import cnn_step, cnn_step_cuda, melspec_cuda
+        from openwakeword_tpu_torch.parallel import ingest
         from openwakeword_tpu_torch.parallel.engine import MultiStreamEngine
         from openwakeword_tpu_torch.utils import cuda_build
     except ImportError as e:
@@ -136,6 +348,10 @@ def main():
     for line in built.log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"  ptxas: {line.strip()}")
+    t0 = time.perf_counter()
+    if not ingest.warm():
+        fail("the native ingest library (native/ingest.cpp) did not build or load")
+    print(f"build: ingest library {ingest._lib._name} in {time.perf_counter() - t0:.2f} s")
 
     # 3. mel kernels vs plain on the card
     dev = torch.device("cuda", 0)
@@ -303,6 +519,8 @@ def main():
     prime_ms = sandwich("CNN prime", lambda: cnn_step_cuda.cnn_prime(params, window),
                         lambda: cnn_step_cuda.cnn_prime_plain(params, window), n_iter=10)
 
+    mel_launches["direct"] = serving(card)
+
     kernels = [
         ("melspec_frames", "melspec.cu", "openwakeword_tpu/ops/melspec_pallas.py:73",
          mel_launches["direct"], mel_err["direct"], mel_ms["direct"]),
@@ -317,6 +535,7 @@ def main():
         {"name": name, "route": "cuda", "source": f"openwakeword_tpu_torch/csrc/{src}", "replaces": replaces,
          "launches": launches, "max_abs_err": err, "ms": ms[0], "plain_ms": ms[1]}
         for name, src, replaces, launches, err, ms in kernels]}))
+    print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -1,10 +1,13 @@
 """openwakeword_tpu_torch: the PyTorch / CUDA port of openwakeword_tpu.
 
-It runs the multi-stream scoring step of ``openwakeword_tpu`` (the JAX
-package, kept as the reference) on an NVIDIA GPU: the mel frontend is a
-hand-written CUDA kernel (``csrc/melspec.cu``), the embedding CNN, heads and
-gating are PyTorch ops. It imports neither jax nor ``openwakeword_tpu``.
+It runs ``openwakeword_tpu`` (the JAX package, kept as the reference) on an
+NVIDIA GPU: the multi-stream engine and its serving runtime
+(``parallel``), and the single-stream ``Model`` / ``AudioFeatures`` API.
+The mel frontend is a hand-written CUDA kernel (``csrc/melspec.cu``); the
+embedding CNN, heads and gating are PyTorch ops. It imports neither jax nor
+``openwakeword_tpu``.
 """
+from openwakeword_tpu_torch.model import Model
 from openwakeword_tpu_torch.parallel.engine import MultiStreamEngine
 
-__all__ = ["MultiStreamEngine"]
+__all__ = ["Model", "MultiStreamEngine"]

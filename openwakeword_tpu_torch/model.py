@@ -1,0 +1,305 @@
+"""The single-stream wake-word engine, ``Model`` (counterpart of
+``openwakeword_tpu.model``).
+
+Keeps the reference's public surface and per-call semantics (reference
+openwakeword/model.py:32-504): predict / predict_clip / reset, patience XOR
+debounce filtering, 5-frame warm-up zeroing and the multiclass label
+mapping, with every head of a call batched over its sub-frame windows in one
+device call. The audio frontend is ``features.AudioFeatures`` on the same
+device. Noise suppression, the VAD gate, speaker verifiers and exact int8
+execution raise ``NotImplementedError`` until their slices are ported.
+
+For many streams at once use ``openwakeword_tpu_torch.parallel``.
+"""
+
+import time
+import wave
+from collections import defaultdict, deque
+from functools import partial
+from typing import DefaultDict, Dict, List, Union
+
+import numpy as np
+import torch
+
+from openwakeword_tpu_torch import config, convert, gating, registry
+from openwakeword_tpu_torch.features import AudioFeatures
+from openwakeword_tpu_torch.io import loaders
+from openwakeword_tpu_torch.models import heads as heads_lib
+from openwakeword_tpu_torch.utils.args import re_arg
+
+
+def _not_ported(what: str, slice_: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, queue 1, {slice_})")
+
+
+class Model():
+    """Wake-word engine: shared audio preprocessor + N classifier heads."""
+
+    @re_arg({"wakeword_model_paths": "wakeword_models"})
+    def __init__(
+            self,
+            wakeword_models: List[str] = [],
+            class_mapping_dicts: List[dict] = [],
+            enable_speex_noise_suppression: bool = False,
+            noise_suppression_algorithm: str = "spectral",
+            vad_threshold: float = 0,
+            custom_verifier_models: dict = {},
+            custom_verifier_threshold: float = 0.1,
+            inference_framework: str = "torch",
+            quantized_execution: str = "dequant",
+            **kwargs,
+            ):
+        """Args mirror the JAX package's constructor. ``wakeword_models``
+        entries are ``.npz`` head checkpoints or pretrained names; the other
+        keyword arguments (``device``, ``embedding_params``, ``rng_seed``, ...)
+        go to ``AudioFeatures``, and the heads run on its device.
+        """
+        if noise_suppression_algorithm not in ("spectral", "mmse"):
+            raise ValueError("noise_suppression_algorithm must be 'spectral' or 'mmse'; "
+                             f"got {noise_suppression_algorithm!r}")
+        if enable_speex_noise_suppression:
+            raise _not_ported("noise suppression", "slice C")
+        if vad_threshold > 0:
+            raise _not_ported("the VAD gate (vad_threshold > 0)", "slice C")
+        if any((custom_verifier_models or {}).values()):
+            raise _not_ported("custom verifier models", "slice C")
+        if quantized_execution == "exact":
+            raise _not_ported("exact int8 execution (quantized_execution='exact')", "slice E")
+
+        wakeword_models, wakeword_model_names = registry.resolve_wakeword_models(wakeword_models)
+        self.preprocessor = AudioFeatures(**kwargs)
+        device = self.preprocessor.device
+
+        self.models: Dict[str, Dict] = {}          # name -> head params (tensors on device)
+        self.model_inputs: Dict[str, int] = {}     # name -> input feature frames
+        self.model_outputs: Dict[str, int] = {}    # name -> output classes
+        self.model_prediction_function: Dict[str, callable] = {}
+        self.class_mapping: Dict[str, Dict] = {}
+        for mdl_path, mdl_name in zip(wakeword_models, wakeword_model_names):
+            params, meta = loaders.load_head(mdl_path, mdl_name)
+            head = convert.head_from_jax(params, device)
+            head_meta = head.pop("__meta__")
+            heads_lib.check_supported(head_meta)
+            self.models[mdl_name] = head
+            self.model_inputs[mdl_name] = int(head_meta["input_frames"])
+            self.model_outputs[mdl_name] = int(head_meta["n_classes"])
+
+            def pred_fn(x, _p=head, _meta=head_meta):
+                x = torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32)).to(device)
+                return heads_lib.forward(_p, x, _meta).cpu().numpy()
+            self.model_prediction_function[mdl_name] = pred_fn
+
+            # class-label mapping: user dicts > checkpoint meta > built-ins > identity
+            # (a user dict is {"<model_name>": {"0": "label", ...}})
+            user = class_mapping_dicts[wakeword_models.index(mdl_path)] if class_mapping_dicts else {}
+            if user.get(mdl_name, None):
+                self.class_mapping[mdl_name] = user[mdl_name]
+            elif meta.get("class_mapping"):
+                self.class_mapping[mdl_name] = dict(meta["class_mapping"])
+            elif registry.model_class_mappings.get(mdl_name, None):
+                self.class_mapping[mdl_name] = registry.model_class_mappings[mdl_name]
+            else:
+                self.class_mapping[mdl_name] = {str(i): str(i) for i in range(self.model_outputs[mdl_name])}
+
+        # Ordered output-label vector + label->parent map. A multiclass
+        # model's labels follow its mapping dict's insertion order (the
+        # engine sorts the keys as integers; each keeps its own order).
+        self._labels: List[str] = []
+        self._label_parent: Dict[str, str] = {}
+        for mdl_name in self.models:
+            self._label_parent[mdl_name] = mdl_name
+            if self.model_outputs[mdl_name] == 1:
+                self._labels.append(mdl_name)
+            else:
+                for cls in self.class_mapping[mdl_name].values():
+                    self._labels.append(cls)
+                    self._label_parent[cls] = mdl_name
+
+        # per-label score history for warm-up / debounce (reported scores)
+        # and the raw pre-filter history the patience filter reads
+        self.prediction_buffer: DefaultDict[str, deque] = defaultdict(
+            partial(deque, maxlen=config.PREDICTION_BUFFER_MAX))
+        self.raw_score_buffer: DefaultDict[str, deque] = defaultdict(
+            partial(deque, maxlen=config.PREDICTION_BUFFER_MAX))
+
+    # ------------------------------------------------------------------
+
+    def get_parent_model_from_label(self, label):
+        """Parent model name for a prediction label ("" if unknown)."""
+        return self._label_parent.get(label, "")
+
+    def reset(self):
+        """Reset the prediction and audio feature buffers."""
+        self.prediction_buffer = defaultdict(partial(deque, maxlen=config.PREDICTION_BUFFER_MAX))
+        self.raw_score_buffer = defaultdict(partial(deque, maxlen=config.PREDICTION_BUFFER_MAX))
+        self.preprocessor.reset()
+
+    # ------------------------------------------------------------------
+
+    def predict(self, x: np.ndarray, patience: dict = {},
+                threshold: dict = {}, debounce_time: float = 0.0, timing: bool = False):
+        """Score the current audio frame with every head.
+
+        Semantics per the reference hot path (model.py:232-386): >1280
+        prepared samples -> max over per-80 ms sub-frame scores (one batched
+        device call per head); <1280 -> recycle the previous score; 5-call
+        warm-up zeroing; patience XOR debounce.
+        """
+        if not isinstance(x, np.ndarray):
+            raise ValueError(f"predict expects int16 PCM as a numpy array; got {type(x)}")
+
+        timing_dict: Dict[str, Dict] = {"models": {}}
+        t0 = time.time()
+        n_prepared = self.preprocessor(x)
+        timing_dict["models"]["preprocessor"] = time.time() - t0
+
+        scores = self._score_heads(n_prepared, timing_dict["models"])
+        scores = self._postprocess(scores, n_prepared, patience, threshold, debounce_time)
+
+        predictions = {lbl: float(s) for lbl, s in zip(self._labels, scores)}
+        return (predictions, timing_dict) if timing else predictions
+
+    def _score_heads(self, n_prepared: int, model_timing: Dict) -> np.ndarray:
+        """Raw per-label scores for this call, ordered as self._labels.
+
+        More than one frame prepared -> max over all sub-frame windows
+        (batched into one device call per head); exactly one -> score the
+        newest window; none -> binary labels recycle their previous score,
+        multiclass labels read zero."""
+        out = np.zeros(len(self._labels), dtype=np.float32)
+        cursor = 0
+        n_sub = n_prepared // config.CHUNK_SAMPLES
+        for mdl in self.models:
+            t0 = time.time()
+            n_in = self.model_inputs[mdl]
+            width = 1 if self.model_outputs[mdl] == 1 else len(self.class_mapping[mdl])
+            if n_sub >= 1:
+                # the oldest sub-frame window must still be inside the feature ring
+                cap = len(self.preprocessor.feature_buffer)
+                if n_in + n_sub - 1 > cap:
+                    raise ValueError(
+                        f"predict() received {n_sub} frames (~{n_sub * 80} ms) in "
+                        f"one call, but the {cap}-frame feature ring only covers "
+                        f"{cap - n_in + 1} sub-frame windows for model '{mdl}'; "
+                        "split long audio into smaller calls (predict_clip does)")
+                windows = np.concatenate(
+                    [self.preprocessor.get_features(n_in, start_ndx=-n_in - i)
+                     for i in range(n_sub - 1, -1, -1)])
+                row = self.model_prediction_function[mdl](windows).max(axis=0)   # (C,)
+            elif self.model_outputs[mdl] == 1:
+                hist = self.prediction_buffer[mdl]
+                row = np.array([hist[-1] if hist else 0.0], dtype=np.float32)
+            else:
+                row = np.zeros(self.model_outputs[mdl], dtype=np.float32)
+            if self.model_outputs[mdl] == 1:
+                out[cursor] = row[0]
+            else:
+                cols = [int(i) for i in self.class_mapping[mdl].keys()]
+                out[cursor:cursor + width] = row[cols]
+            cursor += width
+            model_timing[mdl] = time.time() - t0
+        return out
+
+    def _postprocess(self, scores: np.ndarray, n_prepared: int,
+                     patience: dict, threshold: dict, debounce_time: float) -> np.ndarray:
+        """Warm-up + patience/debounce via the shared gating functions (run on
+        CPU tensors built from the host history), then push the filtered
+        scores into the per-label history."""
+        hist_len = torch.tensor([len(self.prediction_buffer[lbl]) for lbl in self._labels])
+        scores = gating.warmup_zero(torch.from_numpy(scores), hist_len).numpy()
+
+        raw_scores = scores
+        if n_prepared < config.CHUNK_SAMPLES:
+            # recycle tick (no head ran): repeat each binary label's last raw
+            # score (multiclass: zero), so a recycled activation cannot
+            # extend a patience streak
+            raw_scores = np.array(
+                [self.raw_score_buffer[lbl][-1]
+                 if (self.raw_score_buffer[lbl]
+                     and self.model_outputs[self.get_parent_model_from_label(lbl)] == 1)
+                 else 0.0
+                 for lbl in self._labels], dtype=np.float32)
+
+        use_patience, use_debounce = gating.validate_gating_args(patience, threshold, debounce_time)
+        if use_patience or use_debounce:
+            h = config.PREDICTION_BUFFER_MAX
+            parents = [self.get_parent_model_from_label(lbl) for lbl in self._labels]
+            threshold_vec = torch.tensor([threshold.get(p, np.inf) for p in parents], dtype=torch.float32)
+            if use_patience:
+                missing = sorted({p for p in parents if patience.get(p, 0) > 0 and p not in threshold})
+                if missing:
+                    raise ValueError(
+                        f"patience is set for {missing} but threshold has no "
+                        "entry for them; the patience filter needs a per-model "
+                        "threshold")
+                # patience reads the RAW score history
+                patience_vec = torch.tensor([patience.get(p, 0) for p in parents])
+                scores = gating.patience_filter(
+                    torch.from_numpy(scores), torch.from_numpy(self._score_history(self.raw_score_buffer, h)),
+                    patience_vec, threshold_vec).numpy()
+            else:
+                history = self._score_history(self.prediction_buffer, h)
+                frame_seconds = max(n_prepared, 1) / self.preprocessor.sr
+                n_frames = int(np.ceil(debounce_time / frame_seconds))
+                active = torch.tensor([p in threshold for p in parents])
+                scores = gating.debounce_filter(torch.from_numpy(scores), torch.from_numpy(history),
+                                                threshold_vec, min(n_frames, h), active).numpy()
+
+        for lbl, raw, s in zip(self._labels, raw_scores, scores):
+            self.raw_score_buffer[lbl].append(float(raw))
+            self.prediction_buffer[lbl].append(float(s))
+        return scores
+
+    def _score_history(self, buffers, h: int) -> np.ndarray:
+        """Zero-padded (labels, h) history matrix from a per-label deque dict."""
+        hist = np.zeros((len(self._labels), h), dtype=np.float32)
+        for i, lbl in enumerate(self._labels):
+            past = np.fromiter(buffers[lbl], dtype=np.float32)
+            if past.size:
+                hist[i, -past.size:] = past
+        return hist
+
+    # ------------------------------------------------------------------
+
+    @staticmethod
+    def _read_pcm(clip: Union[str, np.ndarray]) -> np.ndarray:
+        """WAV path or array -> int16 PCM."""
+        if not isinstance(clip, str):
+            return clip
+        with wave.open(clip, mode='rb') as f:
+            return np.frombuffer(f.readframes(f.getnframes()), dtype=np.int16)
+
+    def _stream_chunks(self, data: np.ndarray, chunk_size: int = config.CHUNK_SAMPLES, **kwargs):
+        """Yield (sample_offset, predictions) streaming over a PCM array."""
+        for i in range(0, data.shape[0] - chunk_size, chunk_size):
+            yield i, self.predict(data[i:i + chunk_size], **kwargs)
+
+    def predict_clip(self, clip: Union[str, np.ndarray], padding: int = 1,
+                     chunk_size: int = 1280, **kwargs):
+        """Streaming prediction over a whole 16-bit 16 kHz WAV clip/array,
+        padded with ``padding`` seconds of silence on both sides."""
+        data = self._read_pcm(clip)
+        if padding:
+            z = np.zeros(self.preprocessor.sr * padding, dtype=np.int16)
+            data = np.concatenate((z, data, z))
+        return [p for _, p in self._stream_chunks(data, chunk_size, **kwargs)]
+
+    def _get_positive_prediction_frames(self, file: str, threshold: float = 0.5,
+                                        return_type: str = "features", **kwargs):
+        """Harvest feature windows (or 4 s audio context) wherever any label
+        scores >= threshold. Useful for false-positive mining."""
+        data = self._read_pcm(file)
+        sr = self.preprocessor.sr
+        harvested = defaultdict(list)
+        for offset, predictions in self._stream_chunks(data, **kwargs):
+            for lbl, score in predictions.items():
+                if score < threshold:
+                    continue
+                if return_type == "features":
+                    parent = self.get_parent_model_from_label(lbl)
+                    harvested[lbl].append(self.preprocessor.get_features(self.model_inputs[parent]))
+                elif return_type == "audio":
+                    context = data[max(0, offset - sr * 3):offset + sr]
+                    if context.shape[0] == sr * 4:
+                        harvested[lbl].append(context)
+        return {lbl: np.vstack(v) for lbl, v in harvested.items()}

@@ -1,1 +1,7 @@
-"""Subpackage of the PyTorch port; see the package docstring."""
+"""Multi-stream engine, serving runtime and bulk scoring of the PyTorch port
+(counterpart of ``openwakeword_tpu.parallel``)."""
+from openwakeword_tpu_torch.parallel.engine import MultiStreamEngine
+from openwakeword_tpu_torch.parallel.bulk import bulk_predict
+from openwakeword_tpu_torch.parallel.server import StreamServer
+
+__all__ = ["MultiStreamEngine", "bulk_predict", "StreamServer"]

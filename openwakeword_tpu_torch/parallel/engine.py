@@ -19,9 +19,18 @@ one device with a leading stream axis. One step advances every stream by
 Numerics follow the JAX engine at ``precision="highest"``: scores agree
 within reassociation of float32 sums. Whether a step primes is decided from
 a host-side mirror of ``frames_seen``, which host-known inputs fully
-determine (resets and the ``valid`` masks), so no step reads the device.
+determine (resets, per-stream resets, the ``valid`` masks and the slot ids
+of ``predict_packets``), so no step reads the device; ``load_state``
+rebuilds the mirror from the loaded counters.
+
+The single-step entry points copy their input to the card from pinned host
+memory without blocking; with ``sync=False`` the scores come back as a
+``HostScores`` whose copy to the host is already enqueued, so a serving
+loop can ingest the next tick while the card computes this one.
 """
 
+import logging
+import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -64,6 +73,32 @@ def _resolve_heads(wakeword_models: Sequence[str]) -> List[Tuple[str, Dict, Dict
     return out
 
 
+class HostScores:
+    """Scores of a dispatched step on their way to the host.
+
+    On a CUDA device the scores are copied into pinned host memory with a
+    non-blocking copy and an event is recorded right after it, on the
+    current stream; ``numpy()`` waits on that event alone, not on steps
+    enqueued later (a ``.cpu()`` from another thread would wait for all of
+    them). On the CPU the scores are already there.
+    """
+
+    def __init__(self, scores: torch.Tensor):
+        self._event = None
+        if scores.device.type == "cuda":
+            host = torch.empty(scores.shape, dtype=scores.dtype, pin_memory=True)
+            host.copy_(scores, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record()
+            scores = host
+        self._host = scores
+
+    def numpy(self) -> np.ndarray:
+        if self._event is not None:
+            self._event.synchronize()
+        return self._host.numpy()
+
+
 class MultiStreamEngine:
     """Scores ``n_streams`` independent 16 kHz streams, one 80 ms frame per
     step, on one device.
@@ -74,6 +109,11 @@ class MultiStreamEngine:
     tensors (``convert.embedding_from_jax``), BN-folded or not. The engine
     turns TF32 off for cuDNN convolutions and cuBLAS matmuls
     (``torch.backends``), process-wide, so float32 means float32.
+
+    ``incremental=False`` runs the full 76-row window through the embedding
+    CNN on every step, with no caches. ``realtime_guard`` ('warn' or
+    'error') measures the step at construction (``measure_realtime``) and
+    warns or raises when it exceeds ``frame_budget_s``.
     """
 
     def __init__(self,
@@ -86,6 +126,9 @@ class MultiStreamEngine:
                  rng_seed: int = 0,
                  precision: str = "high",
                  mel_dft: str = "direct",
+                 incremental: bool = True,
+                 realtime_guard: Optional[str] = None,
+                 frame_budget_s: float = 0.08,
                  device="cuda"):
         gating.validate_gating_args(patience, threshold, debounce_time)
         self.precision = config.check_precision(precision)
@@ -101,6 +144,7 @@ class MultiStreamEngine:
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
         self.n_streams = int(n_streams)
+        self.incremental = bool(incremental)
 
         # ---- heads: labels and the execution plan (JAX engine :300-351) ----
         heads = _resolve_heads(wakeword_models)
@@ -125,10 +169,13 @@ class MultiStreamEngine:
                 cols = tuple(int(k) for k in keys)
                 self.labels.extend(mapping[k] for k in keys)
             self._head_metas.append((name, meta, cols))
-            label_head_slices.append((start, len(self.labels), name, n_cls))
+            label_head_slices.append((start, len(self.labels), name, n_cls, mapping))
+        # (start, end, name, n_classes, class mapping) per head, as the JAX
+        # engine's; StreamServer reads it for per-model thresholds
+        self._label_slices = label_head_slices
         self.max_head_frames = max(int(m["input_frames"]) for _, m, _ in self._head_metas)
 
-        label_starts = {name: start for start, _, name, _ in label_head_slices}
+        label_starts = {name: start for start, _, name, _, _ in label_head_slices}
         groups: Dict[tuple, list] = {}
         for name, meta, cols in self._head_metas:
             groups.setdefault(tuple(sorted(meta.items())), []).append((name, meta, cols))
@@ -152,7 +199,7 @@ class MultiStreamEngine:
         self._debounce_frames = min(int(np.ceil(debounce_time / 0.08)),
                                     config.PREDICTION_BUFFER_MAX) if debounce_time > 0 else 0
         recycle = np.zeros(n_labels, dtype=np.float32)
-        for start, end, name, n_cls in label_head_slices:
+        for start, end, name, n_cls, _ in label_head_slices:
             if threshold and name in threshold:
                 threshold_vec[start:end] = threshold[name]
             if patience and name in patience:
@@ -180,40 +227,125 @@ class MultiStreamEngine:
                        "heads": head_params}
 
         # one noise clip seeds every stream's feature ring, at every reset
-        F = self.max_head_frames
-        n_samples = max(16000 * config.FEATURE_SEED_SECONDS, (MEL_RING + 8 * (F - 1) + 4) * 160)
-        noise = np.random.default_rng(rng_seed).integers(-1000, 1000, n_samples).astype(np.float32)
-        self._seed_ring = seed_embeddings(self.params["embedding"], torch.from_numpy(noise).to(self.device), F)
+        self._rng_seed = rng_seed
+        self._seed_rings: Dict[int, torch.Tensor] = {}
+        self._fresh_row: Optional[Dict] = None
         self.reset()
+
+        # ---- serving-capacity guardrail (JAX engine :526-558) ----
+        self._frame_budget_s = float(frame_budget_s)
+        if realtime_guard is not None:
+            if realtime_guard not in ("warn", "error"):
+                raise ValueError("realtime_guard must be None, 'warn', or 'error'; got "
+                                 f"{realtime_guard!r}")
+            m = self.measure_realtime()
+            if not m["realtime"]:
+                msg = (f"engine is NOT real-time at {self.n_streams} streams: measured "
+                       f"{m['per_frame_s'] * 1e3:.2f} ms per {self._frame_budget_s * 1e3:.0f} ms "
+                       f"frame (capacity ~{m['rt_streams']:,.0f} streams on this device)")
+                if realtime_guard == "error":
+                    raise RuntimeError(msg)
+                logging.warning(msg)
 
     # ------------------------------------------------------------------
 
-    def init_state(self, n_streams: int) -> Dict:
+    def _seed_ring(self, seed: int) -> torch.Tensor:
+        """(F, 96) embeddings of ``default_rng(seed).integers(-1000, 1000, n)``
+        noise, computed once per seed."""
+        ring = self._seed_rings.get(seed)
+        if ring is None:
+            F = self.max_head_frames
+            n_samples = max(16000 * config.FEATURE_SEED_SECONDS, (MEL_RING + 8 * (F - 1) + 4) * 160)
+            noise = np.random.default_rng(seed).integers(-1000, 1000, n_samples).astype(np.float32)
+            ring = seed_embeddings(self.params["embedding"], torch.from_numpy(noise).to(self.device), F)
+            self._seed_rings[seed] = ring
+        return ring
+
+    def init_state(self, n_streams: int, rng_seed: Optional[int] = None) -> Dict:
         """Fresh per-stream state: mel ring of ones and a feature ring seeded
-        with the embeddings of ``default_rng(rng_seed).integers(-1000, 1000, n)``
-        noise, shared by all streams (JAX engine ``init_state``)."""
+        with the embeddings of ``default_rng(seed).integers(-1000, 1000, n)``
+        noise, shared by all streams (JAX engine ``init_state``); ``seed`` is
+        ``rng_seed`` or the constructor's."""
         F = self.max_head_frames
         S, dev, f32 = n_streams, self.device, torch.float32
         n_labels = len(self.labels)
+        seed_ring = self._seed_ring(self._rng_seed if rng_seed is None else rng_seed)
         state = {
             "pcm_tail": torch.zeros((S, config.MEL_LOOKBACK_SAMPLES), dtype=f32, device=dev),
             "mel_ring": torch.ones((S, MEL_RING, config.N_MELS), dtype=f32, device=dev),
-            "feat_ring": self._seed_ring[None].expand(S, F, config.EMB_DIM).clone(),
+            "feat_ring": seed_ring[None].expand(S, F, config.EMB_DIM).clone(),
             "score_hist": torch.zeros((S, n_labels, config.PREDICTION_BUFFER_MAX), dtype=f32, device=dev),
             "frames_seen": torch.zeros((S,), dtype=torch.int32, device=dev),
             "ticks": torch.zeros((S,), dtype=torch.int32, device=dev),
-            # placeholders: every stream starts at frames_seen == 0, so the
-            # first step primes every cache before a stream step reads one
-            "conv_caches": {k: torch.zeros((S, *shape), dtype=f32, device=dev)
-                            for k, shape in embedding_stream.cache_shapes().items()},
         }
         if self._use_patience:
             state["raw_hist"] = torch.zeros_like(state["score_hist"])
+        if self.incremental:
+            # placeholders: every stream starts at frames_seen == 0, so the
+            # first step primes every cache before a stream step reads one
+            state["conv_caches"] = {k: torch.zeros((S, *shape), dtype=f32, device=dev)
+                                    for k, shape in embedding_stream.cache_shapes().items()}
         return state
 
     def reset(self):
         self.state = self.init_state(self.n_streams)
         self._frames_seen_host = np.zeros(self.n_streams, dtype=np.int64)
+
+    def reset_stream(self, sid: int):
+        """Give stream ``sid`` a fresh state row, in place, and zero its host
+        mirror of ``frames_seen`` so that its next valid step re-primes (a
+        re-leased server slot must not read the previous lease's caches)."""
+        if self._fresh_row is None:
+            self._fresh_row = self.init_state(1)
+
+        def put(full, fresh):
+            for k, v in full.items():
+                if isinstance(v, dict):
+                    put(v, fresh[k])
+                else:
+                    v[sid] = fresh[k][0]
+        put(self.state, self._fresh_row)
+        self._frames_seen_host[sid] = 0
+
+    def save_state(self, path: str):
+        """Snapshot all per-stream state to an ``.npz`` (serving failover /
+        migration), in the JAX engine's layout: nested keys joined by '/'.
+        Params are not saved; they are reproducible from the model files."""
+        flat = {}
+
+        def record(prefix, tree):
+            for k, v in tree.items():
+                if isinstance(v, dict):
+                    record(f"{prefix}{k}/", v)
+                else:
+                    flat[f"{prefix}{k}"] = v.cpu().numpy()
+        record("", self.state)
+        with open(path, "wb") as f:
+            np.savez(f, **flat)
+
+    def load_state(self, path: str):
+        """Restore a ``save_state`` snapshot (the stream count and the state
+        layout must match) and rebuild the host mirror of ``frames_seen``
+        from it: one device read per load, none per step."""
+        with np.load(path) as z:
+            flat = {k: z[k] for k in z.files}
+
+        def rebuild(prefix, template):
+            out = {}
+            for k, v in template.items():
+                if isinstance(v, dict):
+                    out[k] = rebuild(f"{prefix}{k}/", v)
+                    continue
+                key = f"{prefix}{k}"
+                if key not in flat:
+                    raise ValueError(f"state leaf '{key}' missing from {path}")
+                arr = flat[key]
+                if arr.shape != tuple(v.shape):
+                    raise ValueError(f"state leaf '{key}' shape {arr.shape} != engine shape {tuple(v.shape)}")
+                out[k] = torch.from_numpy(np.ascontiguousarray(arr)).to(device=self.device, dtype=v.dtype)
+            return out
+        self.state = rebuild("", self.state)
+        self._frames_seen_host = self.state["frames_seen"].cpu().numpy().astype(np.int64)
 
     # ------------------------------------------------------------------
 
@@ -252,7 +384,10 @@ class MultiStreamEngine:
         ring5 = torch.cat([st["mel_ring"][:, 5:], mel[:, 3:]], dim=1)
         mel_ring = torch.where(is_first[:, None, None], ring5, ring8)
 
-        if prime:
+        conv_caches = None
+        if not self.incremental:
+            emb = embedding_model.apply_folded(self.params["embedding"], mel_ring)      # (S, 96)
+        elif prime:
             conv_caches, emb = self._prime(mel_ring)
         else:
             conv_caches, emb = embedding_stream.step(self.params["embedding"], st["conv_caches"], mel)
@@ -292,8 +427,9 @@ class MultiStreamEngine:
             "score_hist": gating.push_history(st["score_hist"], scores),
             "frames_seen": st["frames_seen"] + 1,
             "ticks": st["ticks"] + 1,
-            "conv_caches": conv_caches,
         }
+        if conv_caches is not None:
+            new["conv_caches"] = conv_caches
         if self._use_patience:
             raw_push = raw_scores
             if valid is not None:
@@ -308,19 +444,36 @@ class MultiStreamEngine:
                 return torch.where(valid.reshape((-1,) + (1,) * (n.ndim - 1)), n, o)
             for k in ("pcm_tail", "mel_ring", "feat_ring", "frames_seen"):
                 new[k] = keep(new[k], st[k])
-            new["conv_caches"] = {k: keep(v, st["conv_caches"][k]) for k, v in conv_caches.items()}
+            if conv_caches is not None:
+                new["conv_caches"] = {k: keep(v, st["conv_caches"][k]) for k, v in conv_caches.items()}
         self.state = new
         return scores
 
     # ------------------------------------------------------------------
 
-    def _feed(self, arr) -> torch.Tensor:
-        """Host PCM -> device tensor; int16 travels as int16 and is cast on
-        the device, other dtypes are cast to float32 on the host."""
+    def _feed(self, arr, non_blocking: bool = False) -> torch.Tensor:
+        """Host array -> device tensor; int16 and int64 travel as they are
+        (PCM is cast on the device), other dtypes as float32. With
+        ``non_blocking`` a CUDA copy goes from pinned memory without waiting
+        for the stream: from the array itself when it lies in pinned memory
+        (its owner keeps it unchanged until the step's scores are fetched),
+        else from a pinned copy that the caching host allocator keeps until
+        the transfer is done."""
         arr = np.asarray(arr)
-        if arr.dtype != np.int16:
+        if arr.dtype not in (np.int16, np.int64, np.bool_):
             arr = arr.astype(np.float32, copy=False)
-        return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+        t = torch.from_numpy(np.ascontiguousarray(arr))
+        if self.device.type != "cuda":
+            return t
+        if not non_blocking:
+            return t.to(self.device)
+        if not t.is_pinned():
+            t = t.pin_memory()
+        return t.to(self.device, non_blocking=True)
+
+    @staticmethod
+    def _fetch(scores: torch.Tensor, sync: bool):
+        return scores.cpu().numpy() if sync else HostScores(scores)
 
     def _advance(self, chunk: torch.Tensor, valid_host: Optional[np.ndarray] = None,
                  valid: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -343,9 +496,9 @@ class MultiStreamEngine:
         Returns:
             (n_streams, n_labels) float32 scores, ordered like ``self.labels``.
         """
-        return self._advance(self._feed(chunks)).cpu().numpy()
+        return self._advance(self._feed(chunks, non_blocking=True)).cpu().numpy()
 
-    def predict_masked(self, chunks: np.ndarray, valid: np.ndarray) -> np.ndarray:
+    def predict_masked(self, chunks: np.ndarray, valid: np.ndarray, sync: bool = True):
         """Advance only the streams with ``valid[i]``; the others keep their
         audio state and recycle their previous score (binary labels) or read
         zero (multiclass labels).
@@ -353,12 +506,86 @@ class MultiStreamEngine:
         Args:
             chunks: (n_streams, 1280) PCM (rows of invalid streams ignored).
             valid: (n_streams,) bool.
+            sync: fetch the scores to host numpy (default). ``sync=False``
+                returns a ``HostScores`` whose ``numpy()`` waits for them:
+                the pipelined serving path (``StreamServer.step_async``)
+                fetches it on a worker thread.
         Returns:
-            (n_streams, n_labels) float32 scores.
+            (n_streams, n_labels) float32 scores, or their ``HostScores``.
         """
         valid_host = np.asarray(valid, dtype=bool).reshape(self.n_streams)
-        v = torch.from_numpy(valid_host).to(self.device)
-        return self._advance(self._feed(chunks), valid_host, v).cpu().numpy()
+        v = self._feed(valid_host, non_blocking=True)
+        scores = self._advance(self._feed(chunks, non_blocking=True), valid_host, v)
+        return self._fetch(scores, sync)
+
+    def predict_packets(self, stage: np.ndarray, slot_ids: np.ndarray, sync: bool = True):
+        """Masked step fed by a compact staging buffer instead of a
+        slot-ordered chunk matrix: row j of ``stage`` is the frame for slot
+        ``slot_ids[j]``; rows with ``slot_ids[j] < 0`` are padding. The rows
+        are scattered to slot order on the device, so the serving host never
+        pays a capacity-row scatter per tick.
+
+        The ids are on the host, so the padding rows are dropped there:
+        only rows with ``slot_ids >= 0`` reach the device scatter (a -1
+        would index the last slot), and the valid mask and the host mirror
+        come from the same ids.
+
+        Args:
+            stage: (n_streams, 1280) PCM; only the rows named by slot_ids
+                are read.
+            slot_ids: (n_streams,) int, -1 = unused row.
+            sync: as in ``predict_masked``.
+        Returns:
+            (n_streams, n_labels) float32 scores (invalid slots recycle,
+            exactly like predict_masked), or their ``HostScores``.
+        """
+        ids = np.asarray(slot_ids, dtype=np.int64)
+        rows = np.flatnonzero(ids >= 0)
+        dst = ids[rows]
+        if dst.size and int(dst.max()) >= self.n_streams:
+            raise IndexError(f"slot ids must be < {self.n_streams}, got {int(dst.max())}")
+        valid_host = np.zeros(self.n_streams, dtype=bool)
+        valid_host[dst] = True
+        x = self._feed(stage, non_blocking=True)
+        idx = self._feed(np.stack([rows, dst]), non_blocking=True)           # (2, n) int64
+        chunk = torch.zeros((self.n_streams, x.shape[1]), dtype=x.dtype, device=self.device)
+        chunk[idx[1]] = x[idx[0]]
+        valid = torch.zeros(self.n_streams, dtype=torch.bool, device=self.device)
+        valid[idx[1]] = True
+        return self._fetch(self._advance(chunk, valid_host, valid), sync)
+
+    def measure_realtime(self, n_frames: int = 25, repeats: int = 3,
+                         frame_budget_s: Optional[float] = None) -> Dict:
+        """Measure the steady-state step cost on the current device against
+        the real-time budget (one 80 ms frame per stream per 80 ms wall).
+
+        Runs ``predict_frames`` on zero PCM (a warm-up run, then the best of
+        ``repeats``; each ends with the scores on the host); the serving
+        state and its host mirror are snapshotted and restored, so the
+        measurement is side-effect free. Returns ``{"wall_s",
+        "per_frame_s", "rt_streams", "realtime"}``, where ``rt_streams`` is
+        the stream count this device sustains in real time at the measured
+        per-stream cost.
+        """
+        budget = self._frame_budget_s if frame_budget_s is None else float(frame_budget_s)
+
+        def clone(tree):
+            return {k: clone(v) if isinstance(v, dict) else v.clone() for k, v in tree.items()}
+        saved, saved_host = clone(self.state), self._frames_seen_host.copy()
+        frames = np.zeros((n_frames, self.n_streams, config.CHUNK_SAMPLES), np.int16)
+        try:
+            self.predict_frames(frames)
+            best = float("inf")
+            for _ in range(repeats):
+                t0 = time.perf_counter()
+                self.predict_frames(frames)
+                best = min(best, time.perf_counter() - t0)
+        finally:
+            self.state, self._frames_seen_host = saved, saved_host
+        per_frame = best / n_frames
+        return {"wall_s": best, "per_frame_s": per_frame,
+                "rt_streams": self.n_streams * budget / per_frame,
+                "realtime": per_frame <= budget}
 
     def predict_frames(self, frames: np.ndarray) -> np.ndarray:
         """Advance every stream by T frames.

@@ -8,8 +8,15 @@ numpy-seeded weights, and 30 frames of PCM for 4 streams. Every draw is
 across versions; ``inputs_sha256`` lets a run detect a numpy that draws
 differently. ``run_golden`` drives an engine (this port's or the JAX
 package's) through the fixed call sequence.
+
+The serving golden (``tests/fixtures/torch_serving_golden.npz``) uses the
+same weights: ``run_model_golden`` feeds a ``Model`` a fixed sequence of
+packets of mixed sizes, ``run_server_golden`` drives a ``StreamServer``
+through a fixed schedule of every ingest path with slot churn, in ``step()``
+or ``step_async()`` mode. Both take either package's objects.
 """
 
+import contextlib
 import hashlib
 import os
 from typing import Dict, List
@@ -24,8 +31,16 @@ from openwakeword_tpu_torch.models import heads as heads_lib
 GOLDEN_SEED = 20260
 GOLDEN_STREAMS = 4
 PHASE_FRAMES = 10         # predict, then predict_masked, then one predict_frames call
-FIXTURE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                       "tests", "fixtures", "torch_port_golden.npz")
+_FIXTURES = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tests", "fixtures")
+FIXTURE = os.path.join(_FIXTURES, "torch_port_golden.npz")
+SERVING_FIXTURE = os.path.join(_FIXTURES, "torch_serving_golden.npz")
+SERVING_SEED = 20261
+MODEL_PACKET_SIZES = (1280, 640, 2000, 4000, 3840, 300, 1280, 5120, 960, 1280)
+MODEL_CALLS = 60
+SERVER_CAPACITY = 8
+SERVER_QUEUE_FRAMES = 4
+SERVER_TICKS = 30
+SERVER_THRESHOLD = 0.5
 
 
 def golden_inputs(seed: int = GOLDEN_SEED) -> Dict:
@@ -90,3 +105,123 @@ def run_golden(engine, inputs: Dict) -> np.ndarray:
     out = [engine.predict(pcm[t]) for t in range(n)]
     out += [engine.predict_masked(pcm[n + t], mask[t]) for t in range(n)]
     return np.concatenate([np.stack(out), np.asarray(engine.predict_frames(pcm[2 * n:]))])
+
+
+def model_packets(seed: int = SERVING_SEED) -> List[np.ndarray]:
+    """MODEL_CALLS int16 packets, sizes cycling through MODEL_PACKET_SIZES
+    (sub-frame, one frame, several frames, remainders), noise whose level
+    changes every few packets."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(MODEL_CALLS):
+        n = MODEL_PACKET_SIZES[i % len(MODEL_PACKET_SIZES)]
+        amp = (300.0, 3000.0, 12000.0)[(i // 7) % 3]
+        out.append(np.round((rng.random(n) * 2.0 - 1.0) * amp).astype(np.int16))
+    return out
+
+
+def run_model_golden(model, packets: List[np.ndarray], **predict_kwargs) -> np.ndarray:
+    """(calls, labels) scores of ``model.predict`` over ``packets``, labels in
+    the model's order."""
+    return np.array([list(model.predict(p, **predict_kwargs).values()) for p in packets], dtype=np.float32)
+
+
+@contextlib.contextmanager
+def recording(server):
+    """Inside the block, {frame index: (scores, valid)} of every tick
+    ``server`` (either package's ``StreamServer``) materializes, in
+    ``step()`` and on the ``step_async()`` fetcher thread alike: wraps the
+    server's activation extraction, which receives each tick's score
+    matrix. Drain the server before the block ends."""
+    recorded = {}
+    extract = server._extract_activations
+
+    def record(scores, valid, frame_index):
+        recorded[frame_index] = (np.array(scores, dtype=np.float32), np.array(valid))
+        extract(scores, valid, frame_index)
+    server._extract_activations = record
+    try:
+        yield recorded
+    finally:
+        del server._extract_activations          # the class's method again
+
+
+def steady_block_calls(packets: List[np.ndarray]) -> int:
+    """How many ``AudioFeatures`` calls over ``packets`` (from a fresh
+    state) process at least one steady-state block, i.e. launch the mel
+    kernel: every completed 1280-sample block but a stream's very first,
+    whose window is shorter."""
+    pending = blocks = calls = 0
+    for p in packets:
+        pending += len(p)
+        n, pending = divmod(pending, 1280)
+        calls += int(n - (blocks == 0) > 0)
+        blocks += n
+    return calls
+
+
+def run_server_golden(server, mode: str, seed: int = SERVING_SEED) -> Dict[str, np.ndarray]:
+    """Drive ``server`` (capacity SERVER_CAPACITY, queue_frames
+    SERVER_QUEUE_FRAMES) for SERVER_TICKS ticks of ``step()``
+    (``mode="sync"``) or ``step_async()`` (``mode="async"``).
+
+    Each tick every live slot gets one of: a packet in a ``push_block`` of
+    one frame per slot (with a duplicated slot on some ticks), a two-frame
+    ``push_block`` (queue path; two per tick overflow the queue), a packet
+    of odd length through ``push``, a row of an ``acquire_block`` /
+    ``commit_block``, or nothing (starved). Slots are removed and re-leased
+    along the way. Returns ``scores`` (ticks, capacity, labels) as the
+    server materialized them, ``valid`` (ticks, capacity) and
+    ``activations`` (n, 4) float64 rows (slot, label index, frame, score),
+    sorted.
+    """
+    rng = np.random.default_rng(seed)
+    acts = []
+
+    def collect():
+        server.drain()
+        for sid, events in server.poll_all().items():
+            acts.extend((sid, server.labels.index(lbl), frame, score) for lbl, frame, score in events)
+
+    def pcm(*shape):
+        return np.round((rng.random(shape) * 2.0 - 1.0) * 6000.0).astype(np.int16)
+
+    with recording(server) as recorded:
+        live = [server.add_stream() for _ in range(6)]
+        for t in range(SERVER_TICKS):
+            if t % 4 == 3:                                  # churn: one slot leaves, a slot joins
+                collect()
+                server.remove_stream(live.pop(int(rng.integers(len(live)))))
+                live.append(server.add_stream())
+            if t == 10 and len(live) < SERVER_CAPACITY:
+                live.append(server.add_stream())
+            ops = rng.choice(["block", "block2", "push", "zero", "none"], size=len(live),
+                             p=[0.4, 0.15, 0.15, 0.2, 0.1])
+            by_op = {op: [sid for sid, o in zip(live, ops) if o == op] for op in set(ops)}
+            for sid in by_op.get("push", []):
+                server.push(sid, pcm(int(rng.integers(200, 2600))))
+            if by_op.get("block2"):
+                sids = np.array(by_op["block2"])
+                server.push_block(sids, pcm(sids.size, 2 * 1280))
+            if by_op.get("block"):
+                sids = by_op["block"]
+                if t % 5 == 2:
+                    sids = sids + sids[:1]                  # a duplicate: per-slot push fallback
+                server.push_block(np.array(sids), pcm(len(sids), 1280))
+            if by_op.get("zero"):
+                sids = np.array(by_op["zero"])
+                view = server.acquire_block(sids.size)
+                view[...] = pcm(sids.size, 1280)
+                server.commit_block(sids)
+            if mode == "sync":
+                server.step()
+            elif mode == "async":
+                server.step_async()
+            else:
+                raise ValueError(f"mode must be 'sync' or 'async', got {mode!r}")
+        collect()
+    frames = sorted(recorded)
+    return {"scores": np.stack([recorded[f][0] for f in frames]),
+            "valid": np.stack([recorded[f][1] for f in frames]),
+            "activations": np.array(sorted(acts), dtype=np.float64).reshape(-1, 4),
+            "overflow_drops": np.int64(server.overflow_drops)}

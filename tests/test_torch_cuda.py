@@ -90,3 +90,56 @@ def test_cnn_kernel_rejects_bad_inputs(cuda, cnn_params):
         cnn_step_cuda.cnn_step(params, caches[:-1], torch.zeros((8, 32, 3), device=cuda))
     with pytest.raises(TypeError):
         cnn_step_cuda.cnn_step(params, caches, torch.zeros((8, 32, 3), dtype=torch.float64, device=cuda))
+
+
+# ---------------------------------------------------------------------------
+# the serving slice on the card
+
+
+@pytest.fixture(scope="module")
+def serving_golden(tmp_path_factory):
+    from openwakeword_tpu_torch import testing
+    with np.load(testing.SERVING_FIXTURE) as z:
+        fixture = {k: z[k] for k in z.files}
+    inputs = testing.golden_inputs(int(fixture["seed"]))
+    paths = testing.write_head_checkpoints(inputs["heads"], str(tmp_path_factory.mktemp("heads")))
+    return fixture, inputs, paths
+
+
+def test_host_scores_match_a_blocking_copy(cuda):
+    from openwakeword_tpu_torch.parallel.engine import HostScores
+    x = torch.randn((64, 11), device=cuda)
+    pending = HostScores(x * 2.0)
+    np.testing.assert_array_equal(pending.numpy(), (x * 2.0).cpu().numpy())
+
+
+@pytest.mark.parametrize("mode", ["sync", "async"])
+def test_server_golden_on_card(cuda, serving_golden, mode):
+    from openwakeword_tpu_torch import testing
+    from openwakeword_tpu_torch.parallel import StreamServer
+    fixture, inputs, paths = serving_golden
+    server = StreamServer(wakeword_models=paths, capacity=testing.SERVER_CAPACITY,
+                          threshold=testing.SERVER_THRESHOLD, queue_frames=testing.SERVER_QUEUE_FRAMES,
+                          precision="highest", device=cuda,
+                          embedding_params=convert.embedding_from_jax(inputs["embedding"]))
+    before = melspec_cuda.melspectrogram_frames.launches["direct"]
+    run = testing.run_server_golden(server, mode)
+    assert melspec_cuda.melspectrogram_frames.launches["direct"] - before == testing.SERVER_TICKS
+    np.testing.assert_array_equal(run["valid"], fixture["server_valid"])
+    assert np.abs(run["scores"] - fixture["server_scores"]).max() < 1e-3
+
+
+def test_model_golden_on_card(cuda, serving_golden):
+    from openwakeword_tpu_torch import Model, testing
+    fixture, inputs, paths = serving_golden
+    model = Model(wakeword_models=paths, device=cuda,
+                  embedding_params=convert.embedding_from_jax(inputs["embedding"]))
+    before = melspec_cuda.melspectrogram_frames.launches["direct"]
+    scores = testing.run_model_golden(model, testing.model_packets())
+    assert melspec_cuda.melspectrogram_frames.launches["direct"] > before
+    assert np.abs(scores - fixture["model_scores"]).max() < 1e-3
+
+
+def test_ingest_library_builds():
+    from openwakeword_tpu_torch.parallel import ingest
+    assert ingest.warm()

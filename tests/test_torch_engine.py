@@ -180,7 +180,13 @@ def test_cuda_device_without_cuda_raises(weights):
 def test_import_leaves_jax_out():
     code = ("import sys, openwakeword_tpu_torch, openwakeword_tpu_torch.testing, "
             "openwakeword_tpu_torch.ops.melspec_cuda, openwakeword_tpu_torch.ops.cnn_step, "
-            "openwakeword_tpu_torch.utils.cuda_build; "
+            "openwakeword_tpu_torch.utils.cuda_build, openwakeword_tpu_torch.model, "
+            "openwakeword_tpu_torch.features, openwakeword_tpu_torch.streaming, "
+            "openwakeword_tpu_torch.parallel.server, openwakeword_tpu_torch.parallel.bulk, "
+            "openwakeword_tpu_torch.parallel.ingest, openwakeword_tpu_torch.utils.args, "
+            "openwakeword_tpu_torch.utils.native_lib; "
+            "from openwakeword_tpu_torch import Model, MultiStreamEngine; "
+            "from openwakeword_tpu_torch.parallel import MultiStreamEngine, StreamServer, bulk_predict; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'openwakeword_tpu')]; "
             "assert not bad, bad")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
