@@ -10,10 +10,13 @@ Phases, each of which exits nonzero on failure:
 2. build: compiles ``openwakeword_tpu_torch/csrc/*.cu`` with nvcc for sm_90a,
    one nvcc per source, all at once, and ``native/ingest.cpp`` with g++ into
    ``build/`` (the serving ingest copies);
-3. mel kernels vs plain: kernels 1 (direct DFT) and 2 (factored DFT) against
-   their plain PyTorch versions on the card, S in {1, 5, 1000, 4096}, max
-   |dB diff| <= 2e-3, plus silence (-100 dB); times each pair at S=4096 with
-   CUDA events (plain, kernel, kernel, plain);
+3. mel kernels vs plain: kernels 1 (direct DFT over the filterbank's live
+   bins) and 2 (factored DFT) against their plain PyTorch versions on the
+   card (the unpruned 257-bin path), S in {1, 5, 17, 63, 64, 65, 1000, 4095,
+   4096} with one silent stream each, max |dB diff| <= 2e-3, plus silence
+   (-100 dB); times each pair at S=4096 with CUDA events (plain, kernel,
+   kernel, plain), kernel 1 also at S=1, and prints kernel 1's TFLOP/s and
+   share of its bound;
 4. golden: the port's engine on the card against the JAX engine's committed
    scores (tests/fixtures/torch_port_golden.npz), max |dscore| < 1e-3, with
    ``mel_dft="direct"`` and with ``mel_dft="factored"`` (kernel 2 must
@@ -53,9 +56,12 @@ Phases, each of which exits nonzero on failure:
    ``bulk_predict_streaming`` must equal ``engine.predict_clips`` on the same
    audio within 1e-5.
 
-Then it prints one JSON line describing each kernel, the card's name and
-power limit, and last the result line ``{"ok": true, "device": {...}}``. It
-imports nothing of JAX.
+Then it prints one JSON line describing each kernel (its launches on the
+main path, its error against its plain version, its time, its plain
+version's time and its bound: the larger of the operations over the fp32
+peak and the bytes over the memory rate, both counted from this run's
+inputs), the card's name and power limit, and last the result line
+``{"ok": true, "device": {...}}``. It imports nothing of JAX.
 """
 
 import json
@@ -75,7 +81,13 @@ SCALE_STREAMS = 4096
 SCALE_FRAMES = 50
 SYNC_ASYNC_TOL = 1e-6      # step() vs step_async() on one card: the same kernels on the same inputs
 BULK_TOL = 1e-5
+EMB_BYTES = 96 * 4         # one stream's float32 embedding
 SCALE_THRESHOLD = 0.7
+MEL_CHECK_STREAMS = (1, 5, 17, 63, 64, 65, 1000, 4095, 4096)
+# published H100 SXM peaks at 700 W (NVIDIA data sheet): fp32 outside the tensor
+# cores, and HBM3
+FP32_FLOPS = 67e12
+HBM_BYTES_PER_S = 3.35e12
 
 
 def fail(msg: str):
@@ -110,6 +122,40 @@ def sandwich(name: str, kernel, plain, n_iter: int = 50):
 
 def max_diff(got, want) -> float:
     return float((got - want).abs().max())
+
+
+def n_bytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(flops: float, nbytes: int):
+    """(bound ms, what sets it): the least time the card could take for
+    ``flops`` fp32 operations that read and write ``nbytes`` once."""
+    t_ops, t_bytes = flops / FP32_FLOPS, nbytes / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def mel_flops(dft: str, n_streams: int) -> float:
+    """fp32 operations of one mel kernel call: per frame the DFT's
+    multiply-adds (kernel 1: cos and sin of each live bin over 512 samples;
+    kernel 2: four 128 x 128 complex branch products over all 257 bins),
+    the power and the mel projection of the bins it computes."""
+    from openwakeword_tpu_torch.ops import melspec_cuda
+    if dft == "direct":
+        bins = melspec_cuda.live_bins()[1]
+        dft_ops = 2 * 2 * 512 * bins
+    else:
+        bins = 257
+        dft_ops = 2 * 2 * 4 * 128 * 128
+    return 8 * n_streams * (dft_ops + 3 * bins + 2 * bins * 32)
+
+
+def plain_flops(fn, *args) -> float:
+    """Operations of the matrix products ``fn`` runs on ``args``."""
+    from torch.utils.flop_counter import FlopCounterMode
+    with FlopCounterMode(display=False) as counter:
+        fn(*args)
+    return float(counter.get_total_flops())
 
 
 def cnn_weights():
@@ -359,9 +405,11 @@ def main():
     mel_err, mel_ms = {}, {}
     x_scale = torch.from_numpy((np.random.default_rng(0).uniform(-1, 1, (SCALE_STREAMS, melspec_cuda.WINDOW))
                                 * 25000).astype(np.float32)).to(dev)
+    first, count, padded = melspec_cuda.live_bins()
+    print(f"mel kernel 1 computes DFT bins {first}..{first + count - 1} ({count} of 257, padded to {padded})")
     for dft in melspec_cuda.DFTS:
         mel_err[dft] = 0.0
-        for n in (1, 5, 1000, SCALE_STREAMS):
+        for n in MEL_CHECK_STREAMS:
             w = (np.random.default_rng(n).uniform(-1, 1, (n, melspec_cuda.WINDOW)) * 25000).astype(np.float32)
             w[n // 2] = 0.0                                   # one silent stream
             x = torch.from_numpy(w).to(dev)
@@ -376,6 +424,16 @@ def main():
         if float((silence + 100.0).abs().max()) > 1e-4:
             fail(f"silence does not give -100 dB ({dft})")
         mel_ms[dft] = sandwich(f"mel ({dft})", lambda: mel(x_scale, dft), lambda: mel_plain(x_scale, dft))
+
+    def mel_bound(dft, n):
+        io = n * (melspec_cuda.WINDOW + melspec_cuda.FRAMES * melspec_cuda.N_MELS) * 4
+        return bound(mel_flops(dft, n), io + n_bytes(*melspec_cuda._device_consts(dev, dft)))
+    x_one = x_scale[:1].contiguous()
+    k1_one_ms = min(cuda_ms(lambda: mel(x_one, "direct"), 200) for _ in range(2))
+    for n, ms in ((1, k1_one_ms), (SCALE_STREAMS, mel_ms["direct"][0])):
+        flops, (bound_ms, bound_by) = mel_flops("direct", n), mel_bound("direct", n)
+        print(f"mel kernel 1 at S={n}: {ms:.4f} ms, {flops / ms / 1e9:.2f} TFLOP/s over {flops / 1e9:.4f} GFLOP "
+              f"of live bins, bound {bound_ms:.4f} ms ({bound_by}; {bound_ms / ms:.1%} of it), on {card}")
 
     # 4. golden against the JAX engine's committed scores, both mel DFTs
     with np.load(testing.FIXTURE) as z:
@@ -518,23 +576,36 @@ def main():
     print(f"CNN step at S={SCALE_STREAMS}: engine's NHWC eager step {nhwc_ms_1:.4f} / {nhwc_ms_2:.4f} ms")
     prime_ms = sandwich("CNN prime", lambda: cnn_step_cuda.cnn_prime(params, window),
                         lambda: cnn_step_cuda.cnn_prime_plain(params, window), n_iter=10)
+    weights = n_bytes(*params.taps, *params.biases, params.scale, params.shift)
+    cnn_bound = {
+        "step": bound(plain_flops(cnn_step_cuda.cnn_step_plain, params, caches_list, new),
+                      weights + n_bytes(new) + 2 * n_bytes(*caches_list) + EMB_BYTES * SCALE_STREAMS),
+        "prime": bound(plain_flops(cnn_step_cuda.cnn_prime_plain, params, window),
+                       weights + n_bytes(window) + n_bytes(*caches_list) + EMB_BYTES * SCALE_STREAMS),
+    }
+    for what, ms in (("step", step_ms[0]), ("prime", prime_ms[0])):
+        print(f"CNN {what} kernel at S={SCALE_STREAMS}: {ms:.4f} ms, bound {cnn_bound[what][0]:.4f} ms "
+              f"({cnn_bound[what][1]}; {cnn_bound[what][0] / ms:.1%} of it), on {card}")
 
     mel_launches["direct"] = serving(card)
 
+    # no single PyTorch call computes any of these functions (a mel frontend or a
+    # 20-conv step is several calls), so library_ms is null throughout
     kernels = [
         ("melspec_frames", "melspec.cu", "openwakeword_tpu/ops/melspec_pallas.py:73",
-         mel_launches["direct"], mel_err["direct"], mel_ms["direct"]),
+         mel_launches["direct"], mel_err["direct"], mel_ms["direct"], mel_bound("direct", SCALE_STREAMS)),
         ("melspec_frames_factored", "melspec.cu", "openwakeword_tpu/ops/melspec_pallas.py:110",
-         mel_launches["factored"], mel_err["factored"], mel_ms["factored"]),
+         mel_launches["factored"], mel_err["factored"], mel_ms["factored"], mel_bound("factored", SCALE_STREAMS)),
         ("cnn_step", "cnn_step.cu", "openwakeword_tpu/ops/cnn_pallas.py:167",
-         cnn_launches["step"], cnn_err["step"], step_ms),
+         cnn_launches["step"], cnn_err["step"], step_ms, cnn_bound["step"]),
         ("cnn_prime", "cnn_step.cu", "openwakeword_tpu/ops/cnn_pallas.py:167",
-         cnn_launches["prime"], cnn_err["prime"], prime_ms),
+         cnn_launches["prime"], cnn_err["prime"], prime_ms, cnn_bound["prime"]),
     ]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"openwakeword_tpu_torch/csrc/{src}", "replaces": replaces,
-         "launches": launches, "max_abs_err": err, "ms": ms[0], "plain_ms": ms[1]}
-        for name, src, replaces, launches, err, ms in kernels]}))
+         "launches": launches, "max_abs_err": err, "ms": ms[0], "plain_ms": ms[1], "bound_ms": bnd[0],
+         "bound_by": bnd[1], "library_ms": None}
+        for name, src, replaces, launches, err, ms, bnd in kernels]}))
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,126 +1,219 @@
 // Streaming mel frontend for Hopper (sm_90a), fp32 on the CUDA cores: kernel 1
-// (direct DFT) and, further down, kernel 2 (radix-4 factored DFT).
+// (direct DFT over the live bins) and, further down, kernel 2 (radix-4
+// factored DFT).
 //
 // Kernel 1 replaces the TPU kernel openwakeword_tpu/ops/melspec_pallas.py::_make_kernel
 // (melspectrogram_pallas, dft="direct"): for each stream, the 8 new 512-sample
 // frames (hop 160) of a 1760-sample window -> windowed cos/sin DFT -> power
-// re^2 + im^2 over 257 bins -> (257, 32) Slaney mel projection ->
-// 10*log10(max(mel, 1e-10)), written as ln(.) * 10/ln(10) like the TPU kernel.
-// Input (S, 1760) f32, output (S, 8, 32) f32 raw dB. The top_db clamp and the
-// /10+2 affine stay outside (they need the engine's first-frame mask).
+// re^2 + im^2 -> Slaney mel projection -> 10*log10(max(mel, 1e-10)), written
+// as ln(.) * 10/ln(10) like the TPU kernel. Input (S, 1760) f32, output
+// (S, 8, 32) f32 raw dB. The top_db clamp and the /10+2 affine stay outside
+// (they need the engine's first-frame mask).
 //
-// What bounds it: 8 frames x 512 samples x 257 bins x 2 (cos, sin) FMAs, about
-// 4.2 MFLOP per stream per step, against 7 KB of input, so the kernel is
-// compute-bound (~600 FLOP per byte of input). The design spends the FMAs on
-// the CUDA cores in full fp32 (the engine's "highest"/"high" tiers) and keeps
-// every intermediate on chip:
-//   * one block per (tile of 16 streams, frame); the tile's frames are staged
-//     in shared memory transposed to [n][stream], so one broadcast 16-byte
-//     shared load feeds 4 streams;
-//   * thread k < 257 owns DFT bin k and accumulates cos and sin for all 16
-//     streams in registers, reading the interleaved (512, 257) cos/-sin basis
-//     as one float2 per sample from global memory (1 MB, L2-resident); each
-//     basis load is reused 16 times, once per stream of the tile;
-//   * the power (16 x 257) overwrites the staged frames in shared memory, and
-//     the mel projection and log run from there; only the (16, 32) dB tile
-//     leaves the chip.
-// No tensor cores, no bin skipping: faster designs are later work.
+// Only the DFT bins on which the filterbank has a non-zero weight are
+// computed: [kLiveBin0, kLiveBin0 + kLiveBins) from the generated header
+// mel_program.h (ops/melspec_cuda.py::live_bins; under half of the bins at
+// the default FMIN/FMAX); every other bin adds an exact zero to every band.
+//
+// What bounds it: 8 frames x 512 samples x kLiveBins bins x 2 (cos, sin)
+// FMAs, about 2 MFLOP per stream per step against 7 KB of input: compute on
+// the fp32 pipes (fp32 FFMA keeps the "highest"/"high" tiers). The design is
+// one GEMM with a fused epilogue. Rows are (stream, frame), 8 * S of them,
+// implicit: row (s, f) is window[s, 160 f : 160 f + 512]. Columns are the
+// cos and -sin of each live bin with the Hann window folded in (the
+// (512, 2 * kLiveBinsPad) basis, zero past the live bins). K = 512.
+//   * one block per 8 streams, all 8 frames: 64 rows x all live columns.
+//     Each stream's window is staged in shared memory once, transposed to
+//     [sample][stream] with 4 floats of padding every 160 samples, so the 8
+//     frames of a warp read distinct bank quads;
+//   * 16-row K slices of the basis stream in with cp.async, double
+//     buffered; each basis element feeds the block's 64 rows;
+//   * a warp is 8 frames x 4 bin groups; a thread holds 8 streams x 4 bins,
+//     cos and sin side by side, in 64 registers. Per K step it does 64 FMAs
+//     from four 16-byte shared loads (two broadcast window reads, two basis
+//     reads that hit distinct banks);
+//   * the epilogue forms the power in registers, writes the (64, bins)
+//     power tile to the freed window buffer and the mel weights to the freed
+//     basis buffer, and each warp projects 8 rows onto the 32 bands (one
+//     band per lane). Only the (64, 32) dB tile leaves the chip.
+// Any S >= 1: streams past the end of the last block read zeros and are
+// not written.
 
 #include <cuda_runtime.h>
 
+#include "mel_program.h"
+
 namespace {
 
-constexpr int kWindow = 1760;
-constexpr int kFrames = 8;
-constexpr int kNfft = 512;
-constexpr int kFreqs = 257;
-constexpr int kMels = 32;
-constexpr int kHop = 160;
-constexpr int kTileS = 16;
-constexpr int kThreads = 288;                       // 9 warps; threads 0..256 own one bin each
+constexpr int kFreqs = kNfft / 2 + 1;
 constexpr float kAmin = 1e-10f;
 constexpr float kDbPerLn = 4.342944819032518f;      // 10 / ln(10)
 
-static_assert(kTileS % 4 == 0, "frames are read as float4 over streams");
-static_assert(kTileS * kFreqs <= kTileS * kNfft, "power reuses the frame buffer");
-static_assert(kThreads >= kFreqs, "one thread per DFT bin");
+constexpr int kStreams = 8;                          // streams per block, and per thread
+constexpr int kRows = kStreams * kFrames;            // 64 GEMM rows per block
+constexpr int kBinsPerThread = 4;
+constexpr int kGroupsPerWarp = 4;                    // a warp: 8 frames x 4 bin groups
+constexpr int kWarps = kLiveBinsPad / (kBinsPerThread * kGroupsPerWarp);
+constexpr int kThreads = 32 * kWarps;
+constexpr int kCols = 2 * kLiveBinsPad;              // a basis row: (cos, -sin) per bin
+constexpr int kSliceK = 16;                          // basis rows per cp.async stage
+constexpr int kSlices = kNfft / kSliceK;
+constexpr int kSliceFloats = kSliceK * kCols;
+constexpr int kSpan = (kFrames - 1) * kHop + kNfft;  // the window samples the frames read
+constexpr int kPad = 4;                              // floats of padding after every kHop samples
+constexpr int kWinFloats = kStreams * kSpan + kPad * ((kSpan + kHop - 1) / kHop);
+constexpr int kFrameFloats = kStreams * kHop + kPad; // one frame further into the staged window
+constexpr int kPowStride = kLiveBinsPad + 4;
+constexpr int kStageFloats = kWinFloats > kRows * kPowStride ? kWinFloats : kRows * kPowStride;
+constexpr int kSmemFloats = kStageFloats + 2 * kSliceFloats;
+constexpr int kRowsPerWarp = kRows / kWarps;
 
-__global__ void __launch_bounds__(kThreads)
-melspec_frames_kernel(const float* __restrict__ windows,
-                      const float2* __restrict__ basis,    // (512, 257) of (cos, -sin)
-                      const float* __restrict__ melw,      // (257, 32)
-                      float* __restrict__ out,             // (S, 8, 32)
+static_assert(kFrames == 8 && kStreams == 8, "a warp spans the 8 frames; a thread holds 8 streams");
+static_assert(kMels == 32, "the mel projection runs one band per lane");
+static_assert(kLiveBinsPad % (kBinsPerThread * kGroupsPerWarp) == 0, "whole warps of bin groups");
+static_assert(kRows % kWarps == 0, "whole rows per warp in the mel projection");
+static_assert(kLiveBins <= kLiveBinsPad && kLiveBin0 + kLiveBins <= kFreqs, "live bins inside the spectrum");
+static_assert(kNfft % kSliceK == 0 && kHop % kSliceK == 0, "a K slice never straddles a pad");
+static_assert(kHop % 4 == 0 && kStageFloats % 4 == 0 && kPowStride % 4 == 0, "16-byte shared accesses");
+static_assert(kLiveBinsPad * kMels <= 2 * kSliceFloats, "the mel weights fit the basis stages");
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// Starts the copy of basis rows [kSliceK * slice, kSliceK * (slice + 1)) into
+// `dst` as one cp.async group.
+__device__ __forceinline__ void load_slice(float* dst, const float* __restrict__ basis, int slice) {
+    const float* src = basis + static_cast<size_t>(slice) * kSliceFloats;
+    for (int c = 4 * threadIdx.x; c < kSliceFloats; c += 4 * kThreads) {
+        cp_async16(dst + c, src + c);
+    }
+    cp_async_commit();
+}
+
+__global__ void __launch_bounds__(kThreads, kThreads <= 256 ? 2 : 1)
+melspec_frames_kernel(const float* __restrict__ windows,   // (S, kWindow)
+                      const float* __restrict__ basis,     // (kNfft, kCols): cos, -sin per live bin
+                      const float* __restrict__ melw,      // (kLiveBinsPad, kMels)
+                      float* __restrict__ out,             // (S, kFrames, kMels)
                       int n_streams) {
-    __shared__ __align__(16) float smem[kNfft * kTileS];
-    const int s0 = blockIdx.x * kTileS;
-    const int frame = blockIdx.y;
+    extern __shared__ __align__(16) float smem[];
+    float* win = smem;                               // [sample (+pad)][stream]; then the power
+    float* stage = smem + kStageFloats;              // two basis slices; then the mel weights
     const int tid = threadIdx.x;
-    const int n_valid = min(kTileS, n_streams - s0);
+    const int lane = tid & 31;
+    const int warp = tid >> 5;
+    const int f = lane & 7;                          // the thread's frame
+    const int g = warp * kGroupsPerWarp + (lane >> 3);   // its bins: 4g .. 4g + 3 of the live range
+    const int s0 = blockIdx.x * kStreams;
+    const int n_valid = min(kStreams, n_streams - s0);
 
-    // Stage frame `frame` of every stream of the tile as [n][s]; streams past
-    // the end read as zeros and are never written back.
-    for (int i = tid; i < kTileS * kNfft; i += kThreads) {
-        const int s = i / kNfft;
-        const int n = i - s * kNfft;
-        float v = 0.0f;
-        if (s < n_valid) {
-            v = windows[static_cast<size_t>(s0 + s) * kWindow + kHop * frame + n];
+    load_slice(stage, basis, 0);
+    for (int i = tid; i < kStreams * kSpan; i += kThreads) {
+        const int s = i / kSpan;
+        const int n = i - s * kSpan;
+        const float v = s < n_valid ? windows[static_cast<size_t>(s0 + s) * kWindow + n] : 0.0f;
+        win[kStreams * n + kPad * (n / kHop) + s] = v;
+    }
+
+    float re[kStreams][kBinsPerThread];
+    float im[kStreams][kBinsPerThread];
+#pragma unroll
+    for (int s = 0; s < kStreams; ++s) {
+#pragma unroll
+        for (int q = 0; q < kBinsPerThread; ++q) {
+            re[s][q] = 0.0f;
+            im[s][q] = 0.0f;
         }
-        smem[n * kTileS + s] = v;
     }
-    __syncthreads();
-
-    const int k = tid;
-    float re[kTileS];
-    float im[kTileS];
+    // sample kHop * f + n of the staged window sits at
+    // kFrameFloats * f + kStreams * n + kPad * (n / kHop)
+    const float* a_frame = win + kFrameFloats * f;
+    for (int j = 0; j < kSlices; ++j) {
+        if (j + 1 < kSlices) {
+            load_slice(stage + ((j + 1) & 1) * kSliceFloats, basis, j + 1);
+            cp_async_wait<1>();
+        } else {
+            cp_async_wait<0>();
+        }
+        __syncthreads();                             // slice j (and, first, the window) is in
+        const float* a = a_frame + kStreams * kSliceK * j + kPad * (kSliceK * j / kHop);
+        const float* b = stage + (j & 1) * kSliceFloats + 2 * kBinsPerThread * g;
 #pragma unroll
-    for (int s = 0; s < kTileS; ++s) {
-        re[s] = 0.0f;
-        im[s] = 0.0f;
-    }
-    if (k < kFreqs) {
-#pragma unroll 4
-        for (int n = 0; n < kNfft; ++n) {
-            const float2 b = basis[n * kFreqs + k];
-            const float4* x4 = reinterpret_cast<const float4*>(smem + n * kTileS);
+        for (int kk = 0; kk < kSliceK; ++kk) {
+            const float4 a0 = *reinterpret_cast<const float4*>(a + kStreams * kk);
+            const float4 a1 = *reinterpret_cast<const float4*>(a + kStreams * kk + 4);
+            const float4 b0 = *reinterpret_cast<const float4*>(b + kCols * kk);
+            const float4 b1 = *reinterpret_cast<const float4*>(b + kCols * kk + 4);
+            const float x[kStreams] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+            const float c[kBinsPerThread] = {b0.x, b0.z, b1.x, b1.z};
+            const float sn[kBinsPerThread] = {b0.y, b0.w, b1.y, b1.w};
 #pragma unroll
-            for (int q = 0; q < kTileS / 4; ++q) {
-                const float4 x = x4[q];
-                re[4 * q + 0] = fmaf(x.x, b.x, re[4 * q + 0]);
-                im[4 * q + 0] = fmaf(x.x, b.y, im[4 * q + 0]);
-                re[4 * q + 1] = fmaf(x.y, b.x, re[4 * q + 1]);
-                im[4 * q + 1] = fmaf(x.y, b.y, im[4 * q + 1]);
-                re[4 * q + 2] = fmaf(x.z, b.x, re[4 * q + 2]);
-                im[4 * q + 2] = fmaf(x.z, b.y, im[4 * q + 2]);
-                re[4 * q + 3] = fmaf(x.w, b.x, re[4 * q + 3]);
-                im[4 * q + 3] = fmaf(x.w, b.y, im[4 * q + 3]);
+            for (int s = 0; s < kStreams; ++s) {
+#pragma unroll
+                for (int q = 0; q < kBinsPerThread; ++q) {
+                    re[s][q] = fmaf(x[s], c[q], re[s][q]);
+                    im[s][q] = fmaf(x[s], sn[q], im[s][q]);
+                }
             }
         }
+        __syncthreads();                             // slice j is read: its buffer is free
     }
-    __syncthreads();                                // all frame reads are done
 
-    float* power = smem;                            // reused as [s][k]
-    if (k < kFreqs) {
+    // The power tile [row = kFrames * s + f][bin] goes where the window was,
+    // the mel weights where the basis slices were.
+    float* power = smem;
 #pragma unroll
-        for (int s = 0; s < kTileS; ++s) {
-            power[s * kFreqs + k] = re[s] * re[s] + im[s] * im[s];
-        }
+    for (int s = 0; s < kStreams; ++s) {
+        float4 p;
+        p.x = re[s][0] * re[s][0] + im[s][0] * im[s][0];
+        p.y = re[s][1] * re[s][1] + im[s][1] * im[s][1];
+        p.z = re[s][2] * re[s][2] + im[s][2] * im[s][2];
+        p.w = re[s][3] * re[s][3] + im[s][3] * im[s][3];
+        *reinterpret_cast<float4*>(power + (kFrames * s + f) * kPowStride + kBinsPerThread * g) = p;
+    }
+    for (int i = 4 * tid; i < kLiveBinsPad * kMels; i += 4 * kThreads) {
+        *reinterpret_cast<float4*>(stage + i) = *reinterpret_cast<const float4*>(melw + i);
     }
     __syncthreads();
 
-    for (int o = tid; o < kTileS * kMels; o += kThreads) {
-        const int s = o / kMels;
-        const int m = o - s * kMels;
-        if (s >= n_valid) {
-            continue;
+    // Warp w projects rows kRowsPerWarp * w .. onto band `lane`.
+    const int r0 = warp * kRowsPerWarp;
+    float acc[kRowsPerWarp];
+#pragma unroll
+    for (int i = 0; i < kRowsPerWarp; ++i) {
+        acc[i] = 0.0f;
+    }
+#pragma unroll 2
+    for (int k = 0; k < kLiveBinsPad; k += 4) {
+        const float w0 = stage[(k + 0) * kMels + lane];
+        const float w1 = stage[(k + 1) * kMels + lane];
+        const float w2 = stage[(k + 2) * kMels + lane];
+        const float w3 = stage[(k + 3) * kMels + lane];
+#pragma unroll
+        for (int i = 0; i < kRowsPerWarp; ++i) {
+            const float4 p = *reinterpret_cast<const float4*>(power + (r0 + i) * kPowStride + k);
+            acc[i] = fmaf(p.x, w0, acc[i]);
+            acc[i] = fmaf(p.y, w1, acc[i]);
+            acc[i] = fmaf(p.z, w2, acc[i]);
+            acc[i] = fmaf(p.w, w3, acc[i]);
         }
-        const float* p = power + s * kFreqs;
-        float acc = 0.0f;
-        for (int f = 0; f < kFreqs; ++f) {
-            acc = fmaf(p[f], melw[f * kMels + m], acc);
+    }
+#pragma unroll
+    for (int i = 0; i < kRowsPerWarp; ++i) {
+        if ((r0 + i) / kFrames < n_valid) {
+            out[(static_cast<size_t>(s0) * kFrames + r0 + i) * kMels + lane] = logf(fmaxf(acc[i], kAmin)) * kDbPerLn;
         }
-        out[(static_cast<size_t>(s0 + s) * kFrames + frame) * kMels + m] =
-            logf(fmaxf(acc, kAmin)) * kDbPerLn;
     }
 }
 
@@ -133,18 +226,22 @@ melspec_frames_kernel(const float* __restrict__ windows,
 //   X[d]     = Z0 + Z1 + Z2 + Z3                    bins 0..127
 //   X[128+d] = (Z0 - Z2) - i (Z1 - Z3)              bins 128..255
 //   X[256]   = (Z0 + Z2) - (Z1 + Z3) at d = 0
-// 4 x 128 x 128 complex MACs per frame against K1's 512 x 257: half the FMAs.
+// 4 x 128 x 128 complex MACs per frame against a direct DFT's 512 x 257:
+// half the FMAs, but over all 257 bins (kernel 1 prunes to the live ones).
 // Thread 4d + b owns Z_b[d] for the 16 streams of the tile; its basis is read
 // as (a, d, b)-ordered float2, so a warp's basis loads are one contiguous
 // 256-byte line. The four branches of a bin sit in neighbouring lanes, so the
 // butterfly is two rounds of warp shuffles that write the power straight to
 // shared memory. The mel projection is split as in
 // the TPU kernel: bins [0, 128), [128, 256), then the k = 256 row.
+constexpr int kTileS = 16;                           // streams per block
 constexpr int kRadix = 4;
 constexpr int kSub = kNfft / kRadix;                 // 128 samples per branch, 128 bins
 constexpr int kFactoredThreads = kRadix * kSub;      // 512
 
 static_assert(kTileS * kMels == kFactoredThreads, "one thread per (stream, mel) output");
+static_assert(kNfft % kRadix == 0 && kTileS % 4 == 0, "radix-4 branches; frames read as float4 over streams");
+static_assert(kFreqs <= kNfft, "the power reuses the frame buffer");
 
 __global__ void __launch_bounds__(kFactoredThreads)
 melspec_frames_factored_kernel(const float* __restrict__ windows,
@@ -267,8 +364,14 @@ extern "C" int owwt_melspec_frames(const float* windows, const float* basis,
     if (n_streams <= 0) {
         return 0;
     }
-    const dim3 grid((n_streams + kTileS - 1) / kTileS, kFrames);
-    melspec_frames_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        windows, reinterpret_cast<const float2*>(basis), melw, out, n_streams);
+    constexpr size_t smem_bytes = kSmemFloats * sizeof(float);
+    const cudaError_t err = cudaFuncSetAttribute(melspec_frames_kernel,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (err != cudaSuccess) {
+        return static_cast<int>(err);
+    }
+    const int grid = (n_streams + kStreams - 1) / kStreams;
+    melspec_frames_kernel<<<grid, kThreads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
+        windows, basis, melw, out, n_streams);
     return static_cast<int>(cudaGetLastError());
 }

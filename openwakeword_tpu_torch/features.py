@@ -127,8 +127,9 @@ class AudioFeatures():
         kernel 1 on a CUDA device (its plain version on the CPU), then each
         block's top_db clamp over its own 8 frames and the /10+2 affine."""
         mel = melspec_cuda.melspectrogram_frames(self._to_device(windows))        # (k, 8, 32) dB
-        peak = mel.amax(dim=(-2, -1), keepdim=True)
-        mel = torch.maximum(mel, peak - config.MEL_TOP_DB)
+        if config.MEL_TOP_DB is not None:
+            peak = mel.amax(dim=(-2, -1), keepdim=True)
+            mel = torch.maximum(mel, peak - config.MEL_TOP_DB)
         mel = mel * config.MEL_TRANSFORM_SCALE + config.MEL_TRANSFORM_SHIFT
         return mel.cpu().numpy()
 

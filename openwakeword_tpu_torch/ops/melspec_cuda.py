@@ -2,9 +2,12 @@
 (S, 8, 32) raw dB (counterpart of ``openwakeword_tpu.ops.melspec_pallas``).
 
 ``melspectrogram_frames(windows, dft)`` is the wrapper the engine calls:
-``dft="direct"`` is kernel 1 (the windowed (512, 257) cos/sin DFT),
-``dft="factored"`` kernel 2 (the radix-4 factored DFT), both in
-``csrc/melspec.cu``. A CPU tensor goes through
+``dft="direct"`` is kernel 1 (the windowed cos/sin DFT over the live bins
+only, the DFT bins on which the mel filterbank has a non-zero weight),
+``dft="factored"`` kernel 2 (the radix-4 factored DFT over all 257 bins),
+both in ``csrc/melspec.cu``. The live range comes from ``live_bins()`` and
+reaches the kernel through the generated header ``mel_program.h``
+(``utils.cuda_build.generated_headers``). A CPU tensor goes through
 ``melspectrogram_frames_plain``, the plain PyTorch version; a CUDA tensor
 goes through the hand-written kernel or the call raises. There is no
 fallback between the two. The wrapper counts each kernel's launches in
@@ -13,6 +16,7 @@ fallback between the two. The wrapper counts each kernel's launches in
 
 import ctypes
 import functools
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -26,6 +30,9 @@ FRAMES = config.MELS_PER_CHUNK                                # 8
 N_MELS = config.N_MELS                                        # 32
 DFTS = ("direct", "factored")
 _ENTRY = {"direct": "owwt_melspec_frames", "factored": "owwt_melspec_frames_factored"}
+# kernel 1's bin tile: 4 bins per thread x 4 bin groups per warp; the live
+# range is padded with zero columns to a whole number of tiles
+BIN_TILE = 16
 
 
 def melspectrogram_frames_plain(windows: torch.Tensor, dft: str = "direct") -> torch.Tensor:
@@ -42,23 +49,61 @@ def _kernel_fn(dft: str):
     return fn
 
 
+def _filterbank() -> np.ndarray:
+    """The (N_FFT // 2 + 1, N_MELS) Slaney filterbank of ``config`` as it
+    stands now (float64)."""
+    return melspec.mel_filterbank(config.SAMPLE_RATE, config.N_FFT, config.N_MELS, config.FMIN, config.FMAX)
+
+
+def live_bins() -> Tuple[int, int, int]:
+    """(first, count, padded count) of the DFT bins on which the float32
+    filterbank has a non-zero weight: rows ``first .. first + count - 1``,
+    the first and last rows with any non-zero entry (every row outside them
+    is checked to be exactly zero). ``padded`` rounds ``count`` up to
+    ``BIN_TILE``. Kernel 1 computes only these bins; the rest add exact zeros
+    to every mel band."""
+    fb = _filterbank().astype(np.float32)
+    rows = np.flatnonzero((fb != 0).any(axis=1))
+    first, stop = int(rows[0]), int(rows[-1]) + 1
+    assert not fb[:first].any() and not fb[stop:].any()
+    count = stop - first
+    return first, count, -(-count // BIN_TILE) * BIN_TILE
+
+
 def _kernel_basis(dft: str) -> np.ndarray:
-    """Kernel 1: the (512, 514) interleaved cos/-sin basis. Kernel 2: the
-    factored bases reordered to (128 a, 128 d, 4 b, 2) so that thread 4d + b
-    reads (Re, Im) of branch b as one float2."""
+    """Kernel 1: the (512, 2 * padded) interleaved cos/-sin basis of the live
+    bins (``stft_power_basis`` columns 2 * first .. 2 * (first + count)),
+    zero past 2 * count. Kernel 2: the factored bases reordered to
+    (128 a, 128 d, 4 b, 2) so that thread 4d + b reads (Re, Im) of branch b
+    as one float2."""
     if dft == "direct":
-        return melspec.stft_power_basis()
+        first, count, padded = live_bins()
+        basis = np.zeros((config.N_FFT, 2 * padded))
+        basis[:, :2 * count] = melspec.stft_power_basis(config.N_FFT, config.WIN_LENGTH)[
+            :, 2 * first:2 * (first + count)]
+        return basis
     sub = config.N_FFT // melspec.RADIX                                         # 128
     bases = melspec.factored_dft_bases().reshape(melspec.RADIX, sub, sub, 2)    # (b, a, d, 2)
     return np.transpose(bases, (1, 2, 0, 3))
 
 
+def _kernel_melw(dft: str) -> np.ndarray:
+    """Kernel 1: the (padded, 32) mel weights of the live bins, zero past
+    ``count``. Kernel 2: the full (257, 32) filterbank."""
+    if dft == "direct":
+        first, count, padded = live_bins()
+        melw = np.zeros((padded, config.N_MELS))
+        melw[:count] = _filterbank()[first:first + count]
+        return melw
+    return melspec.mel_filterbank()
+
+
 @functools.lru_cache(maxsize=None)
 def _device_consts(device: torch.device, dft: str):
-    """The kernel's DFT basis and the (257, 32) mel weights, float32,
-    resident on ``device``."""
+    """The kernel's DFT basis and mel weights, float32, resident on
+    ``device``."""
     return (melspec.f32_const(_kernel_basis(dft), device),
-            melspec.f32_const(melspec.mel_filterbank(), device))
+            melspec.f32_const(_kernel_melw(dft), device))
 
 
 def melspectrogram_frames(windows: torch.Tensor, dft: str = "direct") -> torch.Tensor:

@@ -374,11 +374,12 @@ class MultiStreamEngine:
         # the zero tail, so they are left out of the top_db peak and of the
         # ring (the ring keeps 5 rows instead of 8).
         is_first = st["frames_seen"] == 0
-        first_valid = torch.where(is_first, 3, 0)
-        frame_valid = torch.arange(8, device=self.device)[None, :] >= first_valid[:, None]
-        peak = torch.where(frame_valid[:, :, None], mel_raw,
-                           torch.full_like(mel_raw, -float("inf"))).amax(dim=(-2, -1), keepdim=True)
-        mel_raw = torch.maximum(mel_raw, peak - config.MEL_TOP_DB)
+        if config.MEL_TOP_DB is not None:
+            first_valid = torch.where(is_first, 3, 0)
+            frame_valid = torch.arange(8, device=self.device)[None, :] >= first_valid[:, None]
+            peak = torch.where(frame_valid[:, :, None], mel_raw,
+                               torch.full_like(mel_raw, -float("inf"))).amax(dim=(-2, -1), keepdim=True)
+            mel_raw = torch.maximum(mel_raw, peak - config.MEL_TOP_DB)
         mel = mel_raw * config.MEL_TRANSFORM_SCALE + config.MEL_TRANSFORM_SHIFT
         ring8 = torch.cat([st["mel_ring"][:, 8:], mel], dim=1)
         ring5 = torch.cat([st["mel_ring"][:, 5:], mel[:, 3:]], dim=1)

@@ -58,11 +58,22 @@ def generated_headers() -> Dict[str, str]:
     """{file name: text} of the headers the sources include from the build
     directory: ``cnn_program.h``, the CNN's per-conv table
     ``ops.cnn_step.conv_table()`` as the body of ``csrc/cnn_step.cu``'s
-    ``kConvs``."""
-    from openwakeword_tpu_torch.ops import cnn_step      # imports this module
+    ``kConvs``; ``mel_program.h``, the mel frontend's geometry from
+    ``config`` and kernel 1's live DFT bins from
+    ``ops.melspec_cuda.live_bins()``, for ``csrc/melspec.cu``."""
+    from openwakeword_tpu_torch import config
+    from openwakeword_tpu_torch.ops import cnn_step, melspec_cuda      # both import this module
     rows = "".join("{%s},\n" % ", ".join(map(str, row)) for row in cnn_step.conv_table())
+    first, count, padded = melspec_cuda.live_bins()
+    mel = {"kWindow": config.CHUNK_SAMPLES + config.MEL_LOOKBACK_SAMPLES, "kFrames": config.MELS_PER_CHUNK,
+           "kNfft": config.N_FFT, "kHop": config.HOP_LENGTH, "kMels": config.N_MELS,
+           "kLiveBin0": first, "kLiveBins": count, "kLiveBinsPad": padded}
     return {"cnn_program.h": "// Written by utils/cuda_build.py from ops/cnn_step.py::conv_table:\n"
-                             "// (kh, kw, cin, cout, pool_h, pool_w, epilogue) per conv.\n" + rows}
+                             "// (kh, kw, cin, cout, pool_h, pool_w, epilogue) per conv.\n" + rows,
+            "mel_program.h": "// Written by utils/cuda_build.py from config and ops/melspec_cuda.py::live_bins:\n"
+                             "// the frame geometry, and the DFT bins [kLiveBin0, kLiveBin0 + kLiveBins) on\n"
+                             "// which the mel filterbank has a non-zero weight, padded to kLiveBinsPad.\n"
+                             + "".join(f"constexpr int {k} = {v};\n" for k, v in mel.items())}
 
 
 def _digest(headers: Dict[str, str]) -> str:

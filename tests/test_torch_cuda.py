@@ -39,6 +39,22 @@ def test_mel_kernel_matches_plain(cuda, n_streams, dft):
     assert float((got[n_streams // 2] + 100.0).abs().max()) <= 1e-4
 
 
+@pytest.mark.parametrize("n_streams", [7, 9, 63, 65, 4095])
+def test_live_bin_kernel_ragged_streams(cuda, n_streams):
+    """Kernel 1 tiles 8 streams per block over the live DFT bins: a last
+    block with 1..7 streams, held against the unpruned plain version, with
+    a silent stream in that last block."""
+    w = (np.random.default_rng(n_streams).uniform(-1, 1, (n_streams, 1760)) * 25000).astype(np.float32)
+    w[-1] = 0.0
+    x = torch.from_numpy(w).to(cuda)
+    got = melspec_cuda.melspectrogram_frames(x, "direct")
+    want = melspec_cuda.melspectrogram_frames_plain(x, "direct")
+    torch.cuda.synchronize()
+    assert got.shape == (n_streams, 8, 32)
+    assert float((got - want).abs().max()) <= 2e-3
+    assert float((got[-1] + 100.0).abs().max()) <= 1e-4
+
+
 def test_mel_kernel_rejects_bad_inputs(cuda):
     with pytest.raises(TypeError):
         melspec_cuda.melspectrogram_frames(torch.zeros((2, 1760), dtype=torch.float64, device=cuda))

@@ -1,7 +1,8 @@
 """Mel frontend of the PyTorch port against the JAX package: the constant
 factories, the plain ``melspectrogram`` (direct and factored DFT) and the
 plain versions of kernels 1 and 2 (``ops.melspec_cuda``) against
-``melspectrogram_pallas`` in interpret mode."""
+``melspectrogram_pallas`` in interpret mode, and kernel 1's live-bin
+constants and generated header."""
 
 import jax
 import jax.numpy as jnp
@@ -11,7 +12,9 @@ import torch
 
 from openwakeword_tpu.ops import melspec as jax_melspec
 from openwakeword_tpu.ops.melspec_pallas import melspectrogram_pallas
+from openwakeword_tpu_torch import config
 from openwakeword_tpu_torch.ops import melspec, melspec_cuda
+from openwakeword_tpu_torch.utils import cuda_build
 
 MEL_ATOL_DB = 2e-3    # the JAX package's own kernel tolerance (tests/test_pallas.py)
 
@@ -99,3 +102,57 @@ def test_wrapper_takes_plain_path_for_cpu_tensors(rng, dft):
 def test_wrapper_rejects_other_devices():
     with pytest.raises(ValueError, match="CPU or CUDA"):
         melspec_cuda.melspectrogram_frames(torch.empty((2, 1760), device="meta"))
+
+
+# ---------------------------------------------------------------------------
+# Kernel 1 computes only the live DFT bins (no kernel runs here: these test
+# the constants the kernel is built and fed with)
+
+
+def test_live_bins_come_from_the_filterbank():
+    first, count, padded = melspec_cuda.live_bins()
+    assert (first, count, padded) == (2, 120, 128)
+    fb = melspec.mel_filterbank().astype(np.float32)
+    live = (fb != 0).any(axis=1)
+    assert live[first] and live[first + count - 1]
+    assert not fb[:first].any() and not fb[first + count:].any()
+    assert padded % melspec_cuda.BIN_TILE == 0 and padded - count < melspec_cuda.BIN_TILE
+
+
+@pytest.mark.parametrize("n_streams", [1, 5, 17])
+def test_pruned_constants_reproduce_the_unpruned_plain_version(rng, n_streams):
+    """Kernel 1's basis and mel weights, multiplied out in plain torch (the
+    kernel's arithmetic in another order), equal the 257-bin plain version."""
+    first, count, padded = melspec_cuda.live_bins()
+    basis = melspec_cuda._kernel_basis("direct")
+    melw = melspec_cuda._kernel_melw("direct")
+    assert basis.shape == (512, 2 * padded) and melw.shape == (padded, 32)
+    assert not basis[:, 2 * count:].any() and not melw[count:].any()
+    np.testing.assert_array_equal(basis[:, :2 * count], melspec.stft_power_basis()[:, 2 * first:2 * (first + count)])
+    x = _windows(rng, n_streams)
+    x[n_streams // 2] = 0.0
+    windows = torch.from_numpy(x)
+    spec = melspec.frame_signal(windows) @ melspec.f32_const(basis, "cpu")      # (S, 8, 2 * padded)
+    power = spec[..., 0::2] ** 2 + spec[..., 1::2] ** 2
+    db = 10.0 * torch.log10(torch.clamp_min(power @ melspec.f32_const(melw, "cpu"), 1e-10))
+    want = melspec_cuda.melspectrogram_frames_plain(windows, "direct")
+    assert db.shape == want.shape == (n_streams, 8, 32)
+    np.testing.assert_allclose(db.numpy(), want.numpy(), rtol=0, atol=1e-4)
+
+
+def test_generated_mel_header_carries_the_live_range(monkeypatch):
+    """The live range reaches csrc/melspec.cu only through mel_program.h,
+    which is part of the build key: a new FMAX changes both."""
+    text = cuda_build.generated_headers()["mel_program.h"]
+    for name, value in [("kLiveBin0", 2), ("kLiveBins", 120), ("kLiveBinsPad", 128), ("kNfft", 512),
+                        ("kHop", 160), ("kMels", 32), ("kFrames", 8), ("kWindow", 1760)]:
+        assert f"constexpr int {name} = {value};" in text
+    source = (cuda_build.CSRC / "melspec.cu").read_text()
+    assert '#include "mel_program.h"' in source and "constexpr int kLiveBin" not in source
+    digest = cuda_build._digest(cuda_build.generated_headers())
+    monkeypatch.setattr(config, "FMAX", 7000.0)
+    first, count, padded = melspec_cuda.live_bins()
+    assert first == 2 and count > 120
+    text = cuda_build.generated_headers()["mel_program.h"]
+    assert f"constexpr int kLiveBins = {count};" in text and f"constexpr int kLiveBinsPad = {padded};" in text
+    assert cuda_build._digest(cuda_build.generated_headers()) != digest

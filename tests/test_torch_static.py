@@ -9,7 +9,8 @@ import pathlib
 import pytest
 
 PKG = pathlib.Path(__file__).resolve().parent.parent / "openwakeword_tpu_torch"
-SOURCES = sorted(str(p) for p in PKG.rglob("*.py")) + [str(PKG.parent / "chip_smoke.py")]
+SOURCES = (sorted(str(p) for p in PKG.rglob("*.py"))
+           + [str(PKG.parent / name) for name in ("chip_smoke.py", "time_mel_kernels.py")])
 MAX_LINE = 120
 
 
