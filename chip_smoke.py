@@ -16,7 +16,8 @@ Phases, each of which exits nonzero on failure:
    4096} with one silent stream each, max |dB diff| <= 2e-3, plus silence
    (-100 dB); times each pair at S=4096 with CUDA events (plain, kernel,
    kernel, plain), kernel 1 also at S=1, and prints kernel 1's TFLOP/s and
-   share of its bound;
+   both kernels' share of their one bound (the function's operations and
+   bytes, counted once for both);
 4. golden: the port's engine on the card against the JAX engine's committed
    scores (tests/fixtures/torch_port_golden.npz), max |dscore| < 1e-3, with
    ``mel_dft="direct"`` and with ``mel_dft="factored"`` (kernel 2 must
@@ -135,19 +136,20 @@ def bound(flops: float, nbytes: int):
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-def mel_flops(dft: str, n_streams: int) -> float:
-    """fp32 operations of one mel kernel call: per frame the DFT's
-    multiply-adds (kernel 1: cos and sin of each live bin over 512 samples;
-    kernel 2: four 128 x 128 complex branch products over all 257 bins),
-    the power and the mel projection of the bins it computes."""
+def mel_work(n_streams: int):
+    """(fp32 operations, bytes) of the mel frontend's function on
+    ``n_streams`` windows, counted once for both kernels: per frame the
+    DFT's multiply-adds over the live bins (cos and sin over 512 samples),
+    the power of those bins and the mel projection's non-zero filterbank
+    weights; each window read once, each dB value written once, and the
+    live bins' DFT coefficients and the non-zero weights read once."""
+    from openwakeword_tpu_torch import config
     from openwakeword_tpu_torch.ops import melspec_cuda
-    if dft == "direct":
-        bins = melspec_cuda.live_bins()[1]
-        dft_ops = 2 * 2 * 512 * bins
-    else:
-        bins = 257
-        dft_ops = 2 * 2 * 4 * 128 * 128
-    return 8 * n_streams * (dft_ops + 3 * bins + 2 * bins * 32)
+    _, bins, _ = melspec_cuda.live_bins()
+    nonzero = int(np.count_nonzero(melspec_cuda._kernel_melw("direct").astype(np.float32)))
+    per_frame = 2 * 2 * config.N_FFT * bins + 3 * bins + 2 * nonzero
+    io = n_streams * (melspec_cuda.WINDOW + melspec_cuda.FRAMES * melspec_cuda.N_MELS)
+    return melspec_cuda.FRAMES * n_streams * per_frame, 4 * (io + 2 * config.N_FFT * bins + nonzero)
 
 
 def plain_flops(fn, *args) -> float:
@@ -425,15 +427,16 @@ def main():
             fail(f"silence does not give -100 dB ({dft})")
         mel_ms[dft] = sandwich(f"mel ({dft})", lambda: mel(x_scale, dft), lambda: mel_plain(x_scale, dft))
 
-    def mel_bound(dft, n):
-        io = n * (melspec_cuda.WINDOW + melspec_cuda.FRAMES * melspec_cuda.N_MELS) * 4
-        return bound(mel_flops(dft, n), io + n_bytes(*melspec_cuda._device_consts(dev, dft)))
     x_one = x_scale[:1].contiguous()
     k1_one_ms = min(cuda_ms(lambda: mel(x_one, "direct"), 200) for _ in range(2))
+    mel_bound = bound(*mel_work(SCALE_STREAMS))
     for n, ms in ((1, k1_one_ms), (SCALE_STREAMS, mel_ms["direct"][0])):
-        flops, (bound_ms, bound_by) = mel_flops("direct", n), mel_bound("direct", n)
+        flops, nbytes = mel_work(n)
+        bound_ms, bound_by = bound(flops, nbytes)
         print(f"mel kernel 1 at S={n}: {ms:.4f} ms, {flops / ms / 1e9:.2f} TFLOP/s over {flops / 1e9:.4f} GFLOP "
               f"of live bins, bound {bound_ms:.4f} ms ({bound_by}; {bound_ms / ms:.1%} of it), on {card}")
+    print(f"mel kernel 2 at S={SCALE_STREAMS}: {mel_ms['factored'][0]:.4f} ms against the same bound "
+          f"{mel_bound[0]:.4f} ms ({mel_bound[0] / mel_ms['factored'][0]:.1%} of it), on {card}")
 
     # 4. golden against the JAX engine's committed scores, both mel DFTs
     with np.load(testing.FIXTURE) as z:
@@ -593,9 +596,9 @@ def main():
     # 20-conv step is several calls), so library_ms is null throughout
     kernels = [
         ("melspec_frames", "melspec.cu", "openwakeword_tpu/ops/melspec_pallas.py:73",
-         mel_launches["direct"], mel_err["direct"], mel_ms["direct"], mel_bound("direct", SCALE_STREAMS)),
+         mel_launches["direct"], mel_err["direct"], mel_ms["direct"], mel_bound),
         ("melspec_frames_factored", "melspec.cu", "openwakeword_tpu/ops/melspec_pallas.py:110",
-         mel_launches["factored"], mel_err["factored"], mel_ms["factored"], mel_bound("factored", SCALE_STREAMS)),
+         mel_launches["factored"], mel_err["factored"], mel_ms["factored"], mel_bound),
         ("cnn_step", "cnn_step.cu", "openwakeword_tpu/ops/cnn_pallas.py:167",
          cnn_launches["step"], cnn_err["step"], step_ms, cnn_bound["step"]),
         ("cnn_prime", "cnn_step.cu", "openwakeword_tpu/ops/cnn_pallas.py:167",

@@ -13,7 +13,8 @@
 // Only the DFT bins on which the filterbank has a non-zero weight are
 // computed: [kLiveBin0, kLiveBin0 + kLiveBins) from the generated header
 // mel_program.h (ops/melspec_cuda.py::live_bins; under half of the bins at
-// the default FMIN/FMAX); every other bin adds an exact zero to every band.
+// the default FMIN/FMAX), padded with zero columns to a whole number of
+// kBinTile-bin tiles; every other bin adds an exact zero to every band.
 //
 // What bounds it: 8 frames x 512 samples x kLiveBins bins x 2 (cos, sin)
 // FMAs, about 2 MFLOP per stream per step against 7 KB of input: compute on
@@ -34,10 +35,13 @@
 //     reads that hit distinct banks);
 //   * the epilogue forms the power in registers, writes the (64, bins)
 //     power tile to the freed window buffer and the mel weights to the freed
-//     basis buffer, and each warp projects 8 rows onto the 32 bands (one
-//     band per lane). Only the (64, 32) dB tile leaves the chip.
+//     basis buffer, and warp w projects rows w, w + kWarps, ... onto the
+//     32 bands (one band per lane). Only the (64, 32) dB tile leaves the
+//     chip.
 // Any S >= 1: streams past the end of the last block read zeros and are
 // not written.
+
+#include <atomic>
 
 #include <cuda_runtime.h>
 
@@ -51,9 +55,9 @@ constexpr float kDbPerLn = 4.342944819032518f;      // 10 / ln(10)
 
 constexpr int kStreams = 8;                          // streams per block, and per thread
 constexpr int kRows = kStreams * kFrames;            // 64 GEMM rows per block
-constexpr int kBinsPerThread = 4;
-constexpr int kGroupsPerWarp = 4;                    // a warp: 8 frames x 4 bin groups
-constexpr int kWarps = kLiveBinsPad / (kBinsPerThread * kGroupsPerWarp);
+constexpr int kBinsPerThread = 4;                    // two float4 basis loads of (cos, -sin) pairs
+constexpr int kGroupsPerWarp = 32 / kFrames;         // a warp: 8 frames x 4 bin groups
+constexpr int kWarps = kLiveBinsPad / kBinTile;      // one warp per kBinTile bins
 constexpr int kThreads = 32 * kWarps;
 constexpr int kCols = 2 * kLiveBinsPad;              // a basis row: (cos, -sin) per bin
 constexpr int kSliceK = 16;                          // basis rows per cp.async stage
@@ -66,16 +70,18 @@ constexpr int kFrameFloats = kStreams * kHop + kPad; // one frame further into t
 constexpr int kPowStride = kLiveBinsPad + 4;
 constexpr int kStageFloats = kWinFloats > kRows * kPowStride ? kWinFloats : kRows * kPowStride;
 constexpr int kSmemFloats = kStageFloats + 2 * kSliceFloats;
-constexpr int kRowsPerWarp = kRows / kWarps;
+constexpr int kRowsPerWarp = (kRows + kWarps - 1) / kWarps;   // mel projection: rows warp + kWarps * i
 
 static_assert(kFrames == 8 && kStreams == 8, "a warp spans the 8 frames; a thread holds 8 streams");
 static_assert(kMels == 32, "the mel projection runs one band per lane");
-static_assert(kLiveBinsPad % (kBinsPerThread * kGroupsPerWarp) == 0, "whole warps of bin groups");
-static_assert(kRows % kWarps == 0, "whole rows per warp in the mel projection");
+static_assert(kBinsPerThread * kGroupsPerWarp == kBinTile && kLiveBinsPad % kBinTile == 0,
+              "a warp's bins are one kBinTile tile of the padded live range");
+static_assert(kThreads <= 1024, "one block");
 static_assert(kLiveBins <= kLiveBinsPad && kLiveBin0 + kLiveBins <= kFreqs, "live bins inside the spectrum");
 static_assert(kNfft % kSliceK == 0 && kHop % kSliceK == 0, "a K slice never straddles a pad");
 static_assert(kHop % 4 == 0 && kStageFloats % 4 == 0 && kPowStride % 4 == 0, "16-byte shared accesses");
 static_assert(kLiveBinsPad * kMels <= 2 * kSliceFloats, "the mel weights fit the basis stages");
+static_assert(kSmemFloats * sizeof(float) <= 227 * 1024, "the block's shared memory fits an SM");
 
 __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
     const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
@@ -187,8 +193,7 @@ melspec_frames_kernel(const float* __restrict__ windows,   // (S, kWindow)
     }
     __syncthreads();
 
-    // Warp w projects rows kRowsPerWarp * w .. onto band `lane`.
-    const int r0 = warp * kRowsPerWarp;
+    // Warp w projects rows w, w + kWarps, ... onto band `lane`.
     float acc[kRowsPerWarp];
 #pragma unroll
     for (int i = 0; i < kRowsPerWarp; ++i) {
@@ -202,17 +207,21 @@ melspec_frames_kernel(const float* __restrict__ windows,   // (S, kWindow)
         const float w3 = stage[(k + 3) * kMels + lane];
 #pragma unroll
         for (int i = 0; i < kRowsPerWarp; ++i) {
-            const float4 p = *reinterpret_cast<const float4*>(power + (r0 + i) * kPowStride + k);
-            acc[i] = fmaf(p.x, w0, acc[i]);
-            acc[i] = fmaf(p.y, w1, acc[i]);
-            acc[i] = fmaf(p.z, w2, acc[i]);
-            acc[i] = fmaf(p.w, w3, acc[i]);
+            const int r = warp + kWarps * i;
+            if (kRows % kWarps == 0 || r < kRows) {
+                const float4 p = *reinterpret_cast<const float4*>(power + r * kPowStride + k);
+                acc[i] = fmaf(p.x, w0, acc[i]);
+                acc[i] = fmaf(p.y, w1, acc[i]);
+                acc[i] = fmaf(p.z, w2, acc[i]);
+                acc[i] = fmaf(p.w, w3, acc[i]);
+            }
         }
     }
 #pragma unroll
     for (int i = 0; i < kRowsPerWarp; ++i) {
-        if ((r0 + i) / kFrames < n_valid) {
-            out[(static_cast<size_t>(s0) * kFrames + r0 + i) * kMels + lane] = logf(fmaxf(acc[i], kAmin)) * kDbPerLn;
+        const int r = warp + kWarps * i;
+        if ((kRows % kWarps == 0 || r < kRows) && r / kFrames < n_valid) {
+            out[(static_cast<size_t>(s0) * kFrames + r) * kMels + lane] = logf(fmaxf(acc[i], kAmin)) * kDbPerLn;
         }
     }
 }
@@ -342,6 +351,29 @@ melspec_frames_factored_kernel(const float* __restrict__ windows,
     }
 }
 
+// Kernel 1 needs more than 48 KB of dynamic shared memory, which a kernel
+// must opt in to once per device: a driver call, so it is made on the first
+// launch on each device only.
+constexpr size_t kSmemBytes = kSmemFloats * sizeof(float);
+
+cudaError_t allow_melspec_smem() {
+    int device = 0;
+    cudaError_t err = cudaGetDevice(&device);
+    if (err != cudaSuccess) {
+        return err;
+    }
+    static std::atomic<unsigned long long> allowed{0};         // bit d: done on device d
+    const unsigned long long bit = device < 64 ? 1ull << device : 0ull;
+    if (bit != 0 && (allowed.load(std::memory_order_acquire) & bit) != 0) {
+        return cudaSuccess;
+    }
+    err = cudaFuncSetAttribute(melspec_frames_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+    if (err == cudaSuccess) {
+        allowed.fetch_or(bit, std::memory_order_acq_rel);
+    }
+    return err;
+}
+
 }  // namespace
 
 extern "C" int owwt_melspec_frames_factored(const float* windows, const float* basis,
@@ -364,14 +396,12 @@ extern "C" int owwt_melspec_frames(const float* windows, const float* basis,
     if (n_streams <= 0) {
         return 0;
     }
-    constexpr size_t smem_bytes = kSmemFloats * sizeof(float);
-    const cudaError_t err = cudaFuncSetAttribute(melspec_frames_kernel,
-                                                 cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    const cudaError_t err = allow_melspec_smem();
     if (err != cudaSuccess) {
         return static_cast<int>(err);
     }
     const int grid = (n_streams + kStreams - 1) / kStreams;
-    melspec_frames_kernel<<<grid, kThreads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
+    melspec_frames_kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
         windows, basis, melw, out, n_streams);
     return static_cast<int>(cudaGetLastError());
 }

@@ -30,8 +30,9 @@ FRAMES = config.MELS_PER_CHUNK                                # 8
 N_MELS = config.N_MELS                                        # 32
 DFTS = ("direct", "factored")
 _ENTRY = {"direct": "owwt_melspec_frames", "factored": "owwt_melspec_frames_factored"}
-# kernel 1's bin tile: 4 bins per thread x 4 bin groups per warp; the live
-# range is padded with zero columns to a whole number of tiles
+# kernel 1's bins per warp (4 bins per thread x 4 bin groups; mel_program.h
+# carries it to csrc/melspec.cu, which checks it against its warp shape); the
+# live range is padded with zero columns to a whole number of tiles
 BIN_TILE = 16
 
 

@@ -67,12 +67,13 @@ def generated_headers() -> Dict[str, str]:
     first, count, padded = melspec_cuda.live_bins()
     mel = {"kWindow": config.CHUNK_SAMPLES + config.MEL_LOOKBACK_SAMPLES, "kFrames": config.MELS_PER_CHUNK,
            "kNfft": config.N_FFT, "kHop": config.HOP_LENGTH, "kMels": config.N_MELS,
-           "kLiveBin0": first, "kLiveBins": count, "kLiveBinsPad": padded}
+           "kLiveBin0": first, "kLiveBins": count, "kLiveBinsPad": padded, "kBinTile": melspec_cuda.BIN_TILE}
     return {"cnn_program.h": "// Written by utils/cuda_build.py from ops/cnn_step.py::conv_table:\n"
                              "// (kh, kw, cin, cout, pool_h, pool_w, epilogue) per conv.\n" + rows,
             "mel_program.h": "// Written by utils/cuda_build.py from config and ops/melspec_cuda.py::live_bins:\n"
                              "// the frame geometry, and the DFT bins [kLiveBin0, kLiveBin0 + kLiveBins) on\n"
-                             "// which the mel filterbank has a non-zero weight, padded to kLiveBinsPad.\n"
+                             "// which the mel filterbank has a non-zero weight, padded to kLiveBinsPad,\n"
+                             "// a whole number of kernel 1's kBinTile-bin warp tiles.\n"
                              + "".join(f"constexpr int {k} = {v};\n" for k, v in mel.items())}
 
 

@@ -55,6 +55,43 @@ def test_live_bin_kernel_ragged_streams(cuda, n_streams):
     assert float((got[-1] + 100.0).abs().max()) <= 1e-4
 
 
+@pytest.fixture()
+def wide_mel_range(monkeypatch):
+    """config.FMAX = 7000: 222 live bins padded to 224, 14 warps per block,
+    which do not divide the block's 64 rows. The library, kernel entry and
+    constants are rebuilt for it, and again for the default afterwards."""
+    from openwakeword_tpu_torch import config
+    from openwakeword_tpu_torch.utils import cuda_build
+    caches = (cuda_build.load_library, melspec_cuda._kernel_fn, melspec_cuda._device_consts)
+    monkeypatch.setattr(config, "FMAX", 7000.0)
+    for cache in caches:
+        cache.cache_clear()
+    yield config
+    for cache in caches:
+        cache.cache_clear()
+
+
+@pytest.mark.parametrize("n_streams", [1, 9, 1000])
+def test_live_bin_kernel_other_live_range(cuda, wide_mel_range, n_streams):
+    """Kernel 1 built for another live range, held against the unpruned
+    257-bin DFT projected onto that range's filterbank."""
+    from openwakeword_tpu_torch.ops import melspec
+    config = wide_mel_range
+    assert melspec_cuda.live_bins() == (2, 222, 224)
+    w = (np.random.default_rng(n_streams).uniform(-1, 1, (n_streams, 1760)) * 25000).astype(np.float32)
+    w[-1] = 0.0
+    x = torch.from_numpy(w).to(cuda)
+    got = melspec_cuda.melspectrogram_frames(x, "direct")
+    fb = melspec.mel_filterbank(config.SAMPLE_RATE, config.N_FFT, config.N_MELS, config.FMIN, config.FMAX)
+    spec = melspec.frame_signal(x.double()) @ torch.from_numpy(melspec.stft_power_basis()).to(cuda)
+    power = spec[..., 0::2] ** 2 + spec[..., 1::2] ** 2
+    want = 10.0 * torch.log10(torch.clamp_min(power @ torch.from_numpy(fb).to(cuda), 1e-10))
+    torch.cuda.synchronize()
+    assert got.shape == (n_streams, 8, 32)
+    assert float((got.double() - want).abs().max()) <= 2e-3
+    assert float((got[-1] + 100.0).abs().max()) <= 1e-4
+
+
 def test_mel_kernel_rejects_bad_inputs(cuda):
     with pytest.raises(TypeError):
         melspec_cuda.melspectrogram_frames(torch.zeros((2, 1760), dtype=torch.float64, device=cuda))

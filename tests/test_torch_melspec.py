@@ -145,7 +145,8 @@ def test_generated_mel_header_carries_the_live_range(monkeypatch):
     which is part of the build key: a new FMAX changes both."""
     text = cuda_build.generated_headers()["mel_program.h"]
     for name, value in [("kLiveBin0", 2), ("kLiveBins", 120), ("kLiveBinsPad", 128), ("kNfft", 512),
-                        ("kHop", 160), ("kMels", 32), ("kFrames", 8), ("kWindow", 1760)]:
+                        ("kHop", 160), ("kMels", 32), ("kFrames", 8), ("kWindow", 1760),
+                        ("kBinTile", melspec_cuda.BIN_TILE)]:
         assert f"constexpr int {name} = {value};" in text
     source = (cuda_build.CSRC / "melspec.cu").read_text()
     assert '#include "mel_program.h"' in source and "constexpr int kLiveBin" not in source
