@@ -29,13 +29,16 @@ Phases, each of which exits nonzero on failure:
    Then the same with ``mel_dft="factored"`` (kernel 2 must launch), whose
    scores must agree with the direct run's within 1e-3;
 6. CNN kernels vs plain: kernel 4 (prime) and kernel 3 (step) of
-   ``ops.cnn_step`` against their plain versions, S in {1, 5, 130, 4096}, a
-   prime and 4 steps, max |diff| <= 1e-4 on embeddings and all 11 caches; at
-   S=5 also against the engine's NHWC ``embedding_stream`` step;
+   ``ops.cnn_step`` against their plain versions, S in {1, 5, 100, 130,
+   4096} (100 and 4096 run the 16-byte-copy variant, 100 with a ragged last
+   stream tile; 1, 5 and 130 the 4-byte one), a prime and 4 steps, max |diff|
+   <= 1e-4 on embeddings and all 11 caches; at S=5 also against the engine's
+   NHWC ``embedding_stream`` step;
 7. CNN path at scale: ``CnnStepKernel.prime`` (kernel 4) and 50
    ``CnnStepKernel.step`` calls at S=4096, held against the plain versions;
 8. CNN timing at S=4096: kernel 3 vs its plain version vs the engine's NHWC
-   eager step, kernel 4 vs its plain version;
+   eager step, kernel 4 vs its plain version; then one call of each under
+   ``torch.profiler``, printed as each conv's ms and TFLOP/s;
 9. Model golden: the port's single-stream ``Model`` on the card with the
    golden weights over ``testing.model_packets()``, against the JAX
    ``Model``'s committed scores (tests/fixtures/torch_serving_golden.npz),
@@ -158,6 +161,41 @@ def plain_flops(fn, *args) -> float:
     with FlopCounterMode(display=False) as counter:
         fn(*args)
     return float(counter.get_total_flops())
+
+
+def conv_profile(card: str, step, prime, n_streams: int) -> None:
+    """Each conv's device time in one kernel 3 call (``step``) and one
+    kernel 4 call (``prime``) under torch.profiler, printed as one JSON line
+    per call with each conv's ms and TFLOP/s. The i-th conv kernel launch of
+    a call is conv i: launch order is the key, since a template's
+    instantiations may share a name. The operations of conv i are its
+    products, 2 * Cout * kh * kw * Cin per output position and stream."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from openwakeword_tpu_torch.ops import cnn_step
+    table = cnn_step.conv_table()
+    for what, fn, rows in (("step", step, 8), ("prime", prime, 76)):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        launches = sorted((e for e in prof.events()
+                           if e.device_type == DeviceType.CUDA and "conv_layer_kernel" in e.name),
+                          key=lambda e: e.time_range.start)
+        if len(launches) != len(table):
+            fail(f"the profiler saw {len(launches)} conv launches in one CNN {what} call, expected {len(table)}")
+        tx, wx, convs = rows, 32, []
+        for (kh, kw, cin, cout, ph, pw, _), e in zip(table, launches):
+            t_out = tx + (2 if kh > 1 and what == "step" else 0) - kh + 1
+            ms = (e.time_range.end - e.time_range.start) / 1e3
+            flops = 2 * cout * kh * kw * cin * t_out * wx * n_streams
+            convs.append({"ms": round(ms, 5), "tflops": round(flops / ms / 1e9, 2)})
+            tx, wx = t_out // ph, wx // pw
+        total = sum(c["ms"] for c in convs)
+        print(f"CNN {what} per conv at S={n_streams} ({total:.4f} ms of kernels), on {card}: "
+              + json.dumps({"call": what, "convs": convs}))
 
 
 def cnn_weights():
@@ -504,7 +542,7 @@ def main():
     params = kernel.params
     folded = params.folded
     cnn_err = {"prime": 0.0, "step": 0.0}
-    for n in (1, 5, 130, SCALE_STREAMS):
+    for n in (1, 5, 100, 130, SCALE_STREAMS):
         rng = np.random.default_rng(100 + n)
         window = torch.from_numpy(rng.uniform(-2, 8, (76, 32, n)).astype(np.float32)).to(dev)
         k_emb, k_caches = cnn_step_cuda.cnn_prime(params, window)
@@ -589,6 +627,8 @@ def main():
     for what, ms in (("step", step_ms[0]), ("prime", prime_ms[0])):
         print(f"CNN {what} kernel at S={SCALE_STREAMS}: {ms:.4f} ms, bound {cnn_bound[what][0]:.4f} ms "
               f"({cnn_bound[what][1]}; {cnn_bound[what][0] / ms:.1%} of it), on {card}")
+    conv_profile(card, lambda: cnn_step_cuda.cnn_step(params, caches_list, new),
+                 lambda: cnn_step_cuda.cnn_prime(params, window), SCALE_STREAMS)
 
     mel_launches["direct"] = serving(card)
 

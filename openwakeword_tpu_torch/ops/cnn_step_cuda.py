@@ -9,7 +9,8 @@ the plain PyTorch version (``cnn_step_plain`` / ``cnn_prime_plain``, built on
 ``models.embedding_stream._forward_t``); a CUDA tensor goes through
 ``csrc/cnn_step.cu`` or the call raises. The new caches are fresh tensors:
 the kernel never writes a cache it reads. Each wrapper counts its launches in
-``.launches``.
+``.launches``. ``conv_tiles`` picks each conv's block tile, which the build
+compiles in through the generated header ``cnn_tiles.h``.
 """
 
 import contextlib
@@ -26,6 +27,69 @@ STEP_ROWS = 8            # new mel rows per step
 WINDOW_ROWS = 76         # mel rows of a prime window
 MEL_WIDTH = 32
 EMB_DIM = 96
+
+# The kernels' block tiles, compiled into csrc/cnn_step.cu through the
+# generated cnn_tiles.h: a block covers all Cout and 32 streams (STREAM_QUADS
+# quads of 4) x G*NC output positions; a thread holds THREAD_CHANNELS
+# channels x NC positions x 4 streams; STAGES K slices are in flight.
+STREAM_QUADS = 8
+THREAD_CHANNELS = 8
+STAGES = 3
+MAX_TILE_THREADS = 256
+SMEM_LIMIT = 227 * 1024    # shared memory one block may take on an H100
+
+
+class ConvTile(NamedTuple):
+    groups: int            # G: position groups of STREAM_QUADS threads per channel group
+    per_thread: int        # NC: output positions per thread (1 or 2)
+    k_slice: int           # KS: K per cp.async stage
+
+
+def conv_positions(table: Sequence[Tuple[int, ...]], rows: int, prime: bool) -> List[int]:
+    """Output positions (t_out * w_out, before the pool) of each conv of
+    ``table`` (``ops.cnn_step.conv_table()``) for a ``rows``-row input of
+    width 32: a step's time convs also read their 2 cached rows, a prime's
+    do not."""
+    tx, wx, out = rows, MEL_WIDTH, []
+    for kh, _, _, _, ph, pw, _ in table:
+        t_out = tx + (2 if kh > 1 and not prime else 0) - kh + 1
+        out.append(t_out * wx)
+        tx, wx = t_out // ph, wx // pw
+    return out
+
+
+def conv_tiles(table: Sequence[Tuple[int, ...]]) -> List[ConvTile]:
+    """Each conv's block tile. NC = 2 positions per thread (1 where a step
+    has a single output position); G, a power of two, the least that makes
+    the block whole warps (and, for a 2x2 pool, even: a window's two halves
+    are two threads of one warp), then doubled while the block stays within
+    MAX_TILE_THREADS threads and its G*NC positions within the step's; K
+    slices of 24, of 8 where the tile has more than 64 cells, and the whole
+    K rounded up to 4 where K < 24 (the stem)."""
+    tiles = []
+    for (kh, kw, cin, cout, ph, pw, _), n_pos in zip(table, conv_positions(table, STEP_ROWS, False)):
+        nc = 2 if n_pos >= 2 else 1
+        groups = cout // THREAD_CHANNELS
+        g = 1
+        while (groups * STREAM_QUADS * g) % 32 or (ph * pw == 4 and g % 2):
+            g *= 2
+        while groups * STREAM_QUADS * 2 * g <= MAX_TILE_THREADS and 2 * g * nc <= n_pos:
+            g *= 2
+        k = kh * kw * cin
+        ks = -(-k // 4) * 4 if k < 24 else (24 if STREAM_QUADS * g * nc <= 64 else 8)
+        tiles.append(ConvTile(g, nc, ks))
+    return tiles
+
+
+def tile_smem_bytes(conv: Tuple[int, ...], tile: ConvTile) -> int:
+    """Dynamic shared memory of one block, as ``csrc/cnn_step.cu`` lays it
+    out: STAGES input slices of 16-byte cells, STAGES weight slices
+    [Cout][KS + 4] and the 16-byte tap table."""
+    kh, kw, cin, cout = conv[:4]
+    k = kh * kw * cin
+    k_pad = -(-k // tile.k_slice) * tile.k_slice
+    cells = STREAM_QUADS * tile.groups * tile.per_thread
+    return STAGES * (tile.k_slice * cells * 16 + cout * (tile.k_slice + 4) * 4) + k_pad * 16
 
 
 class CnnParams(NamedTuple):

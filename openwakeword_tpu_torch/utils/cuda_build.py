@@ -58,18 +58,30 @@ def generated_headers() -> Dict[str, str]:
     """{file name: text} of the headers the sources include from the build
     directory: ``cnn_program.h``, the CNN's per-conv table
     ``ops.cnn_step.conv_table()`` as the body of ``csrc/cnn_step.cu``'s
-    ``kConvs``; ``mel_program.h``, the mel frontend's geometry from
+    ``kConvs``; ``cnn_tiles.h``, the tile constants of
+    ``ops.cnn_step_cuda`` and each conv's block tile from its
+    ``conv_tiles()``, as ``csrc/cnn_step.cu``'s ``kTiles``;
+    ``mel_program.h``, the mel frontend's geometry from
     ``config`` and kernel 1's live DFT bins from
     ``ops.melspec_cuda.live_bins()``, for ``csrc/melspec.cu``."""
     from openwakeword_tpu_torch import config
-    from openwakeword_tpu_torch.ops import cnn_step, melspec_cuda      # both import this module
-    rows = "".join("{%s},\n" % ", ".join(map(str, row)) for row in cnn_step.conv_table())
+    from openwakeword_tpu_torch.ops import cnn_step, cnn_step_cuda, melspec_cuda   # they import this module
+    table = cnn_step.conv_table()
+    rows = "".join("{%s},\n" % ", ".join(map(str, row)) for row in table)
+    tiles = "".join("{%s},\n" % ", ".join(map(str, tile)) for tile in cnn_step_cuda.conv_tiles(table))
+    tile_consts = {"kStreamQuads": cnn_step_cuda.STREAM_QUADS, "kThreadChannels": cnn_step_cuda.THREAD_CHANNELS,
+                   "kStages": cnn_step_cuda.STAGES}
     first, count, padded = melspec_cuda.live_bins()
     mel = {"kWindow": config.CHUNK_SAMPLES + config.MEL_LOOKBACK_SAMPLES, "kFrames": config.MELS_PER_CHUNK,
            "kNfft": config.N_FFT, "kHop": config.HOP_LENGTH, "kMels": config.N_MELS,
            "kLiveBin0": first, "kLiveBins": count, "kLiveBinsPad": padded, "kBinTile": melspec_cuda.BIN_TILE}
     return {"cnn_program.h": "// Written by utils/cuda_build.py from ops/cnn_step.py::conv_table:\n"
                              "// (kh, kw, cin, cout, pool_h, pool_w, epilogue) per conv.\n" + rows,
+            "cnn_tiles.h": "// Written by utils/cuda_build.py from ops/cnn_step_cuda.py: the tile\n"
+                           "// constants, and conv_tiles as (position groups, positions per thread,\n"
+                           "// K slice) per conv.\n"
+                           + "".join(f"constexpr int {k} = {v};\n" for k, v in tile_consts.items())
+                           + "constexpr ConvTile kTiles[] = {\n" + tiles + "};\n",
             "mel_program.h": "// Written by utils/cuda_build.py from config and ops/melspec_cuda.py::live_bins:\n"
                              "// the frame geometry, and the DFT bins [kLiveBin0, kLiveBin0 + kLiveBins) on\n"
                              "// which the mel filterbank has a non-zero weight, padded to kLiveBinsPad,\n"

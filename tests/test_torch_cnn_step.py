@@ -82,6 +82,55 @@ def test_generated_program_header_is_the_conv_table():
     assert '#include "cnn_program.h"' in (cuda_build.CSRC / "cnn_step.cu").read_text()
 
 
+@pytest.mark.parametrize("conv", range(20))
+def test_tile_constants_fit_the_kernel(conv):
+    """Each conv's block tile, compiled into csrc/cnn_step.cu through the
+    generated cnn_tiles.h, satisfies what the kernel assumes: channel groups
+    of 8 divide Cout; the block is whole warps and has a thread for every
+    input cell it stages; K slices are whole 16-byte weight rows; a thread's
+    positions are whole pool windows, or (2x2 pool) half of one whose other
+    half is held by the thread 8 lanes away in the same warp; the block fits
+    227 KB of shared memory."""
+    table = cnn_step.conv_table()
+    tiles = cnn_step_cuda.conv_tiles(table)
+    text = cuda_build.generated_headers()["cnn_tiles.h"]
+    rows = [line.rstrip(",") for line in text.splitlines() if line.startswith("{")]
+    assert [tuple(int(v) for v in row.strip("{}").split(",")) for row in rows] == [tuple(t) for t in tiles]
+    for name, value in (("kStreamQuads", cnn_step_cuda.STREAM_QUADS),
+                        ("kThreadChannels", cnn_step_cuda.THREAD_CHANNELS), ("kStages", cnn_step_cuda.STAGES)):
+        assert f"constexpr int {name} = {value};" in text
+    assert '#include "cnn_tiles.h"' in (cuda_build.CSRC / "cnn_step.cu").read_text()
+
+    spec, tile = table[conv], tiles[conv]
+    kh, kw, cin, cout, ph, pw, _ = spec
+    win = ph * pw
+    per_group = cnn_step_cuda.STREAM_QUADS * tile.groups          # threads per channel group
+    assert cout % cnn_step_cuda.THREAD_CHANNELS == 0
+    threads = cout // cnn_step_cuda.THREAD_CHANNELS * per_group
+    assert threads % 32 == 0 and threads <= 1024
+    assert tile.per_thread in (1, 2)
+    cells = per_group * tile.per_thread
+    assert threads >= cells                                      # every cell has a thread that stages it
+    assert tile.k_slice % 4 == 0                                 # 16-byte weight rows
+    assert cin % 4 or (kh * kw * cin) % tile.k_slice == 0        # 16-byte weight copies stay inside K
+    assert cnn_step_cuda.tile_smem_bytes(spec, tile) <= cnn_step_cuda.SMEM_LIMIT == 227 * 1024
+    for rows_in, prime in ((cnn_step_cuda.STEP_ROWS, False), (cnn_step_cuda.WINDOW_ROWS, True)):
+        assert cnn_step_cuda.conv_positions(table, rows_in, prime)[conv] % win == 0
+    # the kernel's thread -> positions map: thread tn of a channel group holds
+    # tile positions (tn // 8) * NC + j, numbered pool window by window
+    npt = tile.groups * tile.per_thread
+    assert npt % win == 0
+    for tid in range(threads):
+        tn = tid % per_group
+        held = {(tn // cnn_step_cuda.STREAM_QUADS) * tile.per_thread + j for j in range(tile.per_thread)}
+        if win == 4:
+            partner = tid ^ cnn_step_cuda.STREAM_QUADS
+            assert partner // 32 == tid // 32 and partner // per_group == tid // per_group
+            tp = partner % per_group
+            held |= {(tp // cnn_step_cuda.STREAM_QUADS) * tile.per_thread + j for j in range(tile.per_thread)}
+        assert all(p // win * win + e in held for p in held for e in range(win)), (tid, held)
+
+
 def test_prep_params_matches_jax(folded):
     want = cnn_pallas._prep_params(folded[0], np.float32)
     p = cnn_step.prep_params(folded[1])

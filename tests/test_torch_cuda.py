@@ -114,7 +114,9 @@ def cnn_params():
     return embedding.fold_batchnorm(convert.embedding_from_jax(p))
 
 
-@pytest.mark.parametrize("n_streams", [1, 5, 33, 130])
+# both sides of the 32-stream block tile and of S % 4 == 0 (the 16-byte-copy
+# variant takes S % 4 == 0, the 4-byte one the rest)
+@pytest.mark.parametrize("n_streams", [1, 3, 4, 5, 31, 32, 33, 63, 64, 65, 100, 130, 4095, 4096])
 def test_cnn_kernels_match_plain(cuda, cnn_params, n_streams):
     params = cnn_step.prep_params({k: {n: t.to(cuda) for n, t in v.items()} for k, v in cnn_params.items()})
     rng = np.random.default_rng(n_streams)
@@ -132,6 +134,60 @@ def test_cnn_kernels_match_plain(cuda, cnn_params, n_streams):
     torch.cuda.synchronize()
     assert float((emb - want_emb).abs().max()) <= 1e-4
     assert (cnn_step_cuda.cnn_prime.launches, cnn_step_cuda.cnn_step.launches) == (before[0] + 1, before[1] + 4)
+
+
+def _cnn_prime_and_steps(params, window, steps):
+    """The kernels' and the plain versions' embedding and caches after a
+    prime and each of ``steps``."""
+    emb, caches = cnn_step_cuda.cnn_prime(params, window)
+    want_emb, want_caches = cnn_step_cuda.cnn_prime_plain(params, window)
+    out = [(emb, caches, want_emb, want_caches)]
+    for new in steps:
+        emb, caches = cnn_step_cuda.cnn_step(params, caches, new)
+        want_emb, want_caches = cnn_step_cuda.cnn_step_plain(params, want_caches, new)
+        out.append((emb, caches, want_emb, want_caches))
+    torch.cuda.synchronize()
+    return out
+
+
+@pytest.mark.parametrize("n_streams", [37, 40])
+def test_cnn_kernels_zero_stream_in_ragged_tile(cuda, cnn_params, n_streams):
+    """The last stream, in the ragged last tile (5 or 8 of 32 streams; the
+    4-byte and the 16-byte-copy variant), gets all-zero mel rows: it matches
+    the plain version and the same stream run alone."""
+    params = cnn_step.prep_params({k: {n: t.to(cuda) for n, t in v.items()} for k, v in cnn_params.items()})
+    rng = np.random.default_rng(n_streams)
+    window = torch.from_numpy(rng.uniform(-2, 8, (76, 32, n_streams)).astype(np.float32)).to(cuda)
+    steps = [torch.from_numpy(rng.uniform(-2, 8, (8, 32, n_streams)).astype(np.float32)).to(cuda)
+             for _ in range(4)]
+    for x in [window] + steps:
+        x[..., -1] = 0.0
+    runs = _cnn_prime_and_steps(params, window, steps)
+    alone = _cnn_prime_and_steps(params, window[..., -1:].contiguous(), [x[..., -1:].contiguous() for x in steps])
+    for (emb, caches, want_emb, want_caches), (one_emb, one_caches, _, _) in zip(runs, alone):
+        assert float((emb - want_emb).abs().max()) <= 1e-4
+        assert max(float((a - b).abs().max()) for a, b in zip(caches, want_caches)) <= 1e-4
+        assert float((emb[:, -1:] - one_emb).abs().max()) <= 1e-4
+        assert max(float((a[..., -1:] - b).abs().max()) for a, b in zip(caches, one_caches)) <= 1e-4
+
+
+def test_cnn_kernels_take_misaligned_rows(cuda, cnn_params):
+    """S = 8 allows 16-byte copies, but mel rows whose storage starts one
+    float into their buffer do not: the 4-byte variant runs and matches."""
+    params = cnn_step.prep_params({k: {n: t.to(cuda) for n, t in v.items()} for k, v in cnn_params.items()})
+    rng = np.random.default_rng(8)
+
+    def misaligned(a):
+        buf = torch.empty(a.size + 1, device=cuda)
+        view = buf[1:].view(a.shape)
+        view.copy_(torch.from_numpy(a))
+        assert view.is_contiguous() and view.data_ptr() % 16 != 0
+        return view
+    window = misaligned(rng.uniform(-2, 8, (76, 32, 8)).astype(np.float32))
+    steps = [misaligned(rng.uniform(-2, 8, (8, 32, 8)).astype(np.float32)) for _ in range(2)]
+    for emb, caches, want_emb, want_caches in _cnn_prime_and_steps(params, window, steps):
+        assert float((emb - want_emb).abs().max()) <= 1e-4
+        assert max(float((a - b).abs().max()) for a, b in zip(caches, want_caches)) <= 1e-4
 
 
 def test_cnn_kernel_rejects_bad_inputs(cuda, cnn_params):
