@@ -50,7 +50,7 @@ Phases, each of which exits nonzero on failure:
    score matrices (max |dscore| < 1e-3) and activation lists (scores within
    1e-3 of the threshold left out); kernel 1 once per tick;
 11. serving at scale: two ``StreamServer(capacity=4096)`` in the bench
-   configuration fed the same 50 ticks of ``push_block`` over all slots with
+   configuration fed the same 25 ticks of ``push_block`` over all slots with
    1% churn per tick, one driven by ``step()``, one by ``step_async()``; the
    score matrices must agree within 1e-6, every score finite in [0, 1],
    kernel 1 once per tick. Prints host ms per tick (ingest + dispatch), wall
@@ -58,17 +58,33 @@ Phases, each of which exits nonzero on failure:
    ``engine.measure_realtime()``;
 12. bulk: eight synthetic WAVs of different lengths; ``bulk_predict`` and
    ``bulk_predict_streaming`` must equal ``engine.predict_clips`` on the same
-   audio within 1e-5.
+   audio within 1e-5;
+13. precision tiers: the bench configuration at 4096 streams x 50 frames at
+   'highest', then 'fast', 'bf16' (with each mel DFT) and 'mixed' on the same
+   weights and audio: ms per step, streams in real time and max |dscore|
+   against the port's own 'highest' run; scores finite in [0, 1]; the 1-pass
+   mel kernels (K1-1pass at 'fast' and 'bf16', K2-1pass at 'bf16' with
+   ``mel_dft="factored"``) must launch once per step.
+
+The 1-pass bf16 variants of the four kernels run beside their fp32 ones:
+phase 3 holds K1-1pass and K2-1pass against their plain versions within
+2e-3 dB + 10 log10(1 + 2^-7) (one flipped bf16 rounding of the power), phase
+6 K3-bf16 and K4-bf16 within 2 E + 1e-4, E the plain bf16 version's distance
+from the plain fp32 one on the same inputs (flipped roundings feed every
+later conv), each call fed the plain version's caches; phase 7 runs
+``CnnStepKernel(precision="bf16")`` at scale, phase 8 times the variants.
 
 Then it prints one JSON line describing each kernel (its launches on the
 main path, its error against its plain version, its time, its plain
 version's time and its bound: the larger of the operations over the fp32
-peak and the bytes over the memory rate, both counted from this run's
-inputs), the card's name and power limit, and last the result line
+peak, or the dense bf16 tensor-core peak for a 1-pass variant, and the
+bytes over the memory rate, both counted from this run's inputs), the
+card's name and power limit, and last the result line
 ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
 """
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -88,9 +104,15 @@ BULK_TOL = 1e-5
 EMB_BYTES = 96 * 4         # one stream's float32 embedding
 SCALE_THRESHOLD = 0.7
 MEL_CHECK_STREAMS = (1, 5, 17, 63, 64, 65, 1000, 4095, 4096)
+# a 1-pass variant rounds the mel power after a float32 sum: one flipped bf16
+# rounding moves a band by at most 2^-7 of itself
+MEL_1PASS_TOL_DB = MEL_TOL_DB + 10 * math.log10(1 + 2 ** -7)
+CNN_CHECK_STREAMS = (1, 5, 100, 130, SCALE_STREAMS)
+TIERS = ("fast", "bf16", "mixed")
 # published H100 SXM peaks at 700 W (NVIDIA data sheet): fp32 outside the tensor
-# cores, and HBM3
+# cores, dense bf16 on the tensor cores, and HBM3
 FP32_FLOPS = 67e12
+BF16_FLOPS = 989e12
 HBM_BYTES_PER_S = 3.35e12
 
 
@@ -132,10 +154,11 @@ def n_bytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def bound(flops: float, nbytes: int):
+def bound(flops: float, nbytes: int, peak: float = FP32_FLOPS):
     """(bound ms, what sets it): the least time the card could take for
-    ``flops`` fp32 operations that read and write ``nbytes`` once."""
-    t_ops, t_bytes = flops / FP32_FLOPS, nbytes / HBM_BYTES_PER_S
+    ``flops`` operations at ``peak`` per second that read and write
+    ``nbytes`` once."""
+    t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
@@ -196,6 +219,19 @@ def conv_profile(card: str, step, prime, n_streams: int) -> None:
         total = sum(c["ms"] for c in convs)
         print(f"CNN {what} per conv at S={n_streams} ({total:.4f} ms of kernels), on {card}: "
               + json.dumps({"call": what, "convs": convs}))
+
+
+def one_pass_err(got, want, ref32) -> float:
+    """|got - want| of a 1-pass CNN variant, after failing unless it is
+    within 1e-4 + 2 E of the plain bf16 version (E = max |want - ref32|, the
+    plain bf16 version's distance from the plain fp32 one on the same
+    inputs) and, where E > 1e-4, at least E / 2 from the fp32 result."""
+    err, e = max_diff(got, want), max_diff(want, ref32)
+    if not err <= CNN_TOL + 2 * e:
+        fail(f"a 1-pass CNN kernel is {err} from its plain version, over 1e-4 + 2 x {e}")
+    if e > CNN_TOL and not max_diff(got, ref32) >= e / 2:
+        fail(f"a 1-pass CNN kernel's output is the fp32 one ({max_diff(got, ref32)} from it, E = {e})")
+    return err
 
 
 def cnn_weights():
@@ -285,8 +321,9 @@ def serving(card: str) -> int:
             fail(f"the mel kernel launched {k1} times in {testing.SERVER_TICKS} server ticks ({mode})")
         del server
 
-    # 11. serving at scale: 4096 slots, step() vs step_async()
-    S, T = SCALE_STREAMS, SCALE_FRAMES
+    # 11. serving at scale: 4096 slots, step() vs step_async(); the churn runs
+    # take TC ticks (each re-primes the whole pool, ~60 ms a tick)
+    S, T, TC = SCALE_STREAMS, SCALE_FRAMES, SCALE_FRAMES // 2
     rng = np.random.default_rng(3)
     pcm = rng.integers(-2000, 2000, (T, S, 1280), dtype=np.int16)
     churn = [rng.choice(S, S // 100, replace=False) for _ in range(T)]
@@ -318,17 +355,17 @@ def serving(card: str) -> int:
     for mode in ("sync", "async"):
         with testing.recording(servers[mode]) as recorded:
             launches["direct"] = 0
-            walls[mode, "churn"] = drive(mode, range(T), True)
-            if launches["direct"] != T:
-                fail(f"the mel kernel launched {launches['direct']} times in {T} ticks ({mode})")
+            walls[mode, "churn"] = drive(mode, range(TC), True)
+            if launches["direct"] != TC:
+                fail(f"the mel kernel launched {launches['direct']} times in {TC} ticks ({mode})")
         results[mode] = np.stack([recorded[f][0] for f in sorted(recorded)])
-    k1_scale = 2 * T
+    k1_scale = 2 * TC
     sa_err = float(np.abs(results["sync"] - results["async"]).max())
     r = results["sync"]
     print(f"serving at scale: step() vs step_async() max |dscore| {sa_err:.3e} over {r.shape}, "
           f"{int((r >= SCALE_THRESHOLD).sum())} activations")
-    if r.shape != (T, S, 11) or not (np.isfinite(r).all() and r.min() >= 0.0 and r.max() <= 1.0):
-        fail(f"serving scores at scale are not finite values in [0, 1] of shape {(T, S, 11)}: {r.shape}")
+    if r.shape != (TC, S, 11) or not (np.isfinite(r).all() and r.min() >= 0.0 and r.max() <= 1.0):
+        fail(f"serving scores at scale are not finite values in [0, 1] of shape {(TC, S, 11)}: {r.shape}")
     if not sa_err <= SYNC_ASYNC_TOL:
         fail(f"step() and step_async() disagree at scale: {sa_err} > {SYNC_ASYNC_TOL}")
     del results, r
@@ -348,11 +385,11 @@ def serving(card: str) -> int:
         ingest_s.append(t1 - t0)
     srv.drain()
     host_ms = 1e3 * float(np.median(host))
-    for label, key in (("with 1% churn", "churn"), ("no churn", None)):
+    for label, key, ticks in (("with 1% churn", "churn", TC), ("no churn", None, T)):
         for mode in ("sync", "async"):
             wall = walls[mode, key] if key else min(walls[mode, i] for i in range(4) if (mode, i) in walls)
-            print(f"serving at scale ({label}, {mode}): {wall / T * 1e3:.3f} ms per tick over {T} ticks x {S} "
-                  f"slots, {S * 0.08 * T / wall:.0f} streams in real time, on {card}")
+            print(f"serving at scale ({label}, {mode}): {wall / ticks * 1e3:.3f} ms per tick over {ticks} ticks x "
+                  f"{S} slots, {S * 0.08 * ticks / wall:.0f} streams in real time, on {card}")
     print(f"serving at scale: host ms per tick (push_block + step_async dispatch from an idle card) "
           f"median {host_ms:.3f} (min {1e3 * min(host):.3f}, max {1e3 * max(host):.3f}; push_block alone "
           f"median {1e3 * float(np.median(ingest_s)):.3f}) over 20 ticks, on {card}")
@@ -399,6 +436,49 @@ def serving(card: str) -> int:
     return k1_scale
 
 
+def tiers(card: str) -> dict:
+    """Phase 13, the precision tiers at scale; returns the 1-pass mel
+    kernels' launches in the runs that put them on the main path ('bf16'
+    with each mel DFT)."""
+    import torch
+    from openwakeword_tpu_torch.ops import melspec_cuda
+    from openwakeword_tpu_torch.parallel.engine import MultiStreamEngine
+    dev = torch.device("cuda", 0)
+    launches = melspec_cuda.melspectrogram_frames.launches
+    frames = np.random.default_rng(13).integers(-2000, 2000, (SCALE_FRAMES, SCALE_STREAMS, 1280), dtype=np.int16)
+    reference, out = None, {}
+    runs = [("highest", "direct")] + [(t, "direct") for t in TIERS] + [("bf16", "factored")]
+    for precision, dft in runs:
+        engine = MultiStreamEngine(n_streams=SCALE_STREAMS, precision=precision, mel_dft=dft, device=dev)
+        engine.predict_frames(frames[:8])                    # warm-up, includes the prime
+        for k in launches:
+            launches[k] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scores = engine.predict_frames(frames)
+        wall = time.perf_counter() - t0
+        used = {k: v for k, v in launches.items() if v}
+        want = melspec_cuda.variant(dft, engine._stage_modes["mel"] in ("fast", "bf16"))
+        if used != {want: SCALE_FRAMES}:
+            fail(f"tier {precision} ({dft}): mel launches {used}, expected {SCALE_FRAMES} of {want}")
+        if scores.shape != (SCALE_FRAMES, SCALE_STREAMS, 11) or not (
+                np.isfinite(scores).all() and scores.min() >= 0.0 and scores.max() <= 1.0):
+            fail(f"tier {precision} ({dft}): scores are not finite values in [0, 1] of the expected shape")
+        if precision == "highest":
+            reference = scores
+            drift = 0.0
+        else:
+            drift = float(np.abs(scores - reference).max())
+        if precision == "bf16":
+            out[want] = launches[want]
+        print(f"tier {precision} (mel_dft={dft}): {wall / SCALE_FRAMES * 1e3:.3f} ms per step over {SCALE_FRAMES} "
+              f"frames x {SCALE_STREAMS} streams, {SCALE_STREAMS * SCALE_FRAMES * 0.08 / wall:.0f} streams in "
+              f"real time, max |dscore| vs the port's 'highest' {drift:.3e}, state "
+              f"{str(engine.state['mel_ring'].dtype).replace('torch.', '')}, on {card}")
+        del engine, scores
+    return out
+
+
 def main():
     t_start = time.perf_counter()
     import torch
@@ -427,6 +507,7 @@ def main():
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}, {torch.cuda.device_count()} device(s)")
 
+    print(f"[{time.perf_counter() - t_start:.1f} s] phase 2")
     # 2. build
     built = cuda_build.load_library()
     print(f"build: {built.path} in {built.build_seconds:.2f} s "
@@ -439,6 +520,7 @@ def main():
         fail("the native ingest library (native/ingest.cpp) did not build or load")
     print(f"build: ingest library {ingest._lib._name} in {time.perf_counter() - t0:.2f} s")
 
+    print(f"[{time.perf_counter() - t_start:.1f} s] phase 3")
     # 3. mel kernels vs plain on the card
     dev = torch.device("cuda", 0)
     mel, mel_plain = melspec_cuda.melspectrogram_frames, melspec_cuda.melspectrogram_frames_plain
@@ -448,26 +530,30 @@ def main():
     first, count, padded = melspec_cuda.live_bins()
     print(f"mel kernel 1 computes DFT bins {first}..{first + count - 1} ({count} of 257, padded to {padded})")
     for dft in melspec_cuda.DFTS:
-        mel_err[dft] = 0.0
-        for n in MEL_CHECK_STREAMS:
-            w = (np.random.default_rng(n).uniform(-1, 1, (n, melspec_cuda.WINDOW)) * 25000).astype(np.float32)
-            w[n // 2] = 0.0                                   # one silent stream
-            x = torch.from_numpy(w).to(dev)
-            got, want = mel(x, dft), mel_plain(x, dft)
-            torch.cuda.synchronize()
-            err = max_diff(got, want)
-            print(f"mel kernel ({dft}) vs plain, S={n}: max |diff| {err:.3e} dB")
-            if not err <= MEL_TOL_DB:
-                fail(f"mel kernel ({dft}) disagrees with the plain version at S={n}: {err} dB > {MEL_TOL_DB}")
-            mel_err[dft] = max(mel_err[dft], err)
-        silence = mel(torch.zeros((7, melspec_cuda.WINDOW), device=dev), dft)
-        if float((silence + 100.0).abs().max()) > 1e-4:
-            fail(f"silence does not give -100 dB ({dft})")
-        mel_ms[dft] = sandwich(f"mel ({dft})", lambda: mel(x_scale, dft), lambda: mel_plain(x_scale, dft))
+        for one_pass in (False, True):
+            name, tol = melspec_cuda.variant(dft, one_pass), (MEL_1PASS_TOL_DB if one_pass else MEL_TOL_DB)
+            mel_err[name] = 0.0
+            for n in MEL_CHECK_STREAMS:
+                w = (np.random.default_rng(n).uniform(-1, 1, (n, melspec_cuda.WINDOW)) * 25000).astype(np.float32)
+                w[n // 2] = 0.0                               # one silent stream
+                x = torch.from_numpy(w).to(dev)
+                got, want = mel(x, dft, one_pass), mel_plain(x, dft, one_pass)
+                torch.cuda.synchronize()
+                err = max_diff(got, want)
+                print(f"mel kernel ({name}) vs plain, S={n}: max |diff| {err:.3e} dB")
+                if not err <= tol:
+                    fail(f"mel kernel ({name}) disagrees with the plain version at S={n}: {err} dB > {tol}")
+                mel_err[name] = max(mel_err[name], err)
+            silence = mel(torch.zeros((7, melspec_cuda.WINDOW), device=dev), dft, one_pass)
+            if float((silence + 100.0).abs().max()) > 1e-4:
+                fail(f"silence does not give -100 dB ({name})")
+            mel_ms[name] = sandwich(f"mel ({name})", lambda: mel(x_scale, dft, one_pass),
+                                    lambda: mel_plain(x_scale, dft, one_pass))
 
     x_one = x_scale[:1].contiguous()
     k1_one_ms = min(cuda_ms(lambda: mel(x_one, "direct"), 200) for _ in range(2))
     mel_bound = bound(*mel_work(SCALE_STREAMS))
+    mel_bound_1pass = bound(*mel_work(SCALE_STREAMS), peak=BF16_FLOPS)
     for n, ms in ((1, k1_one_ms), (SCALE_STREAMS, mel_ms["direct"][0])):
         flops, nbytes = mel_work(n)
         bound_ms, bound_by = bound(flops, nbytes)
@@ -475,7 +561,12 @@ def main():
               f"of live bins, bound {bound_ms:.4f} ms ({bound_by}; {bound_ms / ms:.1%} of it), on {card}")
     print(f"mel kernel 2 at S={SCALE_STREAMS}: {mel_ms['factored'][0]:.4f} ms against the same bound "
           f"{mel_bound[0]:.4f} ms ({mel_bound[0] / mel_ms['factored'][0]:.1%} of it), on {card}")
+    for name in ("direct_1pass", "factored_1pass"):
+        print(f"mel kernel ({name}) at S={SCALE_STREAMS}: {mel_ms[name][0]:.4f} ms against the 1-pass bound "
+              f"{mel_bound_1pass[0]:.4f} ms ({mel_bound_1pass[1]}, dense bf16 tensor-core rate; "
+              f"{mel_bound_1pass[0] / mel_ms[name][0]:.1%} of it), on {card}")
 
+    print(f"[{time.perf_counter() - t_start:.1f} s] phase 4")
     # 4. golden against the JAX engine's committed scores, both mel DFTs
     with np.load(testing.FIXTURE) as z:
         fixture = {k: z[k] for k in z.files}
@@ -501,6 +592,7 @@ def main():
             fail(f"the {dft} mel kernel launched {mel_launches[dft]} times in the golden run")
         del engine
 
+    print(f"[{time.perf_counter() - t_start:.1f} s] phase 5")
     # 5. scale: the bench configuration at 4096 streams, both mel DFTs
     frames = np.random.default_rng(1).integers(-2000, 2000, (SCALE_FRAMES, SCALE_STREAMS, 1280),
                                                dtype=np.int16)
@@ -537,6 +629,7 @@ def main():
         fail(f"the factored and direct engines disagree at scale: {dft_err} >= {SCORE_TOL}")
     del frames, scale_scores
 
+    print(f"[{time.perf_counter() - t_start:.1f} s] phase 6")
     # 6. CNN kernels vs plain on the card
     kernel = cnn_step.CnnStepKernel(cnn_weights(), precision="high", device=dev)
     params = kernel.params
@@ -574,6 +667,39 @@ def main():
         print(f"CNN kernels vs plain, S={n}: max |diff| over a prime and 4 steps {n_err:.3e}")
     print(f"CNN kernels vs plain: prime {cnn_err['prime']:.3e}, step {cnn_err['step']:.3e} (tolerance {CNN_TOL})")
 
+    print(f"[{time.perf_counter() - t_start:.1f} s] phase 6b")
+    # 6b. the bf16 variants vs plain: each call fed the plain version's caches
+    kernel16 = cnn_step.CnnStepKernel(cnn_weights(), precision="bf16", device=dev)
+    params16 = kernel16.params
+    cnn_err["prime_bf16"] = cnn_err["step_bf16"] = 0.0
+    for n in CNN_CHECK_STREAMS:
+        rng = np.random.default_rng(200 + n)
+        window = torch.from_numpy(rng.uniform(-2, 8, (76, 32, n)).astype(np.float32)).to(dev)
+        n_err = 0.0
+        got = cnn_step_cuda.cnn_prime(params16, window)
+        want = cnn_step_cuda.cnn_prime_plain(params16, window)
+        ref = cnn_step_cuda.cnn_prime_plain(params, window)
+        for i in range(4):
+            torch.cuda.synchronize()
+            what = "prime_bf16" if i == 0 else "step_bf16"
+            if not torch.isfinite(got[0]).all():
+                fail(f"CNN {what} kernel gives non-finite embeddings at S={n}")
+            err = max(one_pass_err(a, b, c) for a, b, c in zip([got[0], *got[1]], [want[0], *want[1]],
+                                                               [ref[0], *ref[1]]))
+            cnn_err[what] = max(cnn_err[what], err)
+            n_err = max(n_err, err)
+            if i == 3:
+                break
+            caches = want[1]
+            new = torch.from_numpy(rng.uniform(-2, 8, (8, 32, n)).astype(np.float32)).to(dev)
+            got = cnn_step_cuda.cnn_step(params16, caches, new)
+            want = cnn_step_cuda.cnn_step_plain(params16, caches, new)
+            ref = cnn_step_cuda.cnn_step_plain(params, caches, new)
+        print(f"CNN bf16 kernels vs plain, S={n}: max |diff| over a prime and 3 steps {n_err:.3e} "
+              f"(bound 1e-4 + 2 E per tensor)")
+    print(f"CNN bf16 kernels vs plain: prime {cnn_err['prime_bf16']:.3e}, step {cnn_err['step_bf16']:.3e}")
+
+    print(f"[{time.perf_counter() - t_start:.1f} s] phase 7")
     # 7. CNN path at scale: prime with kernel 4, then 50 steps of kernel 3
     rng = np.random.default_rng(7)
     window = torch.from_numpy(rng.uniform(-2, 8, (76, 32, SCALE_STREAMS)).astype(np.float32)).to(dev)
@@ -581,7 +707,7 @@ def main():
                                   .astype(np.float32)).to(dev)
     kernel.prime(window)                                     # warm-up
     torch.cuda.synchronize()
-    cnn_step_cuda.cnn_prime.launches = cnn_step_cuda.cnn_step.launches = 0
+    cnn_step_cuda.cnn_prime.launches["float32"] = cnn_step_cuda.cnn_step.launches["float32"] = 0
     t0 = time.perf_counter()
     caches, _ = kernel.prime(window)
     torch.cuda.synchronize()
@@ -590,7 +716,8 @@ def main():
         caches, emb = kernel.step(caches, cnn_frames[f])
     torch.cuda.synchronize()
     cnn_wall = time.perf_counter() - t1
-    cnn_launches = {"prime": cnn_step_cuda.cnn_prime.launches, "step": cnn_step_cuda.cnn_step.launches}
+    cnn_launches = {"prime": cnn_step_cuda.cnn_prime.launches["float32"],
+                    "step": cnn_step_cuda.cnn_step.launches["float32"]}
     if cnn_launches != {"prime": 1, "step": SCALE_FRAMES}:
         fail(f"the CNN path launched {cnn_launches}")
     p_emb, p_caches = cnn_step_cuda.cnn_prime_plain(params, window)
@@ -605,6 +732,37 @@ def main():
           f"{SCALE_STREAMS * SCALE_FRAMES * 0.08 / cnn_wall:.0f} streams in real time, "
           f"max |diff| vs plain after {SCALE_FRAMES} steps {scale_err:.3e}, on {card}")
 
+    print(f"[{time.perf_counter() - t_start:.1f} s] phase 7b")
+    # 7b. the bf16 path at scale: prime with K4-bf16, then 50 steps of K3-bf16
+    kernel16.prime(window)                                   # warm-up
+    torch.cuda.synchronize()
+    cnn_step_cuda.cnn_prime.launches["bf16"] = cnn_step_cuda.cnn_step.launches["bf16"] = 0
+    t0 = time.perf_counter()
+    caches16, _ = kernel16.prime(window)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for f in range(SCALE_FRAMES - 1):
+        caches16, emb16 = kernel16.step(caches16, cnn_frames[f])
+    before_last = caches16
+    caches16, emb16 = kernel16.step(caches16, cnn_frames[-1])
+    torch.cuda.synchronize()
+    cnn16_wall = time.perf_counter() - t1
+    cnn_launches["prime_bf16"] = cnn_step_cuda.cnn_prime.launches["bf16"]
+    cnn_launches["step_bf16"] = cnn_step_cuda.cnn_step.launches["bf16"]
+    if (cnn_launches["prime_bf16"], cnn_launches["step_bf16"]) != (1, SCALE_FRAMES):
+        fail(f"the bf16 CNN path launched {cnn_launches}")
+    last = [before_last[name] for name in kernel16.cache_names]
+    p16_emb, p16_caches = cnn_step_cuda.cnn_step_plain(params16, last, cnn_frames[-1])
+    r_emb, r_caches = cnn_step_cuda.cnn_step_plain(params, last, cnn_frames[-1])
+    if not (emb16.shape == (96, SCALE_STREAMS) and torch.isfinite(emb16).all()):
+        fail(f"the bf16 CNN path at scale gives {tuple(emb16.shape)} or non-finite embeddings")
+    scale16_err = max(one_pass_err(a, b, c) for a, b, c in zip(
+        [emb16] + [caches16[name] for name in kernel16.cache_names], [p16_emb, *p16_caches], [r_emb, *r_caches]))
+    print(f"CNN bf16 path: prime {(t1 - t0) * 1e3:.3f} ms, {SCALE_FRAMES} steps x {SCALE_STREAMS} streams in "
+          f"{cnn16_wall:.4f} s ({cnn16_wall / SCALE_FRAMES * 1e3:.3f} ms per step), last step vs plain on its "
+          f"inputs {scale16_err:.3e}, on {card}")
+
+    print(f"[{time.perf_counter() - t_start:.1f} s] phase 8")
     # 8. CNN timing at S=4096
     new = cnn_frames[0]
     caches_list = [caches[name] for name in kernel.cache_names]
@@ -629,8 +787,25 @@ def main():
               f"({cnn_bound[what][1]}; {cnn_bound[what][0] / ms:.1%} of it), on {card}")
     conv_profile(card, lambda: cnn_step_cuda.cnn_step(params, caches_list, new),
                  lambda: cnn_step_cuda.cnn_prime(params, window), SCALE_STREAMS)
+    step16_ms = sandwich("CNN step (bf16)", lambda: cnn_step_cuda.cnn_step(params16, caches_list, new),
+                         lambda: cnn_step_cuda.cnn_step_plain(params16, caches_list, new))
+    prime16_ms = sandwich("CNN prime (bf16)", lambda: cnn_step_cuda.cnn_prime(params16, window),
+                          lambda: cnn_step_cuda.cnn_prime_plain(params16, window), n_iter=5)
+    cnn_bound["step_bf16"] = bound(plain_flops(cnn_step_cuda.cnn_step_plain, params16, caches_list, new),
+                                   weights + n_bytes(new) + 2 * n_bytes(*caches_list) + EMB_BYTES * SCALE_STREAMS,
+                                   peak=BF16_FLOPS)
+    cnn_bound["prime_bf16"] = bound(plain_flops(cnn_step_cuda.cnn_prime_plain, params16, window),
+                                    weights + n_bytes(window) + n_bytes(*caches_list) + EMB_BYTES * SCALE_STREAMS,
+                                    peak=BF16_FLOPS)
+    for what, ms in (("step_bf16", step16_ms[0]), ("prime_bf16", prime16_ms[0])):
+        print(f"CNN {what} kernel at S={SCALE_STREAMS}: {ms:.4f} ms, bound {cnn_bound[what][0]:.4f} ms "
+              f"({cnn_bound[what][1]}, dense bf16 tensor-core rate; {cnn_bound[what][0] / ms:.1%} of it), "
+              f"on {card}")
 
+    print(f"[{time.perf_counter() - t_start:.1f} s] phases 9-12")
     mel_launches["direct"] = serving(card)
+    print(f"[{time.perf_counter() - t_start:.1f} s] phase 13")
+    mel_launches.update(tiers(card))
 
     # no single PyTorch call computes any of these functions (a mel frontend or a
     # 20-conv step is several calls), so library_ms is null throughout
@@ -643,6 +818,14 @@ def main():
          cnn_launches["step"], cnn_err["step"], step_ms, cnn_bound["step"]),
         ("cnn_prime", "cnn_step.cu", "openwakeword_tpu/ops/cnn_pallas.py:167",
          cnn_launches["prime"], cnn_err["prime"], prime_ms, cnn_bound["prime"]),
+        ("melspec_frames_1pass", "melspec.cu", "openwakeword_tpu/ops/melspec_pallas.py:73",
+         mel_launches["direct_1pass"], mel_err["direct_1pass"], mel_ms["direct_1pass"], mel_bound_1pass),
+        ("melspec_frames_factored_1pass", "melspec.cu", "openwakeword_tpu/ops/melspec_pallas.py:110",
+         mel_launches["factored_1pass"], mel_err["factored_1pass"], mel_ms["factored_1pass"], mel_bound_1pass),
+        ("cnn_step_bf16", "cnn_step_bf16.cu", "openwakeword_tpu/ops/cnn_pallas.py:167",
+         cnn_launches["step_bf16"], cnn_err["step_bf16"], step16_ms, cnn_bound["step_bf16"]),
+        ("cnn_prime_bf16", "cnn_step_bf16.cu", "openwakeword_tpu/ops/cnn_pallas.py:167",
+         cnn_launches["prime_bf16"], cnn_err["prime_bf16"], prime16_ms, cnn_bound["prime_bf16"]),
     ]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"openwakeword_tpu_torch/csrc/{src}", "replaces": replaces,

@@ -4,8 +4,10 @@ The port imports nothing from the JAX package (whose ``__init__`` pulls in
 jax), so the framework-free constants are duplicated here verbatim. They
 mirror the fixed DSP/model geometry of the reference pipeline (reference
 openwakeword/utils.py:163-170 and the conversion notebook). The precision
-check at the end is the port's own.
+parser at the end follows the JAX engine's.
 """
+
+from typing import Dict, NamedTuple, Tuple, Union
 
 # Audio
 SAMPLE_RATE = 16000          # Hz; the entire pipeline is 16 kHz 16-bit PCM
@@ -57,17 +59,66 @@ VAD_GATE_HI = -4
 DEFAULT_HEAD_INPUT_FRAMES = 16   # 1.28 s of embeddings
 DEFAULT_HEAD_WIDTH = 64
 
-# Precision tiers (port only). The port runs every stage in full float32:
-# both tiers the JAX engine keeps inside the 1e-3 score budget map here.
-# 'high' is a 3-pass bf16 approximation of float32 in JAX, so float32 is at
-# least as close to 'highest'. The lower tiers wait for their port.
-SUPPORTED_PRECISIONS = ("highest", "high")
+# Precision tiers (JAX engine :227-298). The port follows the arithmetic the
+# tiers run on the TPU: 'highest' and 'high' are float32 products (FFMA, TF32
+# off); 'fast' and 'bf16' are 1-pass products (each operand rounded to bf16,
+# round-to-nearest-even, the products exact, the sums float32); 'bf16' also
+# stores the >= 2-D float weights and the mel ring, feature ring and conv
+# caches in bf16; 'mixed' runs the convs of MIXED_FAST_CONVS at 1-pass and
+# everything else float32; a dict {'mel', 'cnn', 'heads'} sets each stage.
+MODES = ("highest", "high", "fast", "bf16")
+ONE_PASS_MODES = ("fast", "bf16")
 
 
-def check_precision(precision) -> str:
-    """``precision`` if the port runs it, else NotImplementedError."""
-    if not isinstance(precision, str) or precision not in SUPPORTED_PRECISIONS:
-        raise NotImplementedError(
-            f"precision {precision!r} is not ported yet: the port runs 'highest' and 'high' "
-            "as float32 (ROADMAP.md, queue 1, slice A: precision tiers)")
-    return precision
+class Precision(NamedTuple):
+    """A parsed ``precision``: ``name`` is the tier's storage behaviour
+    ('bf16' stores weights and activation rings in bf16; dicts and 'mixed'
+    store as 'high', as in the JAX engine), ``stages`` the mode of 'mel',
+    'cnn' and 'heads' (the 'cnn' mode may be a per-conv tuple)."""
+    name: str
+    stages: Dict[str, Union[str, Tuple[str, ...]]]
+
+
+def check_precision(precision, embedding: str = "default") -> Precision:
+    """Parse the engine's ``precision`` exactly as the JAX engine does,
+    accepting and rejecting the same values with the same errors."""
+    from openwakeword_tpu_torch.models import embedding as embedding_model   # it imports this module
+
+    def valid_cnn_mode(v):
+        # 'cnn' also takes a per-conv sequence of modes, default embedding only
+        if isinstance(v, (list, tuple)):
+            return (embedding == "default" and len(v) == embedding_model.n_convs()
+                    and all(m in MODES[:3] for m in v))
+        return v in MODES[:3]
+
+    if isinstance(precision, str) and precision == "mixed":
+        if embedding != "default":
+            raise ValueError(
+                "precision='mixed' is the measured per-conv assignment "
+                "for the default embedding CNN; with "
+                f"embedding={embedding!r} use 'fast' (recommended "
+                "student tier) or a per-stage dict")
+        precision = {"cnn": embedding_model.mixed_precision()}
+    if isinstance(precision, dict):
+        bad = set(precision) - {"mel", "cnn", "heads"}
+        if (bad
+                or not all(v in MODES[:3] for k, v in precision.items() if k != "cnn")
+                or not valid_cnn_mode(precision.get("cnn", "high"))):
+            raise ValueError("per-stage precision takes keys mel/cnn/heads "
+                             f"with values {MODES[:3]} ('cnn' also takes "
+                             "a per-conv sequence of those modes, default "
+                             f"embedding only), got {precision!r}")
+        stages = {k: precision.get(k, "high") for k in ("mel", "cnn", "heads")}
+        if isinstance(stages["cnn"], list):
+            stages["cnn"] = tuple(stages["cnn"])
+        return Precision("high", stages)
+    if isinstance(precision, str) and precision in MODES:
+        return Precision(precision, dict.fromkeys(("mel", "cnn", "heads"), precision))
+    raise ValueError("precision must be 'highest', 'high', 'mixed', "
+                     f"'fast', 'bf16', or a per-stage dict; got "
+                     f"{precision!r}")
+
+
+def one_pass(mode) -> bool:
+    """True for the modes whose products are 1-pass bf16."""
+    return isinstance(mode, str) and mode in ONE_PASS_MODES

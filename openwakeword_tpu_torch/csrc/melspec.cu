@@ -40,9 +40,23 @@
 //     chip.
 // Any S >= 1: streams past the end of the last block read zeros and are
 // not written.
+//
+// 1-pass variants (kOnePass = true; entry points *_1pass): the arithmetic of
+// the TPU kernels at precision None/DEFAULT, whose MXU products round each
+// operand to bf16 and sum in f32. A bf16 x bf16 product is exact in fp32, so
+// the variants keep the fp32 FFMA loops above and round where the TPU
+// kernels' operands are formed: the host passes the basis and the mel
+// weights rounded (ops/melspec_cuda.py::_device_consts); the kernels round
+// the window samples as they stage them with plain loads (the basis goes
+// through cp.async, which cannot convert), and the power before the mel
+// projection, in registers. Kernel 2 rounds the power of bins [0, 256) and
+// keeps bin 256's in fp32, as _make_factored_kernel does. Their bound is
+// the same operations over the card's dense bf16 tensor-core rate: these
+// FFMA variants are the simple first version.
 
 #include <atomic>
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "mel_program.h"
@@ -97,6 +111,12 @@ __device__ __forceinline__ void cp_async_wait() {
     asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
 }
 
+// v rounded to bf16 (round-to-nearest-even) where the variant is 1-pass.
+template <bool kOnePass>
+__device__ __forceinline__ float operand(float v) {
+    return kOnePass ? __bfloat162float(__float2bfloat16_rn(v)) : v;
+}
+
 // Starts the copy of basis rows [kSliceK * slice, kSliceK * (slice + 1)) into
 // `dst` as one cp.async group.
 __device__ __forceinline__ void load_slice(float* dst, const float* __restrict__ basis, int slice) {
@@ -107,6 +127,7 @@ __device__ __forceinline__ void load_slice(float* dst, const float* __restrict__
     cp_async_commit();
 }
 
+template <bool kOnePass>
 __global__ void __launch_bounds__(kThreads, kThreads <= 256 ? 2 : 1)
 melspec_frames_kernel(const float* __restrict__ windows,   // (S, kWindow)
                       const float* __restrict__ basis,     // (kNfft, kCols): cos, -sin per live bin
@@ -129,7 +150,7 @@ melspec_frames_kernel(const float* __restrict__ windows,   // (S, kWindow)
         const int s = i / kSpan;
         const int n = i - s * kSpan;
         const float v = s < n_valid ? windows[static_cast<size_t>(s0 + s) * kWindow + n] : 0.0f;
-        win[kStreams * n + kPad * (n / kHop) + s] = v;
+        win[kStreams * n + kPad * (n / kHop) + s] = operand<kOnePass>(v);
     }
 
     float re[kStreams][kBinsPerThread];
@@ -182,10 +203,10 @@ melspec_frames_kernel(const float* __restrict__ windows,   // (S, kWindow)
 #pragma unroll
     for (int s = 0; s < kStreams; ++s) {
         float4 p;
-        p.x = re[s][0] * re[s][0] + im[s][0] * im[s][0];
-        p.y = re[s][1] * re[s][1] + im[s][1] * im[s][1];
-        p.z = re[s][2] * re[s][2] + im[s][2] * im[s][2];
-        p.w = re[s][3] * re[s][3] + im[s][3] * im[s][3];
+        p.x = operand<kOnePass>(re[s][0] * re[s][0] + im[s][0] * im[s][0]);
+        p.y = operand<kOnePass>(re[s][1] * re[s][1] + im[s][1] * im[s][1]);
+        p.z = operand<kOnePass>(re[s][2] * re[s][2] + im[s][2] * im[s][2]);
+        p.w = operand<kOnePass>(re[s][3] * re[s][3] + im[s][3] * im[s][3]);
         *reinterpret_cast<float4*>(power + (kFrames * s + f) * kPowStride + kBinsPerThread * g) = p;
     }
     for (int i = 4 * tid; i < kLiveBinsPad * kMels; i += 4 * kThreads) {
@@ -252,6 +273,7 @@ static_assert(kTileS * kMels == kFactoredThreads, "one thread per (stream, mel) 
 static_assert(kNfft % kRadix == 0 && kTileS % 4 == 0, "radix-4 branches; frames read as float4 over streams");
 static_assert(kFreqs <= kNfft, "the power reuses the frame buffer");
 
+template <bool kOnePass>
 __global__ void __launch_bounds__(kFactoredThreads)
 melspec_frames_factored_kernel(const float* __restrict__ windows,
                                const float2* __restrict__ basis,   // (128 a, 128 d, 4 b) of (Re, Im)
@@ -271,7 +293,7 @@ melspec_frames_factored_kernel(const float* __restrict__ windows,
         if (s < n_valid) {
             v = windows[static_cast<size_t>(s0 + s) * kWindow + kHop * frame + n];
         }
-        smem[n * kTileS + s] = v;
+        smem[n * kTileS + s] = operand<kOnePass>(v);
     }
     __syncthreads();
 
@@ -321,7 +343,7 @@ melspec_frames_factored_kernel(const float* __restrict__ windows,
         if (b == 0) {
             const float sr = e_re + f_re;
             const float si = e_im + f_im;
-            power[s * kFreqs + d] = sr * sr + si * si;
+            power[s * kFreqs + d] = operand<kOnePass>(sr * sr + si * si);
             if (d == 0) {
                 const float dr = e_re - f_re;
                 const float di = e_im - f_im;
@@ -330,7 +352,7 @@ melspec_frames_factored_kernel(const float* __restrict__ windows,
         } else if (b == 2) {
             const float cr = e_re + f_im;
             const float ci = e_im - f_re;
-            power[s * kFreqs + kSub + d] = cr * cr + ci * ci;
+            power[s * kFreqs + kSub + d] = operand<kOnePass>(cr * cr + ci * ci);
         }
     }
     __syncthreads();
@@ -352,10 +374,11 @@ melspec_frames_factored_kernel(const float* __restrict__ windows,
 }
 
 // Kernel 1 needs more than 48 KB of dynamic shared memory, which a kernel
-// must opt in to once per device: a driver call, so it is made on the first
-// launch on each device only.
+// must opt in to once per device and instantiation: a driver call, so it is
+// made on the first launch on each device only.
 constexpr size_t kSmemBytes = kSmemFloats * sizeof(float);
 
+template <bool kOnePass>
 cudaError_t allow_melspec_smem() {
     int device = 0;
     cudaError_t err = cudaGetDevice(&device);
@@ -367,41 +390,63 @@ cudaError_t allow_melspec_smem() {
     if (bit != 0 && (allowed.load(std::memory_order_acquire) & bit) != 0) {
         return cudaSuccess;
     }
-    err = cudaFuncSetAttribute(melspec_frames_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+    err = cudaFuncSetAttribute(melspec_frames_kernel<kOnePass>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kSmemBytes);
     if (err == cudaSuccess) {
         allowed.fetch_or(bit, std::memory_order_acq_rel);
     }
     return err;
 }
 
-}  // namespace
-
-extern "C" int owwt_melspec_frames_factored(const float* windows, const float* basis,
-                                            const float* melw, float* out,
-                                            int n_streams, void* stream) {
+template <bool kOnePass>
+int launch_factored(const float* windows, const float* basis, const float* melw, float* out, int n_streams,
+                    void* stream) {
     if (n_streams <= 0) {
         return 0;
     }
     const dim3 grid((n_streams + kTileS - 1) / kTileS, kFrames);
-    melspec_frames_factored_kernel<<<grid, kFactoredThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+    melspec_frames_factored_kernel<kOnePass><<<grid, kFactoredThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         windows, reinterpret_cast<const float2*>(basis), melw, out, n_streams);
     return static_cast<int>(cudaGetLastError());
 }
 
-// C entry point: launches on `stream` and returns cudaGetLastError() (0 = the
-// launch was accepted). Pointers are device pointers to contiguous float32.
-extern "C" int owwt_melspec_frames(const float* windows, const float* basis,
-                                   const float* melw, float* out,
-                                   int n_streams, void* stream) {
+template <bool kOnePass>
+int launch_direct(const float* windows, const float* basis, const float* melw, float* out, int n_streams,
+                  void* stream) {
     if (n_streams <= 0) {
         return 0;
     }
-    const cudaError_t err = allow_melspec_smem();
+    const cudaError_t err = allow_melspec_smem<kOnePass>();
     if (err != cudaSuccess) {
         return static_cast<int>(err);
     }
     const int grid = (n_streams + kStreams - 1) / kStreams;
-    melspec_frames_kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
+    melspec_frames_kernel<kOnePass><<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
         windows, basis, melw, out, n_streams);
     return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// C entry points: launch on `stream` and return cudaGetLastError() (0 = the
+// launch was accepted). Pointers are device pointers to contiguous float32;
+// the *_1pass entries take the rounded constants of the 1-pass variants.
+extern "C" int owwt_melspec_frames(const float* windows, const float* basis, const float* melw, float* out,
+                                   int n_streams, void* stream) {
+    return launch_direct<false>(windows, basis, melw, out, n_streams, stream);
+}
+
+extern "C" int owwt_melspec_frames_1pass(const float* windows, const float* basis, const float* melw, float* out,
+                                         int n_streams, void* stream) {
+    return launch_direct<true>(windows, basis, melw, out, n_streams, stream);
+}
+
+extern "C" int owwt_melspec_frames_factored(const float* windows, const float* basis, const float* melw,
+                                            float* out, int n_streams, void* stream) {
+    return launch_factored<false>(windows, basis, melw, out, n_streams, stream);
+}
+
+extern "C" int owwt_melspec_frames_factored_1pass(const float* windows, const float* basis, const float* melw,
+                                                  float* out, int n_streams, void* stream) {
+    return launch_factored<true>(windows, basis, melw, out, n_streams, stream);
 }

@@ -6,7 +6,10 @@ are plain dicts of tensors with convs in PyTorch's OIHW layout (the JAX
 package keeps HWIO; ``openwakeword_tpu_torch.convert`` transposes).
 Activations run as NCHW internally; the public functions keep the JAX
 package's layouts: mel windows (B, 76, 32) in, embeddings (B, 96) out.
-Everything runs in full float32; no function here needs a gradient.
+A conv runs in full float32, or as a 1-pass bf16 product where its
+precision mode is 'fast' or 'bf16' or its weights are stored in bf16
+(``ops.bf16``); the sums and every elementwise stage stay float32. No
+function here needs a gradient.
 """
 
 from typing import Dict, List, Optional, Tuple
@@ -14,6 +17,9 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from openwakeword_tpu_torch import config
+from openwakeword_tpu_torch.ops import bf16
 
 BN_EPS = 1e-3  # Keras BatchNormalization default, used by the reference export
 
@@ -62,6 +68,41 @@ OUTPUT_DIM = 96
 def spec():
     """The layer program (read-only copy)."""
     return list(_SPEC)
+
+
+def n_convs() -> int:
+    """Number of conv layers in the program (per-conv precisions index
+    convs in this order)."""
+    return sum(1 for layer in _SPEC if layer[0] == "conv")
+
+
+# The JAX package's per-conv assignment behind the engine's 'mixed' tier
+# (openwakeword_tpu/models/embedding.py:209): these convs run 1-pass bf16
+# products ('fast'), the rest 'high'. The assignment and its drift were
+# measured on a TPU; the port's drift per tier comes from its own runs.
+MIXED_FAST_CONVS = (1, 2, 5, 6, 9)
+
+
+def mixed_precision() -> tuple:
+    """The per-conv mode tuple of the 'mixed' tier."""
+    return tuple("fast" if i in MIXED_FAST_CONVS else "high" for i in range(n_convs()))
+
+
+def layer_precision(precision, conv_i: int):
+    """The mode of conv ``conv_i``: ``precision`` is one mode for every
+    conv or a per-conv sequence in program order."""
+    if isinstance(precision, (list, tuple)):
+        return precision[conv_i]
+    return precision
+
+
+def conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, padding, mode=None) -> torch.Tensor:
+    """NCHW conv with OIHW ``w``, float32 out: 1-pass where ``mode`` is
+    'fast' or 'bf16' or ``w`` is bf16 (JAX's ``x.astype(w.dtype)``), else
+    float32; the bias is added in float32."""
+    one_pass = config.one_pass(mode) or w.dtype == torch.bfloat16
+    return F.conv2d(bf16.operand(x, one_pass), bf16.operand(w, one_pass), b.to(torch.float32),
+                    padding=padding)
 
 
 def _normal(rng: np.random.Generator, shape) -> np.ndarray:
@@ -125,13 +166,15 @@ def pool(x: torch.Tensor, window, strides, padding: str) -> torch.Tensor:
 
 def run_program(folded: Dict, x: torch.Tensor,
                 caches_in: Optional[Dict] = None,
-                caches_out: Optional[Dict] = None) -> torch.Tensor:
+                caches_out: Optional[Dict] = None,
+                precision=None) -> torch.Tensor:
     """Run the layer program on NCHW ``x`` with BN-folded params.
 
     ``caches_in`` (streaming): per time conv, the (B, C, 2, W) input tail
     prepended to its input, which then runs 'VALID'. ``caches_out``: filled
-    with each time conv's input's last 2 rows. Returns the final (B, 96, T, 1)
-    activation.
+    with each time conv's input's last 2 rows (float32, as computed).
+    ``precision``: one mode for every conv or a per-conv sequence
+    (``layer_precision``). Returns the final (B, 96, T, 1) activation.
     """
     streaming = caches_in is not None
     conv_i = bn_i = 0
@@ -147,11 +190,11 @@ def run_program(folded: Dict, x: torch.Tensor,
             if kh > 1 and streaming:
                 if padding == "SAME":
                     raise ValueError("time-extended SAME convs unsupported in streaming mode")
-                x = torch.cat([caches_in[name], x], dim=2)
+                x = torch.cat([caches_in[name].to(x.dtype), x], dim=2)
             if kh > 1 and caches_out is not None:
                 caches_out[name] = x[:, :, -2:]
             c = folded[f"conv_{conv_i}"]
-            x = F.conv2d(x, c["w"], c["b"], padding="same" if padding == "SAME" else 0)
+            x = conv(x, c["w"], c["b"], "same" if padding == "SAME" else 0, layer_precision(precision, conv_i))
             if act == "relu":
                 x = torch.relu(x)
             conv_i += 1
@@ -205,9 +248,9 @@ def ensure_folded(params: Dict) -> Dict:
     return params if is_folded(params) else fold_batchnorm(params)
 
 
-def apply_folded(folded: Dict, x: torch.Tensor) -> torch.Tensor:
+def apply_folded(folded: Dict, x: torch.Tensor, precision=None) -> torch.Tensor:
     """(B, 76, 32) transformed log-mel windows -> (B, 96) embeddings."""
     if x.ndim == 4:                       # (B, 76, 32, 1), the JAX package's NHWC form
         x = x[..., 0]
-    out = run_program(folded, x.to(torch.float32)[:, None])
+    out = run_program(folded, x.to(torch.float32)[:, None], precision=precision)
     return out.reshape(out.shape[0], OUTPUT_DIM)

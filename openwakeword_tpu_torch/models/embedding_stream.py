@@ -6,6 +6,10 @@ phase-aligned stride-2 time pools, so caching the last 2 input rows of each
 time conv lets a step compute only the 8 new mel rows. ``init_caches`` and
 ``step`` keep the JAX package's NHWC layout, (S, 2, W, C) per conv, in
 ``cache_spec`` order; the ``*_t`` functions run stream-minor, (C, T, W, S).
+``precision`` is one mode for every conv or a per-conv sequence
+(``embedding.layer_precision``): 'fast' and 'bf16' convs, and convs on bf16
+weights, are 1-pass bf16 products. The caches hold each time conv's input
+tail as computed, in float32 (the engine stores them in its state dtype).
 """
 
 from typing import Dict, List, Optional, Tuple
@@ -13,7 +17,9 @@ from typing import Dict, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from openwakeword_tpu_torch import config
 from openwakeword_tpu_torch.models import embedding as E
+from openwakeword_tpu_torch.ops import bf16
 
 
 def cache_spec() -> List[Tuple[str, int]]:
@@ -60,15 +66,15 @@ def _to_public(caches: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     return {k: v.permute(0, 2, 3, 1).contiguous() for k, v in caches.items()}
 
 
-def init_caches(folded: Dict, mel_window: torch.Tensor) -> Tuple[Dict, torch.Tensor]:
+def init_caches(folded: Dict, mel_window: torch.Tensor, precision=None) -> Tuple[Dict, torch.Tensor]:
     """Prime the caches by running the full (S, 76, 32) window forward.
     Returns (caches, embedding (S, 96))."""
     caches: Dict[str, torch.Tensor] = {}
-    out = E.run_program(folded, mel_window.to(torch.float32)[:, None], caches_out=caches)
+    out = E.run_program(folded, mel_window.to(torch.float32)[:, None], caches_out=caches, precision=precision)
     return _to_public(caches), out.reshape(out.shape[0], E.OUTPUT_DIM)
 
 
-def step(folded: Dict, caches: Dict, new_mel: torch.Tensor) -> Tuple[Dict, torch.Tensor]:
+def step(folded: Dict, caches: Dict, new_mel: torch.Tensor, precision=None) -> Tuple[Dict, torch.Tensor]:
     """Advance the streaming CNN by 8*k new mel rows (S, 8*k, 32), k >= 1.
 
     Returns (new caches, embeddings): (S, 96) when k == 1, else (S, k, 96),
@@ -77,7 +83,7 @@ def step(folded: Dict, caches: Dict, new_mel: torch.Tensor) -> Tuple[Dict, torch
     caches_in = {k: _to_nchw(v) for k, v in caches.items()}
     new_caches: Dict[str, torch.Tensor] = {}
     out = E.run_program(folded, new_mel.to(torch.float32)[:, None],
-                        caches_in=caches_in, caches_out=new_caches)
+                        caches_in=caches_in, caches_out=new_caches, precision=precision)
     emb = out.permute(0, 2, 3, 1).reshape(out.shape[0], out.shape[2], E.OUTPUT_DIM)   # (S, k, 96)
     return _to_public(new_caches), (emb[:, 0] if emb.shape[1] == 1 else emb)
 
@@ -96,9 +102,12 @@ def _weight_mat(w: torch.Tensor) -> torch.Tensor:
     return w.permute(0, 2, 3, 1).reshape(cout, -1)
 
 
-def _conv_t(x: torch.Tensor, wmat: torch.Tensor, kh: int, kw: int) -> torch.Tensor:
+def _conv_t(x: torch.Tensor, wmat: torch.Tensor, kh: int, kw: int, mode=None) -> torch.Tensor:
     """x: (Cin, T, W, S) unpadded/valid, wmat from ``_weight_mat`` ->
-    (Cout, T-kh+1, W-kw+1, S)."""
+    (Cout, T-kh+1, W-kw+1, S), 1-pass where ``mode`` says so or ``wmat``
+    is bf16."""
+    one_pass = config.one_pass(mode) or wmat.dtype == torch.bfloat16
+    x, wmat = bf16.operand(x, one_pass), bf16.operand(wmat, one_pass)
     _, t, wd, s = x.shape
     t_out, w_out = t - kh + 1, wd - kw + 1
     taps = [x[:, dt:dt + t_out, dw:dw + w_out, :] for dt in range(kh) for dw in range(kw)]
@@ -120,13 +129,17 @@ def _pool_t(x: torch.Tensor, window) -> torch.Tensor:
 
 
 def _forward_t(folded: Dict, x: torch.Tensor, caches: Optional[Dict] = None,
-               weight_mats: Optional[List[torch.Tensor]] = None) -> Tuple[Dict, torch.Tensor]:
+               weight_mats: Optional[List[torch.Tensor]] = None,
+               precision=None) -> Tuple[Dict, torch.Tensor]:
     """The layer program in (C, T, W, S) layout.
 
     With ``caches`` given, runs one streaming step (consuming and refreshing
     the 2-row tails); with ``caches=None`` primes from a full window,
     capturing the tails. ``weight_mats`` (one ``_weight_mat`` per conv) skips
-    rebuilding them. Returns (new caches, embedding (96, S)).
+    rebuilding them. ``precision`` 'bf16' is the 1-pass mode of the JAX
+    kernel's ``_dot``: every conv's input (cache rows included) and weights
+    rounded to bf16, the sums float32; the caches keep the inputs unrounded,
+    as the JAX kernel's do. Returns (new caches, embedding (96, S)).
     """
     new_caches: Dict[str, torch.Tensor] = {}
     prime = caches is None
@@ -143,11 +156,11 @@ def _forward_t(folded: Dict, x: torch.Tensor, caches: Optional[Dict] = None,
             name = f"cache_{conv_i}"
             if kh > 1:
                 if not prime:
-                    x = torch.cat([caches[name], x], dim=1)
+                    x = torch.cat([caches[name].to(x.dtype), x], dim=1)
                 new_caches[name] = x[:, -2:].contiguous()
             c = folded[f"conv_{conv_i}"]
             wmat = weight_mats[conv_i] if weight_mats is not None else _weight_mat(c["w"])
-            x = _conv_t(x, wmat, kh, kw) + c["b"][:, None, None, None]
+            x = _conv_t(x, wmat, kh, kw, E.layer_precision(precision, conv_i)) + c["b"][:, None, None, None]
             if act == "relu":
                 x = torch.relu(x)
             conv_i += 1

@@ -10,6 +10,10 @@ Binary heads end in sigmoid; multiclass heads in ReLU'd logits (unless the
 meta says ``relu_logits=False``) and softmax. Params are dicts of tensors
 with linears in the JAX package's (n_in, n_out) layout; the architecture
 meta travels separately. The ``rnn`` head waits for a later slice.
+
+A linear is float32, or a 1-pass bf16 product where ``precision`` is
+'fast' or 'bf16' or its weights are stored in bf16 (JAX ``heads.py``:
+``x.astype(w.dtype)``, float32 sums, the bias added in float32).
 """
 
 from typing import Dict, List
@@ -18,6 +22,7 @@ import numpy as np
 import torch
 
 from openwakeword_tpu_torch import config
+from openwakeword_tpu_torch.ops import bf16
 
 EMB_DIM = config.EMB_DIM
 _ROADMAP_RNN = "rnn heads are not ported yet (ROADMAP.md, queue 1, slice A)"
@@ -66,7 +71,15 @@ def _layer_norm(p: Dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     # biased variance, as the JAX package (heads.py _layer_norm)
     mu = x.mean(dim=-1, keepdim=True)
     var = ((x - mu) ** 2).mean(dim=-1, keepdim=True)
-    return (x - mu) * torch.rsqrt(var + eps) * p["gamma"] + p["beta"]
+    return (x - mu) * torch.rsqrt(var + eps) * p["gamma"].float() + p["beta"].float()
+
+
+def _product(z: torch.Tensor, w: torch.Tensor, precision, eq: str = None) -> torch.Tensor:
+    """``z @ w`` (or the einsum ``eq``) in float32, 1-pass where
+    ``precision`` says so or ``w`` is bf16."""
+    one_pass = config.one_pass(precision) or w.dtype == torch.bfloat16
+    z, w = bf16.operand(z, one_pass), bf16.operand(w, one_pass)
+    return z @ w if eq is None else torch.einsum(eq, z, w)
 
 
 def _activate(logits: torch.Tensor, meta: Dict, inference: bool) -> torch.Tensor:
@@ -85,14 +98,15 @@ def check_supported(meta: Dict):
         raise ValueError(f"Unsupported head model_type: {meta['model_type']}")
 
 
-def forward(params: Dict, x: torch.Tensor, meta: Dict, inference: bool = True) -> torch.Tensor:
+def forward(params: Dict, x: torch.Tensor, meta: Dict, inference: bool = True,
+            precision=None) -> torch.Tensor:
     """Score a (B, F, 96) embedding window -> (B, n_classes)."""
     check_supported(meta)
 
     def linear(p, z):
-        return z @ p["w"] + p["b"]
+        return _product(z, p["w"], precision) + p["b"].float()
 
-    h = x.to(torch.float32).reshape(x.shape[0], -1)
+    h = x.reshape(x.shape[0], -1)
     if meta["model_type"] == "dnn":
         h = torch.relu(_layer_norm(params["ln1"], linear(params["layer1"], h)))
         for i in range(meta["n_blocks"]):
@@ -113,21 +127,22 @@ def stack_params(params_list: List[Dict]) -> Dict:
     return stack(params_list)
 
 
-def forward_stacked(stacked: Dict, x: torch.Tensor, meta: Dict, inference: bool = True) -> torch.Tensor:
+def forward_stacked(stacked: Dict, x: torch.Tensor, meta: Dict, inference: bool = True,
+                    precision=None) -> torch.Tensor:
     """Evaluate H stacked dnn/mlp heads on a shared (S, F, 96) input ->
     (S, H, n_classes)."""
     check_supported(meta)
 
     def linear(p, z):
         eq = "sd,hdw->shw" if z.ndim == 2 else "shd,hdw->shw"
-        return torch.einsum(eq, z, p["w"]) + p["b"][None]
+        return _product(z, p["w"], precision, eq) + p["b"].float()[None]
 
     def layer_norm(p, z, eps=1e-5):
         mu = z.mean(dim=-1, keepdim=True)
         var = ((z - mu) ** 2).mean(dim=-1, keepdim=True)
-        return (z - mu) * torch.rsqrt(var + eps) * p["gamma"][None] + p["beta"][None]
+        return (z - mu) * torch.rsqrt(var + eps) * p["gamma"].float()[None] + p["beta"].float()[None]
 
-    h = x.to(torch.float32).reshape(x.shape[0], -1)
+    h = x.reshape(x.shape[0], -1)
     if meta["model_type"] == "dnn":
         z = torch.relu(layer_norm(stacked["ln1"], linear(stacked["layer1"], h)))
         i = 0

@@ -4,7 +4,8 @@
 State for this path is stream-minor: conv caches are (C, 2, W, S), the mel
 rows arrive as (8, 32, S) and the embedding leaves as (96, S). On a CUDA
 tensor ``CnnStepKernel.step`` runs kernel 3 and ``prime`` kernel 4
-(``ops.cnn_step_cuda``, ``csrc/cnn_step.cu``); on a CPU tensor both run
+(``ops.cnn_step_cuda``, ``csrc/cnn_step.cu``; at ``precision="bf16"`` their
+1-pass variants, ``csrc/cnn_step_bf16.cu``); on a CPU tensor both run
 their plain PyTorch versions. The stream tile is the kernels' own
 choice, so any S >= 1 works.
 """
@@ -13,10 +14,11 @@ from typing import Dict, List, Tuple
 
 import torch
 
-from openwakeword_tpu_torch import config, convert
+from openwakeword_tpu_torch import convert
 from openwakeword_tpu_torch.models import embedding as E
 from openwakeword_tpu_torch.models import embedding_stream
 from openwakeword_tpu_torch.ops import cnn_step_cuda
+from openwakeword_tpu_torch.ops.bf16 import round_bf16
 from openwakeword_tpu_torch.ops.cnn_step_cuda import CnnParams
 
 
@@ -43,12 +45,12 @@ def _layer_plan() -> List[Tuple]:
     return plan
 
 
-STEM, LEAKY, BIAS_ONLY = 0, 1, 2       # conv epilogues, as csrc/cnn_step.cu numbers them
+STEM, LEAKY, BIAS_ONLY = 0, 1, 2       # conv epilogues, as csrc/cnn_step.cuh numbers them
 
 
 def conv_table() -> List[Tuple[int, int, int, int, int, int, int]]:
     """Per conv (kh, kw, Cin, Cout, pool_h, pool_w, epilogue), from
-    ``_layer_plan``: the program ``csrc/cnn_step.cu`` compiles in, through
+    ``_layer_plan``: the program ``csrc/cnn_step.cuh`` compiles in, through
     the header ``cnn_program.h`` that ``utils.cuda_build`` writes from it.
     The stem's epilogue is ReLU -> affine -> clipped leaky, every other
     conv's with a 'bnact' the clipped leaky, the last conv's the bias only."""
@@ -94,11 +96,15 @@ def cache_shapes() -> List[Tuple[str, Tuple[int, int, int]]]:
     return shapes
 
 
-def prep_params(folded: Dict) -> CnnParams:
+def prep_params(folded: Dict, mode: str = "float32") -> CnnParams:
     """The port's BN-folded params (OIHW convs) -> per conv a
     (kh*kw, Cout, Cin) tap stack and a (Cout, 1) bias, the stem affine as
     (24, 1) scale and shift, and the (Cout, kh*kw*Cin) weight matrices of
-    the plain version; all float32 and contiguous on the params' device."""
+    the plain version; all float32 and contiguous on the params' device.
+    Weights may be float32 or bf16; ``mode="bf16"`` rounds them to bf16 (in
+    float32 tensors) for the 1-pass variants."""
+    if mode not in cnn_step_cuda.MODES:
+        raise ValueError(f"mode must be one of {cnn_step_cuda.MODES}, got {mode!r}")
     taps, biases, mats = [], [], []
     conv_i = 0
     for layer in E.spec():
@@ -106,10 +112,9 @@ def prep_params(folded: Dict) -> CnnParams:
             continue
         c = folded[f"conv_{conv_i}"]
         w = c["w"]                                            # (Cout, Cin, kh, kw)
-        if w.dtype != torch.float32:
-            raise NotImplementedError(
-                f"conv_{conv_i} weights are {w.dtype}: the CNN step runs float32 weights only "
-                "(ROADMAP.md, queue 1, slice A: precision tiers)")
+        if w.dtype not in (torch.float32, torch.bfloat16):
+            raise TypeError(f"conv_{conv_i} weights are {w.dtype}: the CNN step takes float32 or bf16")
+        w = round_bf16(w) if mode == "bf16" else w.to(torch.float32)
         cout, cin, kh, kw = w.shape
         taps.append(w.permute(2, 3, 0, 1).reshape(kh * kw, cout, cin).contiguous())
         biases.append(c["b"].to(torch.float32).reshape(cout, 1).contiguous())
@@ -122,7 +127,7 @@ def prep_params(folded: Dict) -> CnnParams:
     return CnnParams(tuple(taps), tuple(biases),
                      scale.to(torch.float32).reshape(-1, 1).contiguous(),
                      shift.to(torch.float32).reshape(-1, 1).contiguous(),
-                     tuple(mats), folded, tuple(cache_shapes()))
+                     tuple(mats), folded, tuple(cache_shapes()), mode)
 
 
 class CnnStepKernel:
@@ -131,16 +136,25 @@ class CnnStepKernel:
     step(caches, new_mel_t (8, 32, S))  -> (new caches, emb (96, S))
     prime(mel_window_t (76, 32, S))     -> (caches, emb (96, S))
 
-    ``precision`` takes 'highest' and 'high', both run as float32; the other
-    tiers raise NotImplementedError. ``device`` (default: that of the params)
-    is where the params live.
+    ``precision`` takes the modes of the JAX kernel's ``_dot``: 'highest'
+    and 'high' run the float32 kernels, 'bf16' their 1-pass bf16 variants
+    (weights rounded here, inputs as the kernels stage them; the caches stay
+    float32 and hold the inputs unrounded, as JAX's do when it is given
+    float32 caches). Any other value raises ValueError: 'fast' and 'mixed'
+    are engine tiers, not modes of this kernel (JAX's ``CnnStepKernel``
+    raises KeyError for them at ``prime``). ``device`` (default: that of the
+    params) is where the params live.
     """
 
+    PRECISIONS = ("highest", "high", "bf16")
+
     def __init__(self, folded: Dict, precision: str = "high", device=None):
-        self.precision = config.check_precision(precision)
+        if not (isinstance(precision, str) and precision in self.PRECISIONS):
+            raise ValueError(f"CnnStepKernel precision must be one of {self.PRECISIONS}, got {precision!r}")
+        self.precision = precision
         if device is not None:
             folded = convert.to_device(folded, torch.device(device))
-        self.params = prep_params(folded)
+        self.params = prep_params(folded, "bf16" if precision == "bf16" else "float32")
         self.cache_names = [name for name, _ in self.params.cache_shapes]
 
     def _named(self, caches: List[torch.Tensor]) -> Dict[str, torch.Tensor]:

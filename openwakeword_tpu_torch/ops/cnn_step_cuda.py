@@ -8,9 +8,13 @@ return (embedding (96, S), the eleven new caches). A CPU tensor goes through
 the plain PyTorch version (``cnn_step_plain`` / ``cnn_prime_plain``, built on
 ``models.embedding_stream._forward_t``); a CUDA tensor goes through
 ``csrc/cnn_step.cu`` or the call raises. The new caches are fresh tensors:
-the kernel never writes a cache it reads. Each wrapper counts its launches in
-``.launches``. ``conv_tiles`` picks each conv's block tile, which the build
-compiles in through the generated header ``cnn_tiles.h``.
+the kernel never writes a cache it reads. Params prepped for the 'bf16' mode
+(``CnnParams.mode``) run the 1-pass bf16 variants (``csrc/cnn_step_bf16.cu``,
+the JAX kernel's ``_dot(mode="bf16")``): weights rounded by the host, every
+conv input rounded as the kernel stages it, sums, epilogues and caches in
+float32. Each wrapper counts its launches in ``.launches[mode]``.
+``conv_tiles`` picks each conv's block tile, which the build compiles in
+through the generated header ``cnn_tiles.h``.
 """
 
 import contextlib
@@ -28,7 +32,7 @@ WINDOW_ROWS = 76         # mel rows of a prime window
 MEL_WIDTH = 32
 EMB_DIM = 96
 
-# The kernels' block tiles, compiled into csrc/cnn_step.cu through the
+# The kernels' block tiles, compiled into csrc/cnn_step.cuh through the
 # generated cnn_tiles.h: a block covers all Cout and 32 streams (STREAM_QUADS
 # quads of 4) x G*NC output positions; a thread holds THREAD_CHANNELS
 # channels x NC positions x 4 streams; STAGES K slices are in flight.
@@ -37,6 +41,8 @@ THREAD_CHANNELS = 8
 STAGES = 3
 MAX_TILE_THREADS = 256
 SMEM_LIMIT = 227 * 1024    # shared memory one block may take on an H100
+MODES = ("float32", "bf16")   # the fp32 kernels and the 1-pass bf16 variants
+_ENTRY = {"float32": "owwt_cnn_forward", "bf16": "owwt_cnn_forward_bf16"}
 
 
 class ConvTile(NamedTuple):
@@ -82,7 +88,7 @@ def conv_tiles(table: Sequence[Tuple[int, ...]]) -> List[ConvTile]:
 
 
 def tile_smem_bytes(conv: Tuple[int, ...], tile: ConvTile) -> int:
-    """Dynamic shared memory of one block, as ``csrc/cnn_step.cu`` lays it
+    """Dynamic shared memory of one block, as ``csrc/cnn_step.cuh`` lays it
     out: STAGES input slices of 16-byte cells, STAGES weight slices
     [Cout][KS + 4] and the 16-byte tap table."""
     kh, kw, cin, cout = conv[:4]
@@ -102,6 +108,7 @@ class CnnParams(NamedTuple):
     mats: Tuple[torch.Tensor, ...]      # per conv: (Cout, kh*kw*Cin), the plain versions'
     folded: Dict                        # the folded params (biases and affine of the plain versions)
     cache_shapes: Tuple[Tuple[str, Tuple[int, int, int]], ...]   # (name, (C, 2, W)), program order
+    mode: str = "float32"               # "bf16": taps and mats rounded, the 1-pass variants run
 
 
 @contextlib.contextmanager
@@ -119,21 +126,21 @@ def _plain(params: CnnParams, x: torch.Tensor, caches: Optional[Sequence[torch.T
     names = [name for name, _ in params.cache_shapes]
     caches = None if caches is None else dict(zip(names, caches))
     with _fp32_matmul():
-        new, emb = embedding_stream._forward_t(params.folded, x[None], caches, list(params.mats))
+        new, emb = embedding_stream._forward_t(params.folded, x[None], caches, list(params.mats), params.mode)
     return emb, [new[name] for name in names]
 
 
 def cnn_step_plain(params: CnnParams, caches: Sequence[torch.Tensor],
                    mel_t: torch.Tensor) -> Tuple[torch.Tensor, List[torch.Tensor]]:
     """Plain PyTorch version of kernel 3: ``embedding_stream`` step in
-    (C, T, W, S) layout."""
+    (C, T, W, S) layout, in ``params.mode``."""
     return _plain(params, mel_t, caches)
 
 
 def cnn_prime_plain(params: CnnParams, mel_window_t: torch.Tensor
                     ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
     """Plain PyTorch version of kernel 4: ``embedding_stream`` prime in
-    (C, T, W, S) layout."""
+    (C, T, W, S) layout, in ``params.mode``."""
     return _plain(params, mel_window_t, None)
 
 
@@ -141,10 +148,12 @@ def cnn_prime_plain(params: CnnParams, mel_window_t: torch.Tensor
 def _lib():
     lib = cuda_build.load_library().lib
     ptrs = ctypes.POINTER(ctypes.c_void_p)
-    lib.owwt_cnn_forward.argtypes = [ctypes.c_void_p, ctypes.c_int, ptrs, ptrs, ptrs, ptrs,
-                                     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                                     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-    lib.owwt_cnn_forward.restype = ctypes.c_int
+    for entry in _ENTRY.values():
+        fn = getattr(lib, entry)
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ptrs, ptrs, ptrs, ptrs,
+                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     lib.owwt_cnn_scratch_floats.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.owwt_cnn_scratch_floats.restype = ctypes.c_longlong
     return lib
@@ -167,7 +176,7 @@ def _check(name: str, t: torch.Tensor, shape: Tuple[int, ...], device: torch.dev
 
 def _launch(wrapper, params: CnnParams, x: torch.Tensor, caches: Optional[Sequence[torch.Tensor]],
             rows: int) -> Tuple[torch.Tensor, List[torch.Tensor]]:
-    """Checks, allocates and launches; counts in ``wrapper.launches``."""
+    """Checks, allocates and launches; counts in ``wrapper.launches[params.mode]``."""
     what = wrapper.__name__
     if x.device.type != "cuda":
         raise ValueError(f"{what} takes CPU or CUDA tensors, got {x.device}")
@@ -192,13 +201,13 @@ def _launch(wrapper, params: CnnParams, x: torch.Tensor, caches: Optional[Sequen
     scratch = torch.empty((2, per_stream * n_streams), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.owwt_cnn_forward(x.data_ptr(), rows, None if caches is None else _pointers(caches),
-                                  _pointers(new), _pointers(params.taps), _pointers(params.biases),
-                                  params.scale.data_ptr(), params.shift.data_ptr(), emb.data_ptr(),
-                                  scratch[0].data_ptr(), scratch[1].data_ptr(), n_streams, stream)
+        rc = getattr(lib, _ENTRY[params.mode])(
+            x.data_ptr(), rows, None if caches is None else _pointers(caches), _pointers(new),
+            _pointers(params.taps), _pointers(params.biases), params.scale.data_ptr(), params.shift.data_ptr(),
+            emb.data_ptr(), scratch[0].data_ptr(), scratch[1].data_ptr(), n_streams, stream)
     if rc != 0:
-        raise RuntimeError(f"{what} kernel launch failed with cudaError {rc}")
-    wrapper.launches += 1
+        raise RuntimeError(f"{what} kernel ({params.mode}) launch failed with cudaError {rc}")
+    wrapper.launches[params.mode] += 1
     return emb, new
 
 
@@ -219,5 +228,5 @@ def cnn_prime(params: CnnParams, mel_window_t: torch.Tensor
     return _launch(cnn_prime, params, mel_window_t, None, WINDOW_ROWS)
 
 
-cnn_step.launches = 0
-cnn_prime.launches = 0
+cnn_step.launches = dict.fromkeys(MODES, 0)
+cnn_prime.launches = dict.fromkeys(MODES, 0)

@@ -9,6 +9,10 @@ tensor ops are the plain reference path of the port: the STFT is one
 radix-4 butterfly (``dft="factored"``), then power, the (257, 32) Slaney mel
 projection and librosa-style power_to_db.
 Inputs are raw int16-range float32 values, not normalized to [-1, 1].
+``one_pass=True`` is the arithmetic of the TPU kernels at
+``precision=None``/``DEFAULT`` (``melspec_pallas._make_kernel`` and
+``_make_factored_kernel``): 1-pass bf16 products with float32 sums, rounded
+at the points those kernels round (``ops.bf16``).
 """
 
 import functools
@@ -17,6 +21,7 @@ import numpy as np
 import torch
 
 from openwakeword_tpu_torch import config
+from openwakeword_tpu_torch.ops.bf16 import round_bf16
 
 
 # ---------------------------------------------------------------------------
@@ -167,12 +172,12 @@ def deinterleave_branches(frames: torch.Tensor) -> torch.Tensor:
     return frames.reshape(frames.shape[:-1] + (n // RADIX, RADIX)).transpose(-1, -2)
 
 
-def _factored_power(z: torch.Tensor) -> torch.Tensor:
+def _factored_power_parts(z: torch.Tensor):
     """Radix-4 butterfly + |X|^2 for the one-sided spectrum.
 
     ``z``: (..., 4, 2*m) interleaved per-branch sub-spectra, column 2d Re and
-    2d+1 Im of Z_b[d]. Returns (..., n_fft//2 + 1) power from c = 0, c = 1
-    and the single c = 2, d = 0 bin (k = 256):
+    2d+1 Im of Z_b[d]. Returns the power of bins [0, m), [m, 2m) and the
+    single c = 2, d = 0 bin (k = 256), from:
 
         c=0: X[d]     = Z0 + Z1 + Z2 + Z3
         c=1: X[128+d] = (Z0 - Z2) - i(Z1 - Z3)
@@ -187,7 +192,12 @@ def _factored_power(z: torch.Tensor) -> torch.Tensor:
     f_re, f_im = re[..., 1, :] - re[..., 3, :], im[..., 1, :] - im[..., 3, :]
     p1 = (d_re + f_im) ** 2 + (d_im - f_re) ** 2
     p2 = ((e_re - o_re) ** 2 + (e_im - o_im) ** 2)[..., :1]
-    return torch.cat([p0, p1, p2], dim=-1)
+    return p0, p1, p2
+
+
+def _factored_power(z: torch.Tensor) -> torch.Tensor:
+    """(..., n_fft//2 + 1) power of the factored DFT's sub-spectra ``z``."""
+    return torch.cat(_factored_power_parts(z), dim=-1)
 
 
 def power_to_db(mel: torch.Tensor,
@@ -204,27 +214,55 @@ def power_to_db(mel: torch.Tensor,
     return log_spec
 
 
+def _mel_1pass(frames: torch.Tensor, dft: str) -> torch.Tensor:
+    """The (..., T, 32) mel power of the TPU kernels' 1-pass arithmetic:
+    'direct' rounds the frames and the windowed basis before the DFT, the
+    power and the mel weights before the mel projection; 'factored' rounds
+    the branch operands and bases before the four branch products, runs the
+    butterfly in float32, rounds the power of bins [0, 256) and their mel
+    weights before their mel products, and adds bin 256's power times its
+    mel weights in float32."""
+    dev = frames.device
+    melw = f32_const(mel_filterbank(), dev)                    # (257, 32)
+    if dft == "direct":
+        spec = round_bf16(frames) @ round_bf16(f32_const(stft_power_basis(), dev))
+        power = spec[..., 0::2] ** 2 + spec[..., 1::2] ** 2
+        return round_bf16(power) @ round_bf16(melw)
+    bases = round_bf16(f32_const(factored_dft_bases(), dev))
+    z = torch.einsum("...ba,bad->...bd", round_bf16(deinterleave_branches(frames)), bases)
+    p0, p1, p2 = _factored_power_parts(z)
+    sub = p0.shape[-1]
+    return (round_bf16(p0) @ round_bf16(melw[:sub]) + round_bf16(p1) @ round_bf16(melw[sub:2 * sub])
+            + p2 * melw[2 * sub:])
+
+
 def melspectrogram(x: torch.Tensor,
                    apply_transform: bool = True,
                    top_db: float = config.MEL_TOP_DB,
-                   dft: str = "direct") -> torch.Tensor:
+                   dft: str = "direct",
+                   one_pass: bool = False) -> torch.Tensor:
     """Log-mel spectrogram of raw int16-range audio (..., N) -> (..., T, 32),
-    in full float32 (JAX's ``precision=HIGHEST``). With ``apply_transform``
-    the downstream affine spec/10 + 2 is applied. ``dft='factored'`` computes
-    the spectrum by the radix-4 factored DFT (``factored_dft_bases``): equal
-    to 'direct' up to float32 rounding, not bit-equal."""
+    in full float32 (JAX's ``precision=HIGHEST``), or with ``one_pass`` in
+    the TPU kernels' 1-pass bf16 arithmetic (``_mel_1pass``). With
+    ``apply_transform`` the downstream affine spec/10 + 2 is applied.
+    ``dft='factored'`` computes the spectrum by the radix-4 factored DFT
+    (``factored_dft_bases``): equal to 'direct' up to float32 rounding, not
+    bit-equal."""
+    if dft not in ("direct", "factored"):
+        raise ValueError(f"unknown dft mode {dft!r} (expected 'direct' or 'factored')")
     x = x.to(torch.float32)
     frames = frame_signal(x)                                   # (..., T, 512)
-    if dft == "factored":
-        bases = f32_const(factored_dft_bases(), x.device)      # (4, 128, 256)
-        z = torch.einsum("...ba,bad->...bd", deinterleave_branches(frames), bases)
-        power = _factored_power(z)                             # (..., T, 257)
-    elif dft == "direct":
-        spec = torch.matmul(frames, f32_const(stft_power_basis(), x.device))   # (..., T, 514)
-        power = spec[..., 0::2] ** 2 + spec[..., 1::2] ** 2    # (..., T, 257)
+    if one_pass:
+        mel = _mel_1pass(frames, dft)
     else:
-        raise ValueError(f"unknown dft mode {dft!r} (expected 'direct' or 'factored')")
-    mel = torch.matmul(power, f32_const(mel_filterbank(), x.device))
+        if dft == "factored":
+            bases = f32_const(factored_dft_bases(), x.device)  # (4, 128, 256)
+            z = torch.einsum("...ba,bad->...bd", deinterleave_branches(frames), bases)
+            power = _factored_power(z)                         # (..., T, 257)
+        else:
+            spec = torch.matmul(frames, f32_const(stft_power_basis(), x.device))   # (..., T, 514)
+            power = spec[..., 0::2] ** 2 + spec[..., 1::2] ** 2                      # (..., T, 257)
+        mel = torch.matmul(power, f32_const(mel_filterbank(), x.device))
     out = power_to_db(mel, top_db=top_db)
     if apply_transform:
         out = out * config.MEL_TRANSFORM_SCALE + config.MEL_TRANSFORM_SHIFT

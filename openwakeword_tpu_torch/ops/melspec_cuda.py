@@ -5,13 +5,17 @@
 ``dft="direct"`` is kernel 1 (the windowed cos/sin DFT over the live bins
 only, the DFT bins on which the mel filterbank has a non-zero weight),
 ``dft="factored"`` kernel 2 (the radix-4 factored DFT over all 257 bins),
-both in ``csrc/melspec.cu``. The live range comes from ``live_bins()`` and
-reaches the kernel through the generated header ``mel_program.h``
-(``utils.cuda_build.generated_headers``). A CPU tensor goes through
-``melspectrogram_frames_plain``, the plain PyTorch version; a CUDA tensor
-goes through the hand-written kernel or the call raises. There is no
-fallback between the two. The wrapper counts each kernel's launches in
-``melspectrogram_frames.launches[dft]``.
+both in ``csrc/melspec.cu``. With ``one_pass=True`` each runs its 1-pass
+bf16 variant, the arithmetic of the TPU kernels at ``precision=None``
+(``ops.melspec._mel_1pass``): the basis and the mel weights come rounded
+from the host, the kernel rounds the window samples as it stages them and
+the power before the mel projection. The live range comes from
+``live_bins()`` and reaches the kernel through the generated header
+``mel_program.h`` (``utils.cuda_build.generated_headers``). A CPU tensor
+goes through ``melspectrogram_frames_plain``, the plain PyTorch version; a
+CUDA tensor goes through the hand-written kernel or the call raises. There
+is no fallback between the two. The wrapper counts each kernel's launches
+in ``melspectrogram_frames.launches[variant(dft, one_pass)]``.
 """
 
 import ctypes
@@ -23,28 +27,38 @@ import torch
 
 from openwakeword_tpu_torch import config
 from openwakeword_tpu_torch.ops import melspec
+from openwakeword_tpu_torch.ops.bf16 import round_bf16
 from openwakeword_tpu_torch.utils import cuda_build
 
 WINDOW = config.CHUNK_SAMPLES + config.MEL_LOOKBACK_SAMPLES   # 1760
 FRAMES = config.MELS_PER_CHUNK                                # 8
 N_MELS = config.N_MELS                                        # 32
 DFTS = ("direct", "factored")
-_ENTRY = {"direct": "owwt_melspec_frames", "factored": "owwt_melspec_frames_factored"}
+_ENTRY = {"direct": "owwt_melspec_frames", "factored": "owwt_melspec_frames_factored",
+          "direct_1pass": "owwt_melspec_frames_1pass", "factored_1pass": "owwt_melspec_frames_factored_1pass"}
+VARIANTS = tuple(_ENTRY)
 # kernel 1's bins per warp (4 bins per thread x 4 bin groups; mel_program.h
 # carries it to csrc/melspec.cu, which checks it against its warp shape); the
 # live range is padded with zero columns to a whole number of tiles
 BIN_TILE = 16
 
 
-def melspectrogram_frames_plain(windows: torch.Tensor, dft: str = "direct") -> torch.Tensor:
+def variant(dft: str, one_pass: bool = False) -> str:
+    """The kernel variant's name: the DFT, '_1pass' for the 1-pass one."""
+    return dft + ("_1pass" if one_pass else "")
+
+
+def melspectrogram_frames_plain(windows: torch.Tensor, dft: str = "direct",
+                                one_pass: bool = False) -> torch.Tensor:
     """Plain PyTorch version: ``melspectrogram(apply_transform=False,
-    top_db=None, dft=dft)`` of each window, (S, 1760) -> (S, 8, 32) dB."""
-    return melspec.melspectrogram(windows, apply_transform=False, top_db=None, dft=dft)
+    top_db=None, dft=dft, one_pass=one_pass)`` of each window, (S, 1760) ->
+    (S, 8, 32) dB."""
+    return melspec.melspectrogram(windows, apply_transform=False, top_db=None, dft=dft, one_pass=one_pass)
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel_fn(dft: str):
-    fn = getattr(cuda_build.load_library().lib, _ENTRY[dft])
+def _kernel_fn(name: str):
+    fn = getattr(cuda_build.load_library().lib, _ENTRY[name])
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -100,19 +114,26 @@ def _kernel_melw(dft: str) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=None)
-def _device_consts(device: torch.device, dft: str):
+def _device_consts(device: torch.device, dft: str, one_pass: bool = False):
     """The kernel's DFT basis and mel weights, float32, resident on
-    ``device``."""
-    return (melspec.f32_const(_kernel_basis(dft), device),
-            melspec.f32_const(_kernel_melw(dft), device))
+    ``device``. For the 1-pass variants both come rounded to bf16, except
+    kernel 2's bin-256 mel row, which multiplies an unrounded power."""
+    basis = melspec.f32_const(_kernel_basis(dft), device)
+    melw = melspec.f32_const(_kernel_melw(dft), device)
+    if one_pass:
+        basis = round_bf16(basis)
+        rows = melw.shape[0] if dft == "direct" else 2 * (config.N_FFT // melspec.RADIX)
+        melw = torch.cat([round_bf16(melw[:rows]), melw[rows:]])
+    return basis.contiguous(), melw.contiguous()
 
 
-def melspectrogram_frames(windows: torch.Tensor, dft: str = "direct") -> torch.Tensor:
-    """(S, 1760) float32 windows -> (S, 8, 32) float32 raw dB mel frames."""
+def melspectrogram_frames(windows: torch.Tensor, dft: str = "direct", one_pass: bool = False) -> torch.Tensor:
+    """(S, 1760) float32 windows -> (S, 8, 32) float32 raw dB mel frames;
+    ``one_pass`` picks the 1-pass bf16 variant."""
     if dft not in DFTS:
         raise ValueError(f"unknown dft mode {dft!r} (expected 'direct' or 'factored')")
     if windows.device.type == "cpu":
-        return melspectrogram_frames_plain(windows, dft)
+        return melspectrogram_frames_plain(windows, dft, one_pass)
     if windows.device.type != "cuda":
         raise ValueError(f"melspectrogram_frames takes CPU or CUDA tensors, got {windows.device}")
     if windows.dtype != torch.float32:
@@ -125,15 +146,16 @@ def melspectrogram_frames(windows: torch.Tensor, dft: str = "direct") -> torch.T
     out = torch.empty((n_streams, FRAMES, N_MELS), dtype=torch.float32, device=windows.device)
     if n_streams == 0:
         return out
-    basis, melw = _device_consts(windows.device, dft)
+    name = variant(dft, one_pass)
+    basis, melw = _device_consts(windows.device, dft, bool(one_pass))
     with torch.cuda.device(windows.device):
         stream = torch.cuda.current_stream(windows.device).cuda_stream
-        rc = _kernel_fn(dft)(windows.data_ptr(), basis.data_ptr(), melw.data_ptr(),
-                             out.data_ptr(), n_streams, stream)
+        rc = _kernel_fn(name)(windows.data_ptr(), basis.data_ptr(), melw.data_ptr(),
+                              out.data_ptr(), n_streams, stream)
     if rc != 0:
-        raise RuntimeError(f"melspec kernel ({dft}) launch failed with cudaError {rc}")
-    melspectrogram_frames.launches[dft] += 1
+        raise RuntimeError(f"melspec kernel ({name}) launch failed with cudaError {rc}")
+    melspectrogram_frames.launches[name] += 1
     return out
 
 
-melspectrogram_frames.launches = dict.fromkeys(DFTS, 0)
+melspectrogram_frames.launches = dict.fromkeys(VARIANTS, 0)

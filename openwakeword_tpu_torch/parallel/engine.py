@@ -16,8 +16,14 @@ one device with a leading stream axis. One step advances every stream by
 3. the feature ring, the heads (same-architecture heads stacked) and the
    gating.
 
-Numerics follow the JAX engine at ``precision="highest"``: scores agree
-within reassociation of float32 sums. Whether a step primes is decided from
+``precision`` takes the JAX engine's tiers and follows the arithmetic they
+run on the TPU (``config.check_precision``): 'highest' and 'high' run every
+product in float32, where scores agree with the JAX engine's 'highest'
+within reassociation of float32 sums; 'fast' runs 1-pass bf16 products in
+every stage (the mel kernels' 1-pass variants, rounded operands in the CNN
+and heads); 'bf16' does too, on bf16 weights, with the mel ring, feature
+ring and conv caches stored in bf16; 'mixed' and per-stage dicts set each
+stage (and each conv). Whether a step primes is decided from
 a host-side mirror of ``frames_seen``, which host-known inputs fully
 determine (resets, per-stream resets, the ``valid`` masks and the slot ids
 of ``predict_packets``), so no step reads the device; ``load_state``
@@ -71,6 +77,13 @@ def _resolve_heads(wakeword_models: Sequence[str]) -> List[Tuple[str, Dict, Dict
             mapping = {str(i): str(i) if n_cls > 1 else name for i in range(n_cls)}
         out.append((name, params, mapping, meta))
     return out
+
+
+def _cast_weights_bf16(tree: Dict) -> Dict:
+    """``tree`` with every floating leaf of two or more dimensions in bf16."""
+    return {k: _cast_weights_bf16(v) if isinstance(v, dict)
+            else (v.to(torch.bfloat16) if v.ndim >= 2 and v.is_floating_point() else v)
+            for k, v in tree.items()}
 
 
 class HostScores:
@@ -131,7 +144,12 @@ class MultiStreamEngine:
                  frame_budget_s: float = 0.08,
                  device="cuda"):
         gating.validate_gating_args(patience, threshold, debounce_time)
-        self.precision = config.check_precision(precision)
+        tiers = config.check_precision(precision)
+        # 'bf16' or the float32 storage tier ('high' for dicts and 'mixed',
+        # as in the JAX engine); the per-stage modes drive the arithmetic
+        self.precision = tiers.name
+        self._stage_modes = tiers.stages
+        self._state_dtype = torch.bfloat16 if tiers.name == "bf16" else torch.float32
         # 'direct' = kernel 1, the (512, 257) windowed DFT; 'factored' =
         # kernel 2, the radix-4 factored DFT: equal up to float32 rounding
         if mel_dft not in melspec_cuda.DFTS:
@@ -225,6 +243,11 @@ class MultiStreamEngine:
             embedding_params = convert.embedding_from_jax(loaders.load_embedding_params())
         self.params = {"embedding": convert.to_device(embedding_model.ensure_folded(embedding_params), self.device),
                        "heads": head_params}
+        if tiers.name == "bf16":
+            # matmul/conv weights (>= 2-D float leaves, stacked heads' biases
+            # and norms included) in bf16; 1-D biases, norms and affines stay
+            # float32 (JAX engine :494-503)
+            self.params = _cast_weights_bf16(self.params)
 
         # one noise clip seeds every stream's feature ring, at every reset
         self._rng_seed = rng_seed
@@ -267,13 +290,15 @@ class MultiStreamEngine:
         noise, shared by all streams (JAX engine ``init_state``); ``seed`` is
         ``rng_seed`` or the constructor's."""
         F = self.max_head_frames
-        S, dev, f32 = n_streams, self.device, torch.float32
+        S, dev, f32, ring = n_streams, self.device, torch.float32, self._state_dtype
         n_labels = len(self.labels)
         seed_ring = self._seed_ring(self._rng_seed if rng_seed is None else rng_seed)
+        # at 'bf16' the activation rings and conv caches are bf16; the PCM
+        # tail and the score histories stay float32 (JAX engine :619-628)
         state = {
             "pcm_tail": torch.zeros((S, config.MEL_LOOKBACK_SAMPLES), dtype=f32, device=dev),
-            "mel_ring": torch.ones((S, MEL_RING, config.N_MELS), dtype=f32, device=dev),
-            "feat_ring": seed_ring[None].expand(S, F, config.EMB_DIM).clone(),
+            "mel_ring": torch.ones((S, MEL_RING, config.N_MELS), dtype=ring, device=dev),
+            "feat_ring": seed_ring.to(ring)[None].expand(S, F, config.EMB_DIM).clone(),
             "score_hist": torch.zeros((S, n_labels, config.PREDICTION_BUFFER_MAX), dtype=f32, device=dev),
             "frames_seen": torch.zeros((S,), dtype=torch.int32, device=dev),
             "ticks": torch.zeros((S,), dtype=torch.int32, device=dev),
@@ -283,7 +308,7 @@ class MultiStreamEngine:
         if self.incremental:
             # placeholders: every stream starts at frames_seen == 0, so the
             # first step primes every cache before a stream step reads one
-            state["conv_caches"] = {k: torch.zeros((S, *shape), dtype=f32, device=dev)
+            state["conv_caches"] = {k: torch.zeros((S, *shape), dtype=ring, device=dev)
                                     for k, shape in embedding_stream.cache_shapes().items()}
         return state
 
@@ -309,14 +334,17 @@ class MultiStreamEngine:
 
     def save_state(self, path: str):
         """Snapshot all per-stream state to an ``.npz`` (serving failover /
-        migration), in the JAX engine's layout: nested keys joined by '/'.
-        Params are not saved; they are reproducible from the model files."""
+        migration), in the JAX engine's layout: nested keys joined by '/',
+        a bf16 leaf as float32 under its key prefixed 'bf16:'. Params are
+        not saved; they are reproducible from the model files."""
         flat = {}
 
         def record(prefix, tree):
             for k, v in tree.items():
                 if isinstance(v, dict):
                     record(f"{prefix}{k}/", v)
+                elif v.dtype == torch.bfloat16:
+                    flat[f"bf16:{prefix}{k}"] = v.float().cpu().numpy()
                 else:
                     flat[f"{prefix}{k}"] = v.cpu().numpy()
         record("", self.state)
@@ -325,8 +353,10 @@ class MultiStreamEngine:
 
     def load_state(self, path: str):
         """Restore a ``save_state`` snapshot (the stream count and the state
-        layout must match) and rebuild the host mirror of ``frames_seen``
-        from it: one device read per load, none per step."""
+        layout must match; this package's or the JAX engine's) and rebuild
+        the host mirror of ``frames_seen`` from it: one device read per
+        load, none per step. A leaf is read from its key or its 'bf16:' key
+        and takes the engine's dtype for it."""
         with np.load(path) as z:
             flat = {k: z[k] for k in z.files}
 
@@ -337,9 +367,9 @@ class MultiStreamEngine:
                     out[k] = rebuild(f"{prefix}{k}/", v)
                     continue
                 key = f"{prefix}{k}"
-                if key not in flat:
+                arr = flat.get(f"bf16:{key}", flat.get(key))
+                if arr is None:
                     raise ValueError(f"state leaf '{key}' missing from {path}")
-                arr = flat[key]
                 if arr.shape != tuple(v.shape):
                     raise ValueError(f"state leaf '{key}' shape {arr.shape} != engine shape {tuple(v.shape)}")
                 out[k] = torch.from_numpy(np.ascontiguousarray(arr)).to(device=self.device, dtype=v.dtype)
@@ -352,11 +382,11 @@ class MultiStreamEngine:
     def _prime(self, mel_ring: torch.Tensor) -> Tuple[Dict, torch.Tensor]:
         """Caches and embeddings of every stream from its 76-row mel ring, in
         blocks of PRIME_BLOCK_STREAMS streams to bound the stem's temporaries."""
-        folded = self.params["embedding"]
+        folded, mode = self.params["embedding"], self._stage_modes["cnn"]
         blk = int(config.PRIME_BLOCK_STREAMS)
         if mel_ring.shape[0] <= blk:
-            return embedding_stream.init_caches(folded, mel_ring)
-        parts = [embedding_stream.init_caches(folded, mel_ring[i:i + blk])
+            return embedding_stream.init_caches(folded, mel_ring, mode)
+        parts = [embedding_stream.init_caches(folded, mel_ring[i:i + blk], mode)
                  for i in range(0, mel_ring.shape[0], blk)]
         caches = {k: torch.cat([c[k] for c, _ in parts]) for k in parts[0][0]}
         return caches, torch.cat([e for _, e in parts])
@@ -367,8 +397,10 @@ class MultiStreamEngine:
         makes it the masked step. Updates ``self.state``; returns (S, L)."""
         st = self.state
         F = self.max_head_frames
+        modes = self._stage_modes
         window = torch.cat([st["pcm_tail"], chunk.to(torch.float32)], dim=-1)      # (S, 1760)
-        mel_raw = melspec_cuda.melspectrogram_frames(window, self.mel_dft)         # (S, 8, 32) dB
+        mel_raw = melspec_cuda.melspectrogram_frames(window, self.mel_dft,
+                                                     config.one_pass(modes["mel"]))  # (S, 8, 32) dB
 
         # A stream's first frame has no PCM look-back: frames 0..2 come from
         # the zero tail, so they are left out of the top_db peak and of the
@@ -380,30 +412,35 @@ class MultiStreamEngine:
             peak = torch.where(frame_valid[:, :, None], mel_raw,
                                torch.full_like(mel_raw, -float("inf"))).amax(dim=(-2, -1), keepdim=True)
             mel_raw = torch.maximum(mel_raw, peak - config.MEL_TOP_DB)
-        mel = mel_raw * config.MEL_TRANSFORM_SCALE + config.MEL_TRANSFORM_SHIFT
+        mel = (mel_raw * config.MEL_TRANSFORM_SCALE + config.MEL_TRANSFORM_SHIFT).to(st["mel_ring"].dtype)
         ring8 = torch.cat([st["mel_ring"][:, 8:], mel], dim=1)
         ring5 = torch.cat([st["mel_ring"][:, 5:], mel[:, 3:]], dim=1)
         mel_ring = torch.where(is_first[:, None, None], ring5, ring8)
 
         conv_caches = None
         if not self.incremental:
-            emb = embedding_model.apply_folded(self.params["embedding"], mel_ring)      # (S, 96)
-        elif prime:
-            conv_caches, emb = self._prime(mel_ring)
+            emb = embedding_model.apply_folded(self.params["embedding"], mel_ring, modes["cnn"])    # (S, 96)
         else:
-            conv_caches, emb = embedding_stream.step(self.params["embedding"], st["conv_caches"], mel)
-        feat_ring = torch.cat([st["feat_ring"][:, 1:], emb[:, None, :]], dim=1)
+            if prime:
+                conv_caches, emb = self._prime(mel_ring)
+            else:
+                conv_caches, emb = embedding_stream.step(self.params["embedding"], st["conv_caches"], mel,
+                                                         modes["cnn"])
+            conv_caches = {k: v.to(st["conv_caches"][k].dtype) for k, v in conv_caches.items()}
+        feat_ring = torch.cat([st["feat_ring"][:, 1:], emb[:, None, :].to(st["feat_ring"].dtype)], dim=1)
 
         label_cols = [None] * len(self.labels)
         for kind, key, meta, members in self._exec_plan:
             w = feat_ring[:, F - int(meta["input_frames"]):, :]
             if kind == "stacked":
-                out = heads_lib.forward_stacked(self.params["heads"][key], w, meta)     # (S, H, C)
+                out = heads_lib.forward_stacked(self.params["heads"][key], w, meta,
+                                                precision=modes["heads"])                # (S, H, C)
                 for h, (_, cols, start) in enumerate(members):
                     for j, c in enumerate(cols):
                         label_cols[start + j] = out[:, h, c]
             else:
-                out = heads_lib.forward(self.params["heads"][key], w, meta)             # (S, C)
+                out = heads_lib.forward(self.params["heads"][key], w, meta,
+                                        precision=modes["heads"])                        # (S, C)
                 _, cols, start = members[0]
                 for j, c in enumerate(cols):
                     label_cols[start + j] = out[:, c]

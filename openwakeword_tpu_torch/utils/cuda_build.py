@@ -6,7 +6,8 @@ once, into an object for ``sm_90a`` (Hopper); the objects link into one
 shared library with a plain C interface. Headers that are derived from the
 Python side (``generated_headers``) are written next to the objects. The
 library goes into ``build/openwakeword_tpu_torch/<hash>/`` beside the
-package, keyed by a hash of the sources, the generated headers and the flags,
+package, keyed by a hash of the sources (with the ``*.cuh`` headers they
+share), the generated headers and the flags,
 so an edited source rebuilds and an unchanged one loads at once. A missing
 ``nvcc`` or a failed build raises.
 """
@@ -57,10 +58,10 @@ def _sources():
 def generated_headers() -> Dict[str, str]:
     """{file name: text} of the headers the sources include from the build
     directory: ``cnn_program.h``, the CNN's per-conv table
-    ``ops.cnn_step.conv_table()`` as the body of ``csrc/cnn_step.cu``'s
+    ``ops.cnn_step.conv_table()`` as the body of ``csrc/cnn_step.cuh``'s
     ``kConvs``; ``cnn_tiles.h``, the tile constants of
     ``ops.cnn_step_cuda`` and each conv's block tile from its
-    ``conv_tiles()``, as ``csrc/cnn_step.cu``'s ``kTiles``;
+    ``conv_tiles()``, as ``csrc/cnn_step.cuh``'s ``kTiles``;
     ``mel_program.h``, the mel frontend's geometry from
     ``config`` and kernel 1's live DFT bins from
     ``ops.melspec_cuda.live_bins()``, for ``csrc/melspec.cu``."""

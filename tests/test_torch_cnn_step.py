@@ -79,7 +79,7 @@ def test_generated_program_header_is_the_conv_table():
     text = cuda_build.generated_headers()["cnn_program.h"]
     rows = [line.rstrip(",") for line in text.splitlines() if line.startswith("{")]
     assert [tuple(int(v) for v in row.strip("{}").split(",")) for row in rows] == cnn_step.conv_table()
-    assert '#include "cnn_program.h"' in (cuda_build.CSRC / "cnn_step.cu").read_text()
+    assert '#include "cnn_program.h"' in (cuda_build.CSRC / "cnn_step.cuh").read_text()
 
 
 @pytest.mark.parametrize("conv", range(20))
@@ -99,7 +99,7 @@ def test_tile_constants_fit_the_kernel(conv):
     for name, value in (("kStreamQuads", cnn_step_cuda.STREAM_QUADS),
                         ("kThreadChannels", cnn_step_cuda.THREAD_CHANNELS), ("kStages", cnn_step_cuda.STAGES)):
         assert f"constexpr int {name} = {value};" in text
-    assert '#include "cnn_tiles.h"' in (cuda_build.CSRC / "cnn_step.cu").read_text()
+    assert '#include "cnn_tiles.h"' in (cuda_build.CSRC / "cnn_step.cuh").read_text()
 
     spec, tile = table[conv], tiles[conv]
     kh, kw, cin, cout, ph, pw, _ = spec
@@ -207,7 +207,7 @@ def test_wrappers_take_plain_path_for_cpu_tensors(folded, rng):
     want_emb, _ = cnn_step_cuda.cnn_step_plain(params, want_caches, new)
     torch.testing.assert_close(emb, want_emb, rtol=0, atol=0)
     assert all(c.is_contiguous() for c in caches)
-    assert cnn_step_cuda.cnn_step.launches == cnn_step_cuda.cnn_prime.launches == 0
+    assert not any(cnn_step_cuda.cnn_step.launches.values()) and not any(cnn_step_cuda.cnn_prime.launches.values())
 
 
 @pytest.mark.parametrize("tf32", [False, True])
@@ -235,13 +235,27 @@ def test_wrappers_reject_other_devices(folded):
         cnn_step_cuda.cnn_prime(params, torch.empty((76, 32, 2), device="meta"))
 
 
-@pytest.mark.parametrize("precision", ["bf16", "fast", "mixed"])
-def test_unported_precisions_raise(folded, precision):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+@pytest.mark.parametrize("precision", ["fast", "mixed", "tf32", {"cnn": "high"}])
+def test_precisions_outside_the_kernel_raise(folded, precision):
+    """The kernel takes the modes of JAX's ``_dot`` ('highest', 'high',
+    'bf16'); the engine's other tiers and anything else raise ValueError
+    (JAX's CnnStepKernel raises KeyError for 'fast' and 'mixed' at prime)."""
+    with pytest.raises(ValueError, match="CnnStepKernel precision"):
         cnn_step.CnnStepKernel(folded[1], precision=precision)
 
 
-def test_non_float32_weights_raise(folded):
-    half = {k: {n: t.to(torch.bfloat16) for n, t in v.items()} for k, v in folded[1].items()}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cnn_step.CnnStepKernel(half)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float64])
+def test_weight_dtypes(folded, dtype):
+    """bf16 weights are taken (as float32, exactly) and give the 'bf16'
+    params of their float32 originals; other dtypes raise."""
+    cast = {k: {n: t.to(dtype) if n == "w" else t for n, t in v.items()} for k, v in folded[1].items()}
+    if dtype == torch.float64:
+        with pytest.raises(TypeError, match="float32 or bf16"):
+            cnn_step.CnnStepKernel(cast)
+        return
+    got = cnn_step.CnnStepKernel(cast, precision="bf16").params
+    want = cnn_step.CnnStepKernel(folded[1], precision="bf16").params
+    assert got.mode == want.mode == "bf16"
+    for a, b in zip(got.taps + got.mats, want.taps + want.mats):
+        assert a.dtype == torch.float32
+        torch.testing.assert_close(a, b, rtol=0, atol=0)

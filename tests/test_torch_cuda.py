@@ -1,9 +1,12 @@
 """The port's CUDA kernels on the card: built from ``csrc/``, each held
 against its plain PyTorch version (mel frontend: kernels 1 and 2, 2e-3 dB;
-CNN step and prime: kernels 3 and 4, 1e-4). Marked ``cuda``; skipped where
-no NVIDIA GPU is present. Run on a GPU host with
+CNN step and prime: kernels 3 and 4, 1e-4; their 1-pass bf16 variants at
+the tolerances derived below). Marked ``cuda``; skipped where no NVIDIA GPU
+is present. Run on a GPU host with
 ``python -m pytest --noconftest tests/test_torch_cuda.py -m cuda``
 (``conftest.py`` imports jax, which the port's GPU host need not have)."""
+
+import math
 
 import numpy as np
 import pytest
@@ -14,6 +17,29 @@ from openwakeword_tpu_torch.models import embedding
 from openwakeword_tpu_torch.ops import cnn_step, cnn_step_cuda, melspec_cuda
 
 pytestmark = pytest.mark.cuda
+
+# A 1-pass variant and its plain version round the same operands, but a
+# value rounded to bf16 after a float32 sum (the mel power) can land on the
+# other side of a rounding midpoint when the sum's order differs: it moves by
+# one bf16 ulp, at most 2**-7 of itself. The power and the mel weights are
+# non-negative, so a mel band moves by at most 2**-7 of itself, 10*log10(1 +
+# 2**-7) dB, on top of the float32 tolerance.
+MEL_1PASS_TOL_DB = 2e-3 + 10 * math.log10(1 + 2 ** -7)
+
+
+def assert_one_pass_close(got, want, ref32, what=""):
+    """The CNN's 1-pass check. Each conv input is rounded after a float32
+    sum, so one flipped rounding (one bf16 ulp) feeds every later conv, where
+    it flips more: two 1-pass evaluations of the 20-conv program in two
+    orders of summation each sit within the 1-pass error E of the float32
+    result, so they differ by at most 2 E, E = max |want - ref32| taken on
+    the same inputs (plus the float32 tolerance). And ``got`` must be 1-pass:
+    at least E / 2 away from the float32 result where E is above it."""
+    err = float((got - want).abs().max())
+    e = float((want - ref32).abs().max())
+    assert err <= 1e-4 + 2 * e, (what, err, e)
+    if e > 1e-4:
+        assert float((got - ref32).abs().max()) >= e / 2, (what, e)
 
 
 @pytest.fixture()
@@ -53,6 +79,31 @@ def test_live_bin_kernel_ragged_streams(cuda, n_streams):
     assert got.shape == (n_streams, 8, 32)
     assert float((got - want).abs().max()) <= 2e-3
     assert float((got[-1] + 100.0).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("dft", ["direct", "factored"])
+@pytest.mark.parametrize("n_streams", [1, 5, 17, 63, 65, 1000, 4095])
+def test_mel_1pass_kernel_matches_plain(cuda, n_streams, dft):
+    """Each 1-pass variant against its plain version at ragged S (kernel 1's
+    8-stream and kernel 2's 16-stream tiles), with a silent stream; it also
+    differs from the float32 kernel, as rounding the window must."""
+    w = (np.random.default_rng(n_streams).uniform(-1, 1, (n_streams, 1760)) * 25000).astype(np.float32)
+    silent = n_streams // 2 if n_streams > 1 else None
+    if silent is not None:
+        w[silent] = 0.0
+    x = torch.from_numpy(w).to(cuda)
+    name = melspec_cuda.variant(dft, True)
+    before = melspec_cuda.melspectrogram_frames.launches[name]
+    got = melspec_cuda.melspectrogram_frames(x, dft, one_pass=True)
+    want = melspec_cuda.melspectrogram_frames_plain(x, dft, one_pass=True)
+    f32 = melspec_cuda.melspectrogram_frames_plain(x, dft)
+    torch.cuda.synchronize()
+    assert melspec_cuda.melspectrogram_frames.launches[name] == before + 1
+    assert got.shape == (n_streams, 8, 32) and got.dtype == torch.float32
+    assert float((got - want).abs().max()) <= MEL_1PASS_TOL_DB
+    assert float((got - f32).abs().max()) > 2e-3
+    if silent is not None:
+        assert float((got[silent] + 100.0).abs().max()) <= 1e-4
 
 
 @pytest.fixture()
@@ -121,7 +172,7 @@ def test_cnn_kernels_match_plain(cuda, cnn_params, n_streams):
     params = cnn_step.prep_params({k: {n: t.to(cuda) for n, t in v.items()} for k, v in cnn_params.items()})
     rng = np.random.default_rng(n_streams)
     window = torch.from_numpy(rng.uniform(-2, 8, (76, 32, n_streams)).astype(np.float32)).to(cuda)
-    before = (cnn_step_cuda.cnn_prime.launches, cnn_step_cuda.cnn_step.launches)
+    before = (cnn_step_cuda.cnn_prime.launches["float32"], cnn_step_cuda.cnn_step.launches["float32"])
     emb, caches = cnn_step_cuda.cnn_prime(params, window)
     want_emb, want_caches = cnn_step_cuda.cnn_prime_plain(params, window)
     for _ in range(4):
@@ -133,7 +184,8 @@ def test_cnn_kernels_match_plain(cuda, cnn_params, n_streams):
         want_emb, want_caches = cnn_step_cuda.cnn_step_plain(params, want_caches, new)
     torch.cuda.synchronize()
     assert float((emb - want_emb).abs().max()) <= 1e-4
-    assert (cnn_step_cuda.cnn_prime.launches, cnn_step_cuda.cnn_step.launches) == (before[0] + 1, before[1] + 4)
+    assert (cnn_step_cuda.cnn_prime.launches["float32"], cnn_step_cuda.cnn_step.launches["float32"]) == \
+        (before[0] + 1, before[1] + 4)
 
 
 def _cnn_prime_and_steps(params, window, steps):
@@ -188,6 +240,64 @@ def test_cnn_kernels_take_misaligned_rows(cuda, cnn_params):
     for emb, caches, want_emb, want_caches in _cnn_prime_and_steps(params, window, steps):
         assert float((emb - want_emb).abs().max()) <= 1e-4
         assert max(float((a - b).abs().max()) for a, b in zip(caches, want_caches)) <= 1e-4
+
+
+def _bf16_params(cnn_params, cuda):
+    on_card = {k: {n: t.to(cuda) for n, t in v.items()} for k, v in cnn_params.items()}
+    return cnn_step.prep_params(on_card, "bf16"), cnn_step.prep_params(on_card)
+
+
+def _check_bf16_run(p16, p32, window, steps):
+    """K4-bf16 on ``window``, then K3-bf16 on each of ``steps``, each call
+    fed the plain version's caches, so kernel and plain see the same inputs;
+    held against the plain bf16 version and the plain float32 one on those
+    inputs (``assert_one_pass_close``)."""
+    got = cnn_step_cuda.cnn_prime(p16, window)
+    want = cnn_step_cuda.cnn_prime_plain(p16, window)
+    ref = cnn_step_cuda.cnn_prime_plain(p32, window)
+    for i in range(len(steps) + 1):
+        torch.cuda.synchronize()
+        assert torch.isfinite(got[0]).all()
+        assert_one_pass_close(got[0], want[0], ref[0], f"emb {i}")
+        for j, (a, b, c) in enumerate(zip(got[1], want[1], ref[1])):
+            assert_one_pass_close(a, b, c, f"cache {j} after call {i}")
+        if i == len(steps):
+            break
+        caches = want[1]
+        got = cnn_step_cuda.cnn_step(p16, caches, steps[i])
+        want = cnn_step_cuda.cnn_step_plain(p16, caches, steps[i])
+        ref = cnn_step_cuda.cnn_step_plain(p32, caches, steps[i])
+
+
+# 4-byte copies (S = 1, 5, 33) and 16-byte ones (S = 100, a ragged tile, and 4096)
+@pytest.mark.parametrize("n_streams", [1, 5, 33, 100, 4096])
+def test_cnn_bf16_kernels_match_plain(cuda, cnn_params, n_streams):
+    p16, p32 = _bf16_params(cnn_params, cuda)
+    rng = np.random.default_rng(n_streams)
+    window = torch.from_numpy(rng.uniform(-2, 8, (76, 32, n_streams)).astype(np.float32)).to(cuda)
+    steps = [torch.from_numpy(rng.uniform(-2, 8, (8, 32, n_streams)).astype(np.float32)).to(cuda)
+             for _ in range(3)]
+    before = (cnn_step_cuda.cnn_prime.launches["bf16"], cnn_step_cuda.cnn_step.launches["bf16"])
+    _check_bf16_run(p16, p32, window, steps)
+    assert (cnn_step_cuda.cnn_prime.launches["bf16"], cnn_step_cuda.cnn_step.launches["bf16"]) == \
+        (before[0] + 1, before[1] + 3)
+
+
+def test_cnn_bf16_kernels_take_misaligned_rows(cuda, cnn_params):
+    """As test_cnn_kernels_take_misaligned_rows, for the bf16 variants: S = 8
+    from views one float off 16-byte alignment run the 4-byte copies."""
+    p16, p32 = _bf16_params(cnn_params, cuda)
+    rng = np.random.default_rng(8)
+
+    def misaligned(a):
+        buf = torch.empty(a.size + 1, device=cuda)
+        view = buf[1:].view(a.shape)
+        view.copy_(torch.from_numpy(a))
+        assert view.is_contiguous() and view.data_ptr() % 16 != 0
+        return view
+    window = misaligned(rng.uniform(-2, 8, (76, 32, 8)).astype(np.float32))
+    steps = [misaligned(rng.uniform(-2, 8, (8, 32, 8)).astype(np.float32)) for _ in range(2)]
+    _check_bf16_run(p16, p32, window, steps)
 
 
 def test_cnn_kernel_rejects_bad_inputs(cuda, cnn_params):

@@ -159,10 +159,15 @@ def test_gated_engines_match_jax(weights, gating_kwargs):
     _assert_states_match(je, te)
 
 
-@pytest.mark.parametrize("precision", ["fast", "bf16", "mixed", {"mel": "high"}])
-def test_unported_precisions_raise(weights, precision):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+@pytest.mark.parametrize("precision", [
+    "tf32", None, {"mel": "bf16"}, {"mels": "high"}, {"cnn": ("fast",) * 3}, {"cnn": ["mixed"] * 20}])
+def test_invalid_precisions_raise_as_jax(weights, precision):
+    """Values the JAX engine rejects raise the same ValueError here."""
+    with pytest.raises(ValueError) as jax_error:
+        JaxEngine(wakeword_models=weights[0], n_streams=1, precision=precision)
+    with pytest.raises(ValueError) as port_error:
         MultiStreamEngine(wakeword_models=weights[0], n_streams=1, precision=precision, device="cpu")
+    assert str(port_error.value) == str(jax_error.value)
 
 
 def test_unknown_mel_dft_raises(weights):

@@ -96,7 +96,7 @@ def test_wrapper_takes_plain_path_for_cpu_tensors(rng, dft):
     x = torch.from_numpy(_windows(rng, 4))
     got = melspec_cuda.melspectrogram_frames(x, dft)
     torch.testing.assert_close(got, melspec_cuda.melspectrogram_frames_plain(x, dft), rtol=0, atol=0)
-    assert melspec_cuda.melspectrogram_frames.launches == {"direct": 0, "factored": 0}
+    assert not any(melspec_cuda.melspectrogram_frames.launches.values())
 
 
 def test_wrapper_rejects_other_devices():
