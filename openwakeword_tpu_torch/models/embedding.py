@@ -8,8 +8,9 @@ Activations run as NCHW internally; the public functions keep the JAX
 package's layouts: mel windows (B, 76, 32) in, embeddings (B, 96) out.
 A conv runs in full float32, or as a 1-pass bf16 product where its
 precision mode is 'fast' or 'bf16' or its weights are stored in bf16
-(``ops.bf16``); the sums and every elementwise stage stay float32. No
-function here needs a gradient.
+(``ops.bf16``); the sums and every elementwise stage stay float32. A
+1-pass conv rounds only its input: its float32 weights come rounded once
+by ``product_params``. No function here needs a gradient.
 """
 
 from typing import Dict, List, Optional, Tuple
@@ -18,7 +19,6 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from openwakeword_tpu_torch import config
 from openwakeword_tpu_torch.ops import bf16
 
 BN_EPS = 1e-3  # Keras BatchNormalization default, used by the reference export
@@ -99,10 +99,25 @@ def layer_precision(precision, conv_i: int):
 def conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, padding, mode=None) -> torch.Tensor:
     """NCHW conv with OIHW ``w``, float32 out: 1-pass where ``mode`` is
     'fast' or 'bf16' or ``w`` is bf16 (JAX's ``x.astype(w.dtype)``), else
-    float32; the bias is added in float32."""
-    one_pass = config.one_pass(mode) or w.dtype == torch.bfloat16
-    return F.conv2d(bf16.operand(x, one_pass), bf16.operand(w, one_pass), b.to(torch.float32),
-                    padding=padding)
+    float32; the bias is added in float32. At a 1-pass ``mode`` a float32
+    ``w`` must come rounded (``product_params``)."""
+    x, w = bf16.operands(x, w, mode)
+    return F.conv2d(x, w, b.to(torch.float32), padding=padding)
+
+
+def product_params(folded: Dict, precision=None) -> Dict:
+    """``folded`` as the convs of ``precision`` read it, built once: each
+    conv's weights float32, rounded to bf16 where that conv is 1-pass
+    (``layer_precision``), every other leaf float32. Leaves already in that
+    form are kept, not copied."""
+    out: Dict = {}
+    for k, v in folded.items():
+        if k.startswith("conv_"):
+            out[k] = {"w": bf16.weight(v["w"], layer_precision(precision, int(k[len("conv_"):]))),
+                      "b": v["b"].to(torch.float32)}
+        else:
+            out[k] = {n: t.to(torch.float32) for n, t in v.items()}
+    return out
 
 
 def _normal(rng: np.random.Generator, shape) -> np.ndarray:

@@ -8,7 +8,8 @@ time conv lets a step compute only the 8 new mel rows. ``init_caches`` and
 ``cache_spec`` order; the ``*_t`` functions run stream-minor, (C, T, W, S).
 ``precision`` is one mode for every conv or a per-conv sequence
 (``embedding.layer_precision``): 'fast' and 'bf16' convs, and convs on bf16
-weights, are 1-pass bf16 products. The caches hold each time conv's input
+weights, are 1-pass bf16 products, on float32 weights rounded once by
+``embedding.product_params``. The caches hold each time conv's input
 tail as computed, in float32 (the engine stores them in its state dtype).
 """
 
@@ -17,7 +18,6 @@ from typing import Dict, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from openwakeword_tpu_torch import config
 from openwakeword_tpu_torch.models import embedding as E
 from openwakeword_tpu_torch.ops import bf16
 
@@ -105,9 +105,8 @@ def _weight_mat(w: torch.Tensor) -> torch.Tensor:
 def _conv_t(x: torch.Tensor, wmat: torch.Tensor, kh: int, kw: int, mode=None) -> torch.Tensor:
     """x: (Cin, T, W, S) unpadded/valid, wmat from ``_weight_mat`` ->
     (Cout, T-kh+1, W-kw+1, S), 1-pass where ``mode`` says so or ``wmat``
-    is bf16."""
-    one_pass = config.one_pass(mode) or wmat.dtype == torch.bfloat16
-    x, wmat = bf16.operand(x, one_pass), bf16.operand(wmat, one_pass)
+    is bf16 (a float32 ``wmat`` then comes rounded, ``bf16.weight``)."""
+    x, wmat = bf16.operands(x, wmat, mode)
     _, t, wd, s = x.shape
     t_out, w_out = t - kh + 1, wd - kw + 1
     taps = [x[:, dt:dt + t_out, dw:dw + w_out, :] for dt in range(kh) for dw in range(kw)]

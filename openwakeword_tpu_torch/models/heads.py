@@ -13,7 +13,9 @@ meta travels separately. The ``rnn`` head waits for a later slice.
 
 A linear is float32, or a 1-pass bf16 product where ``precision`` is
 'fast' or 'bf16' or its weights are stored in bf16 (JAX ``heads.py``:
-``x.astype(w.dtype)``, float32 sums, the bias added in float32).
+``x.astype(w.dtype)``, float32 sums, the bias added in float32). A 1-pass
+linear rounds only its input: its float32 weights come rounded once by
+``product_params``.
 """
 
 from typing import Dict, List
@@ -77,9 +79,18 @@ def _layer_norm(p: Dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
 def _product(z: torch.Tensor, w: torch.Tensor, precision, eq: str = None) -> torch.Tensor:
     """``z @ w`` (or the einsum ``eq``) in float32, 1-pass where
     ``precision`` says so or ``w`` is bf16."""
-    one_pass = config.one_pass(precision) or w.dtype == torch.bfloat16
-    z, w = bf16.operand(z, one_pass), bf16.operand(w, one_pass)
+    z, w = bf16.operands(z, w, precision)
     return z @ w if eq is None else torch.einsum(eq, z, w)
+
+
+def product_params(params: Dict, precision=None) -> Dict:
+    """Head params (single or stacked) as the linears of ``precision`` read
+    them, built once: each linear's weights float32, rounded to bf16 where
+    the linears are 1-pass (``bf16.weight``), every other leaf float32.
+    Leaves already in that form are kept, not copied."""
+    return {k: product_params(v, precision) if isinstance(v, dict)
+            else bf16.weight(v, precision) if k == "w" else v.to(torch.float32)
+            for k, v in params.items()}
 
 
 def _activate(logits: torch.Tensor, meta: Dict, inference: bool) -> torch.Tensor:

@@ -96,15 +96,13 @@ def cache_shapes() -> List[Tuple[str, Tuple[int, int, int]]]:
     return shapes
 
 
-def prep_params(folded: Dict, mode: str = "float32") -> CnnParams:
+def prep_params(folded: Dict, one_pass: bool = False) -> CnnParams:
     """The port's BN-folded params (OIHW convs) -> per conv a
     (kh*kw, Cout, Cin) tap stack and a (Cout, 1) bias, the stem affine as
     (24, 1) scale and shift, and the (Cout, kh*kw*Cin) weight matrices of
     the plain version; all float32 and contiguous on the params' device.
-    Weights may be float32 or bf16; ``mode="bf16"`` rounds them to bf16 (in
+    Weights may be float32 or bf16; ``one_pass`` rounds them to bf16 (in
     float32 tensors) for the 1-pass variants."""
-    if mode not in cnn_step_cuda.MODES:
-        raise ValueError(f"mode must be one of {cnn_step_cuda.MODES}, got {mode!r}")
     taps, biases, mats = [], [], []
     conv_i = 0
     for layer in E.spec():
@@ -114,7 +112,7 @@ def prep_params(folded: Dict, mode: str = "float32") -> CnnParams:
         w = c["w"]                                            # (Cout, Cin, kh, kw)
         if w.dtype not in (torch.float32, torch.bfloat16):
             raise TypeError(f"conv_{conv_i} weights are {w.dtype}: the CNN step takes float32 or bf16")
-        w = round_bf16(w) if mode == "bf16" else w.to(torch.float32)
+        w = round_bf16(w) if one_pass else w.to(torch.float32)
         cout, cin, kh, kw = w.shape
         taps.append(w.permute(2, 3, 0, 1).reshape(kh * kw, cout, cin).contiguous())
         biases.append(c["b"].to(torch.float32).reshape(cout, 1).contiguous())
@@ -127,7 +125,7 @@ def prep_params(folded: Dict, mode: str = "float32") -> CnnParams:
     return CnnParams(tuple(taps), tuple(biases),
                      scale.to(torch.float32).reshape(-1, 1).contiguous(),
                      shift.to(torch.float32).reshape(-1, 1).contiguous(),
-                     tuple(mats), folded, tuple(cache_shapes()), mode)
+                     tuple(mats), folded, tuple(cache_shapes()), bool(one_pass))
 
 
 class CnnStepKernel:
@@ -154,7 +152,7 @@ class CnnStepKernel:
         self.precision = precision
         if device is not None:
             folded = convert.to_device(folded, torch.device(device))
-        self.params = prep_params(folded, "bf16" if precision == "bf16" else "float32")
+        self.params = prep_params(folded, one_pass=precision == "bf16")
         self.cache_names = [name for name, _ in self.params.cache_shapes]
 
     def _named(self, caches: List[torch.Tensor]) -> Dict[str, torch.Tensor]:

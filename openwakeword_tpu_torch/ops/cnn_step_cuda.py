@@ -8,11 +8,12 @@ return (embedding (96, S), the eleven new caches). A CPU tensor goes through
 the plain PyTorch version (``cnn_step_plain`` / ``cnn_prime_plain``, built on
 ``models.embedding_stream._forward_t``); a CUDA tensor goes through
 ``csrc/cnn_step.cu`` or the call raises. The new caches are fresh tensors:
-the kernel never writes a cache it reads. Params prepped for the 'bf16' mode
-(``CnnParams.mode``) run the 1-pass bf16 variants (``csrc/cnn_step_bf16.cu``,
-the JAX kernel's ``_dot(mode="bf16")``): weights rounded by the host, every
-conv input rounded as the kernel stages it, sums, epilogues and caches in
-float32. Each wrapper counts its launches in ``.launches[mode]``.
+the kernel never writes a cache it reads. Params prepped with ``one_pass``
+(``CnnParams.one_pass``) run the 1-pass bf16 variants
+(``csrc/cnn_step_bf16.cu``, the JAX kernel's ``_dot(mode="bf16")``):
+weights rounded by the host, every conv input rounded as the kernel stages
+it, sums, epilogues and caches in float32. Each wrapper counts its launches
+in ``.launches[variant(one_pass)]``.
 ``conv_tiles`` picks each conv's block tile, which the build compiles in
 through the generated header ``cnn_tiles.h``.
 """
@@ -41,8 +42,13 @@ THREAD_CHANNELS = 8
 STAGES = 3
 MAX_TILE_THREADS = 256
 SMEM_LIMIT = 227 * 1024    # shared memory one block may take on an H100
-MODES = ("float32", "bf16")   # the fp32 kernels and the 1-pass bf16 variants
-_ENTRY = {"float32": "owwt_cnn_forward", "bf16": "owwt_cnn_forward_bf16"}
+_ENTRY = {"fp32": "owwt_cnn_forward", "1pass": "owwt_cnn_forward_bf16"}
+VARIANTS = tuple(_ENTRY)      # the fp32 kernels and their 1-pass bf16 variants
+
+
+def variant(one_pass: bool = False) -> str:
+    """The kernel variant's name: '1pass' for the 1-pass one, else 'fp32'."""
+    return "1pass" if one_pass else "fp32"
 
 
 class ConvTile(NamedTuple):
@@ -108,7 +114,7 @@ class CnnParams(NamedTuple):
     mats: Tuple[torch.Tensor, ...]      # per conv: (Cout, kh*kw*Cin), the plain versions'
     folded: Dict                        # the folded params (biases and affine of the plain versions)
     cache_shapes: Tuple[Tuple[str, Tuple[int, int, int]], ...]   # (name, (C, 2, W)), program order
-    mode: str = "float32"               # "bf16": taps and mats rounded, the 1-pass variants run
+    one_pass: bool = False              # taps and mats rounded, the 1-pass variants run
 
 
 @contextlib.contextmanager
@@ -126,21 +132,22 @@ def _plain(params: CnnParams, x: torch.Tensor, caches: Optional[Sequence[torch.T
     names = [name for name, _ in params.cache_shapes]
     caches = None if caches is None else dict(zip(names, caches))
     with _fp32_matmul():
-        new, emb = embedding_stream._forward_t(params.folded, x[None], caches, list(params.mats), params.mode)
+        new, emb = embedding_stream._forward_t(params.folded, x[None], caches, list(params.mats),
+                                               "bf16" if params.one_pass else None)
     return emb, [new[name] for name in names]
 
 
 def cnn_step_plain(params: CnnParams, caches: Sequence[torch.Tensor],
                    mel_t: torch.Tensor) -> Tuple[torch.Tensor, List[torch.Tensor]]:
     """Plain PyTorch version of kernel 3: ``embedding_stream`` step in
-    (C, T, W, S) layout, in ``params.mode``."""
+    (C, T, W, S) layout, 1-pass where ``params.one_pass``."""
     return _plain(params, mel_t, caches)
 
 
 def cnn_prime_plain(params: CnnParams, mel_window_t: torch.Tensor
                     ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
     """Plain PyTorch version of kernel 4: ``embedding_stream`` prime in
-    (C, T, W, S) layout, in ``params.mode``."""
+    (C, T, W, S) layout, 1-pass where ``params.one_pass``."""
     return _plain(params, mel_window_t, None)
 
 
@@ -176,7 +183,7 @@ def _check(name: str, t: torch.Tensor, shape: Tuple[int, ...], device: torch.dev
 
 def _launch(wrapper, params: CnnParams, x: torch.Tensor, caches: Optional[Sequence[torch.Tensor]],
             rows: int) -> Tuple[torch.Tensor, List[torch.Tensor]]:
-    """Checks, allocates and launches; counts in ``wrapper.launches[params.mode]``."""
+    """Checks, allocates and launches; counts in ``wrapper.launches``."""
     what = wrapper.__name__
     if x.device.type != "cuda":
         raise ValueError(f"{what} takes CPU or CUDA tensors, got {x.device}")
@@ -194,20 +201,20 @@ def _launch(wrapper, params: CnnParams, x: torch.Tensor, caches: Optional[Sequen
            for _, shape in params.cache_shapes]
     if n_streams == 0:
         return emb, new
-    lib = _lib()
+    lib, name = _lib(), variant(params.one_pass)
     per_stream = lib.owwt_cnn_scratch_floats(rows, int(caches is None))
     if per_stream < 0:
         raise ValueError(f"the CNN program does not fit a {rows}-row input")
     scratch = torch.empty((2, per_stream * n_streams), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = getattr(lib, _ENTRY[params.mode])(
+        rc = getattr(lib, _ENTRY[name])(
             x.data_ptr(), rows, None if caches is None else _pointers(caches), _pointers(new),
             _pointers(params.taps), _pointers(params.biases), params.scale.data_ptr(), params.shift.data_ptr(),
             emb.data_ptr(), scratch[0].data_ptr(), scratch[1].data_ptr(), n_streams, stream)
     if rc != 0:
-        raise RuntimeError(f"{what} kernel ({params.mode}) launch failed with cudaError {rc}")
-    wrapper.launches[params.mode] += 1
+        raise RuntimeError(f"{what} kernel ({name}) launch failed with cudaError {rc}")
+    wrapper.launches[name] += 1
     return emb, new
 
 
@@ -228,5 +235,5 @@ def cnn_prime(params: CnnParams, mel_window_t: torch.Tensor
     return _launch(cnn_prime, params, mel_window_t, None, WINDOW_ROWS)
 
 
-cnn_step.launches = dict.fromkeys(MODES, 0)
-cnn_prime.launches = dict.fromkeys(MODES, 0)
+cnn_step.launches = dict.fromkeys(VARIANTS, 0)
+cnn_prime.launches = dict.fromkeys(VARIANTS, 0)

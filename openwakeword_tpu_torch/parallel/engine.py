@@ -248,6 +248,13 @@ class MultiStreamEngine:
             # and norms included) in bf16; 1-D biases, norms and affines stay
             # float32 (JAX engine :494-503)
             self.params = _cast_weights_bf16(self.params)
+        # what each step's products read, built once: float32 weights, those
+        # of the 1-pass stages (and convs) rounded to bf16, so a step rounds
+        # only its activations; the params themselves seed the feature ring
+        self._step_params = {
+            "embedding": embedding_model.product_params(self.params["embedding"], self._stage_modes["cnn"]),
+            "heads": {k: heads_lib.product_params(v, self._stage_modes["heads"])
+                      for k, v in self.params["heads"].items()}}
 
         # one noise clip seeds every stream's feature ring, at every reset
         self._rng_seed = rng_seed
@@ -382,7 +389,7 @@ class MultiStreamEngine:
     def _prime(self, mel_ring: torch.Tensor) -> Tuple[Dict, torch.Tensor]:
         """Caches and embeddings of every stream from its 76-row mel ring, in
         blocks of PRIME_BLOCK_STREAMS streams to bound the stem's temporaries."""
-        folded, mode = self.params["embedding"], self._stage_modes["cnn"]
+        folded, mode = self._step_params["embedding"], self._stage_modes["cnn"]
         blk = int(config.PRIME_BLOCK_STREAMS)
         if mel_ring.shape[0] <= blk:
             return embedding_stream.init_caches(folded, mel_ring, mode)
@@ -419,12 +426,12 @@ class MultiStreamEngine:
 
         conv_caches = None
         if not self.incremental:
-            emb = embedding_model.apply_folded(self.params["embedding"], mel_ring, modes["cnn"])    # (S, 96)
+            emb = embedding_model.apply_folded(self._step_params["embedding"], mel_ring, modes["cnn"])  # (S, 96)
         else:
             if prime:
                 conv_caches, emb = self._prime(mel_ring)
             else:
-                conv_caches, emb = embedding_stream.step(self.params["embedding"], st["conv_caches"], mel,
+                conv_caches, emb = embedding_stream.step(self._step_params["embedding"], st["conv_caches"], mel,
                                                          modes["cnn"])
             conv_caches = {k: v.to(st["conv_caches"][k].dtype) for k, v in conv_caches.items()}
         feat_ring = torch.cat([st["feat_ring"][:, 1:], emb[:, None, :].to(st["feat_ring"].dtype)], dim=1)
@@ -433,13 +440,13 @@ class MultiStreamEngine:
         for kind, key, meta, members in self._exec_plan:
             w = feat_ring[:, F - int(meta["input_frames"]):, :]
             if kind == "stacked":
-                out = heads_lib.forward_stacked(self.params["heads"][key], w, meta,
+                out = heads_lib.forward_stacked(self._step_params["heads"][key], w, meta,
                                                 precision=modes["heads"])                # (S, H, C)
                 for h, (_, cols, start) in enumerate(members):
                     for j, c in enumerate(cols):
                         label_cols[start + j] = out[:, h, c]
             else:
-                out = heads_lib.forward(self.params["heads"][key], w, meta,
+                out = heads_lib.forward(self._step_params["heads"][key], w, meta,
                                         precision=modes["heads"])                        # (S, C)
                 _, cols, start = members[0]
                 for j, c in enumerate(cols):

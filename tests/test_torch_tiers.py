@@ -37,7 +37,7 @@ from openwakeword_tpu.ops import cnn_pallas
 from openwakeword_tpu.ops import melspec_pallas as jax_mel
 from openwakeword_tpu_torch import config, convert
 from openwakeword_tpu_torch.models import embedding, heads
-from openwakeword_tpu_torch.ops import cnn_step, melspec_cuda
+from openwakeword_tpu_torch.ops import bf16, cnn_step, melspec_cuda
 from openwakeword_tpu_torch.ops.bf16 import round_bf16
 
 MEL_TOL_DB = 2e-3 + 10 * math.log10(1 + 2 ** -7)
@@ -167,12 +167,14 @@ def test_eager_cnn_per_conv_matches_jax_dot(folded, rng, tier):
     ``run_program`` runs) on the JAX reference's own input, against JAX's
     ``_conv_taps`` in the mode of ``layer_precision``: ``_dot("bf16")`` for
     the 1-pass convs, "highest" for the rest. At 'bf16' the port's weights
-    are stored bf16, as the engine stores them."""
+    are stored bf16, as the engine stores them; the convs read them through
+    ``embedding.product_params``, as the engine's steps do."""
     j_fold, t_fold = folded
     modes = embedding.mixed_precision() if tier == "mixed" else tier
     if tier == "bf16":
         t_fold = {k: {n: (t.to(torch.bfloat16) if t.ndim >= 2 else t) for n, t in v.items()}
                   for k, v in t_fold.items()}
+    t_fold = embedding.product_params(t_fold, modes)
     params = cnn_pallas._prep_params(j_fold, np.float32)
     x = jnp.asarray(rng.uniform(-2, 8, (1, 76, 32, 3)).astype(np.float32))    # (C, T, W, S)
     conv_i = bn_i = 0
@@ -278,7 +280,8 @@ def _to_bf16(tree, lib):
 @pytest.mark.parametrize("tier", ["fast", "bf16"])
 def test_heads_1pass_match_jax(rng, tier):
     """``heads.forward`` and ``forward_stacked`` at 'fast' (float32
-    weights, rounded at each product) and at 'bf16' (bf16 weights) against
+    weights) and at 'bf16' (bf16 weights), each read through
+    ``heads.product_params`` as the engine's steps read them, against
     JAX's heads on bf16 weights, which round the same operands through
     ``x.astype(w.dtype)``. Inputs are stored as the feature ring stores
     them (bf16 at 'bf16'). At 'fast' only the weight matrices are bf16 in
@@ -300,7 +303,7 @@ def test_heads_1pass_match_jax(rng, tier):
         jp = {k: dict(v, w=v["w"].astype(jnp.bfloat16)) if "w" in v else v for k, v in jp.items()}
         if tier == "bf16":
             tp = _to_bf16(tp, "torch")
-        got = heads.forward(tp, xt, meta, precision=tier).numpy()
+        got = heads.forward(heads.product_params(tp, tier), xt, meta, precision=tier).numpy()
         ref = heads.forward(convert.head_from_jax(p), torch.from_numpy(x), meta, precision="highest").numpy()
         want = np.asarray(jax.jit(lambda q, z: jax_heads.forward(q, z, meta))(jp, xj))
         assert got.dtype == np.float32
@@ -314,7 +317,7 @@ def test_heads_1pass_match_jax(rng, tier):
     ref = heads.forward_stacked(stacked_t, torch.from_numpy(x), dnn["__meta__"], precision="highest").numpy()
     if tier == "bf16":
         stacked_t = _to_bf16(stacked_t, "torch")
-    got = heads.forward_stacked(stacked_t, xt, dnn["__meta__"], precision=tier).numpy()
+    got = heads.forward_stacked(heads.product_params(stacked_t, tier), xt, dnn["__meta__"], precision=tier).numpy()
     want = []
     for p in (dnn, dnn2):
         jp = jax_p(p)
@@ -333,3 +336,42 @@ def test_bf16_helper_rounds_to_nearest_even():
     x = torch.tensor([one, three, 1.0 + 2.0 ** -9, -2.5], dtype=torch.float32)
     torch.testing.assert_close(round_bf16(x), torch.tensor([1.0, 1.0 + 2.0 ** -6, 1.0, -2.5]), rtol=0, atol=0)
     assert round_bf16(x).dtype == torch.float32
+
+
+@pytest.mark.parametrize("tier", ["highest", "fast", "mixed", "bf16"])
+def test_product_params_round_weights_once(folded, rng, tier):
+    """The weights a step's products read, built once: each 1-pass conv's
+    and linear's weights rounded to bf16 (float32 tensors), the rest float32
+    and, where already float32, the same tensors; head biases stay unrounded
+    at 'fast'. A 1-pass product then rounds only its activation."""
+    t_fold = folded[1]
+    modes = embedding.mixed_precision() if tier == "mixed" else tier
+    if tier == "bf16":
+        t_fold = {k: {n: (t.to(torch.bfloat16) if t.ndim >= 2 else t) for n, t in v.items()}
+                  for k, v in t_fold.items()}
+    prod = embedding.product_params(t_fold, modes)
+    for i in range(embedding.n_convs()):
+        w, got = t_fold[f"conv_{i}"]["w"], prod[f"conv_{i}"]["w"]
+        assert got.dtype == torch.float32
+        if config.one_pass(embedding.layer_precision(modes, i)):
+            torch.testing.assert_close(got, round_bf16(w.float()), rtol=0, atol=0)
+        else:
+            assert got is w
+        assert prod[f"conv_{i}"]["b"].dtype == torch.float32
+    head = convert.head_from_jax(heads.init_params(rng, "dnn", input_frames=16))
+    head.pop("__meta__")
+    hp = heads.product_params(head, "fast" if tier == "mixed" else tier)
+    for k in ("layer1", "block0_fc", "out"):
+        if tier == "highest":
+            assert hp[k]["w"] is head[k]["w"]
+        else:
+            torch.testing.assert_close(hp[k]["w"], round_bf16(head[k]["w"]), rtol=0, atol=0)
+        assert hp[k]["b"] is head[k]["b"]
+
+    x, w = torch.randn(4, 5), round_bf16(torch.randn(5, 3))
+    xo, wo = bf16.operands(x, w, tier if tier != "mixed" else "fast")
+    assert wo is w
+    if tier == "highest":
+        assert xo is x
+    else:
+        torch.testing.assert_close(xo, round_bf16(x), rtol=0, atol=0)
