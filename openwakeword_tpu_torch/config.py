@@ -60,14 +60,23 @@ DEFAULT_HEAD_INPUT_FRAMES = 16   # 1.28 s of embeddings
 DEFAULT_HEAD_WIDTH = 64
 
 # Precision tiers (JAX engine :227-298). The port follows the arithmetic the
-# tiers run on the TPU: 'highest' and 'high' are float32 products (FFMA, TF32
-# off); 'fast' and 'bf16' are 1-pass products (each operand rounded to bf16,
-# round-to-nearest-even, the products exact, the sums float32); 'bf16' also
-# stores the >= 2-D float weights and the mel ring, feature ring and conv
-# caches in bf16; 'mixed' runs the convs of MIXED_FAST_CONVS at 1-pass and
-# everything else float32; a dict {'mel', 'cnn', 'heads'} sets each stage.
+# tiers run on the TPU. Each TPU kernel's body (the mel kernels, the CNN step
+# kernel) takes one of three arithmetics, named by ``kernel_arith``: 'highest'
+# is float32 ('fp32'); 'high' is the 3-pass bf16 split ('3pass': each operand
+# split into bf16 hi + lo, round-to-nearest-even, the product hi*hi + hi*lo +
+# lo*hi with float32 sums, dropping lo*lo); 'fast' and 'bf16' are 1-pass
+# ('1pass': each operand rounded to bf16, the products exact, the sums
+# float32). So the mel stage at 'high' runs the 3-pass mel kernels. The
+# stages that are XLA ops in JAX, not Pallas bodies (the engine's eager CNN
+# and the heads), run float32 at 'highest' and 'high' (FFMA, TF32 off) and
+# 1-pass at 'fast' and 'bf16'. 'bf16' also stores the >= 2-D float weights
+# and the mel ring, feature ring and conv caches in bf16; 'mixed' runs the
+# convs of MIXED_FAST_CONVS at 1-pass and every other stage at 'high'; a
+# dict {'mel', 'cnn', 'heads'} sets each stage.
 MODES = ("highest", "high", "fast", "bf16")
 ONE_PASS_MODES = ("fast", "bf16")
+THREE_PASS_MODES = ("high",)
+ARITHS = ("fp32", "1pass", "3pass")
 
 
 class Precision(NamedTuple):
@@ -122,3 +131,14 @@ def check_precision(precision, embedding: str = "default") -> Precision:
 def one_pass(mode) -> bool:
     """True for the modes whose products are 1-pass bf16."""
     return isinstance(mode, str) and mode in ONE_PASS_MODES
+
+
+def three_pass(mode) -> bool:
+    """True for the modes whose TPU kernel bodies run 3-pass bf16 products."""
+    return isinstance(mode, str) and mode in THREE_PASS_MODES
+
+
+def kernel_arith(mode) -> str:
+    """The arithmetic (one of ``ARITHS``) of a TPU kernel body in ``mode``,
+    as ``melspec_pallas`` and ``cnn_pallas._dot`` select it."""
+    return "1pass" if one_pass(mode) else "3pass" if three_pass(mode) else "fp32"

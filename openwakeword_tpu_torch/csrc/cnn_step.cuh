@@ -1,7 +1,8 @@
-// Streaming embedding-CNN step and prime for Hopper (sm_90a), fp32 on the CUDA
-// cores: the kernel and its launch plan, shared by cnn_step.cu (the fp32
-// kernels, entry point owwt_cnn_forward) and cnn_step_bf16.cu (the 1-pass
-// bf16 variants, owwt_cnn_forward_bf16), which nvcc builds in parallel.
+// Streaming embedding-CNN step and prime for Hopper (sm_90a), on the CUDA
+// cores' fp32 FFMA: the kernel and its launch plan, shared by cnn_step.cu
+// (the fp32 kernels, entry point owwt_cnn_forward), cnn_step_bf16.cu (the
+// 1-pass bf16 variants, owwt_cnn_forward_bf16) and cnn_step_high.cu (the
+// 3-pass bf16 variants, owwt_cnn_forward_high), which nvcc builds in parallel.
 //
 // Replaces the TPU kernel openwakeword_tpu/ops/cnn_pallas.py::_make_kernel,
 // launched by _run(prime=False) (CnnStepKernel.step) and _run(prime=True)
@@ -15,7 +16,7 @@
 // What bounds it: 11.2 MFLOP per stream per step (83.9 per prime) against
 // ~38 KB of cache and 1 KB of mel, so on this card the work is compute on the
 // fp32 pipes (TF32 would break the 'highest' budget, so every product is an
-// fp32 FFMA); the inter-layer activations (~300 KB per stream per step) go
+// fp32 FFMA, in every variant); the inter-layer activations (~300 KB per stream per step) go
 // through L2 and device memory, one launch per conv. The FFMAs run at the
 // pipes' rate only if their operands come from registers and shared memory
 // at well under one 16-byte load per 16 FFMAs, and if staging stays off the
@@ -55,7 +56,7 @@
 //     block reads a cache row that another writes.
 // No tensor cores, no cross-layer fusion.
 //
-// The bf16 variants (ROUND = true) replace the TPU kernel's "bf16" mode
+// The bf16 variants (ARITH = kOnePass) replace the TPU kernel's "bf16" mode
 // (cnn_pallas.py::_dot): each product's operands rounded to bf16, the sums
 // in f32. The weights come rounded from the host (ops/cnn_step.py::
 // prep_params); every input cell is rounded in shared memory by the thread
@@ -66,6 +67,15 @@
 // hold the inputs unrounded, as the TPU kernel's do. A bf16 x bf16 product is
 // exact in fp32, so the FFMA loop computes the 1-pass products exactly; only
 // the order of summation differs from the TPU's.
+//
+// The 3-pass variants (ARITH = kThreePass) replace the TPU kernel's "high"
+// mode, the default of its CnnStepKernel: each operand split into bf16
+// halves and each product taken as hi*hi + hi*lo + lo*hi with fp32 sums
+// (bf16_arith.cuh). The host passes the weights split once, as packed words,
+// so they move as the fp32 weights do; every staged input cell is split into
+// a word in shared memory by the thread that staged it, where the 1-pass
+// variants round. Epilogue, pools, caches and embedding stay fp32; the
+// caches hold the inputs unsplit, as the TPU kernel's do.
 
 #pragma once
 
@@ -76,7 +86,7 @@
 #include <cstdint>
 #include <utility>
 
-#include <cuda_bf16.h>
+#include "bf16_arith.cuh"
 
 namespace {
 
@@ -137,11 +147,6 @@ __device__ __forceinline__ float clipped_leaky(float v) {
     return fmaxf(fmaxf(0.2f * v, v), -0.4f);
 }
 
-// v rounded to bf16, round-to-nearest-even.
-__device__ __forceinline__ float to_bf16(float v) {
-    return __bfloat162float(__float2bfloat16_rn(v));
-}
-
 // cp.async with zero-fill: `src_bytes` of `src` land in shared memory, the
 // rest of the 16 or 4 bytes are zeros (src_bytes = 0 reads nothing).
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
@@ -166,8 +171,8 @@ __device__ __forceinline__ void cp_async_wait() {
 // One conv for one block: 32 streams x G*NC positions x all COUT channels.
 // VEC: S % 4 == 0 and every pointer 16-byte aligned, so a stream quad moves
 // as one 16-byte copy; otherwise as four 4-byte copies masked per stream.
-// ROUND: the 1-pass bf16 variant (see the top of this file).
-template <int KH, int KW, int CIN, int COUT, int PH, int PW, int EPI, int G, int NC, int KS, bool VEC, bool ROUND>
+// ARITH: fp32, or the 1-pass or 3-pass bf16 variant (see the top of this file).
+template <int KH, int KW, int CIN, int COUT, int PH, int PW, int EPI, int G, int NC, int KS, bool VEC, int ARITH>
 __global__ void __launch_bounds__((COUT / kThreadChannels) * kStreamQuads * G,
                                   (COUT / kThreadChannels) * kStreamQuads * G <= 192 ? 2 : 1)
 conv_layer_kernel(const float* __restrict__ x,        // (CIN, tx, wx, S) new rows
@@ -402,14 +407,16 @@ conv_layer_kernel(const float* __restrict__ x,        // (CIN, tx, wx, S) new ro
         }
         cp_async_wait<kStages - 1>();
         const int buf = sl % kStages;
-        if constexpr (ROUND) {
+        if constexpr (ARITH != kFp32) {
             // slice sl's copies of this thread have landed and are visible
-            // to it: round them in place before the barrier publishes them
+            // to it: round or split them in place before the barrier
+            // publishes them
             if (copier) {
                 float4* xd = xs + buf * KS * NCELL + cell;
                 for (int kk = tid / NCELL; kk < KS; kk += COPIERS) {
                     const float4 v = xd[kk * NCELL];
-                    xd[kk * NCELL] = make_float4(to_bf16(v.x), to_bf16(v.y), to_bf16(v.z), to_bf16(v.w));
+                    xd[kk * NCELL] = make_float4(operand<ARITH>(v.x), operand<ARITH>(v.y), operand<ARITH>(v.z),
+                                                 operand<ARITH>(v.w));
                 }
             }
         }
@@ -431,10 +438,10 @@ conv_layer_kernel(const float* __restrict__ x,        // (CIN, tx, wx, S) new ro
 #pragma unroll
                     for (int i = 0; i < TM; ++i) {
                         const float w = kk == 0 ? w4[i].x : kk == 1 ? w4[i].y : kk == 2 ? w4[i].z : w4[i].w;
-                        acc[i][j][0] = fmaf(w, b.x, acc[i][j][0]);
-                        acc[i][j][1] = fmaf(w, b.y, acc[i][j][1]);
-                        acc[i][j][2] = fmaf(w, b.z, acc[i][j][2]);
-                        acc[i][j][3] = fmaf(w, b.w, acc[i][j][3]);
+                        acc[i][j][0] = mac<ARITH>(b.x, w, acc[i][j][0]);
+                        acc[i][j][1] = mac<ARITH>(b.y, w, acc[i][j][1]);
+                        acc[i][j][2] = mac<ARITH>(b.z, w, acc[i][j][2]);
+                        acc[i][j][3] = mac<ARITH>(b.w, w, acc[i][j][3]);
                     }
                 }
             }
@@ -578,7 +585,7 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes, std::atomic<unsigned long lo
     return err;
 }
 
-template <int I, bool VEC, bool ROUND>
+template <int I, bool VEC, int ARITH>
 cudaError_t launch_tile(const Program& p, const float* cache, float* new_cache, float* out, int position_tiles) {
     constexpr ConvSpec c = kConvs[I];
     constexpr ConvTile t = kTiles[I];
@@ -595,7 +602,7 @@ cudaError_t launch_tile(const Program& p, const float* cache, float* new_cache, 
     static_assert(smem <= kSmemLimit, "the block's shared memory fits an SM");
     static std::atomic<unsigned long long> allowed{0};
     auto kernel =
-        conv_layer_kernel<c.kh, c.kw, c.cin, c.cout, c.ph, c.pw, c.epi, t.groups, t.per_thread, t.k_slice, VEC, ROUND>;
+        conv_layer_kernel<c.kh, c.kw, c.cin, c.cout, c.ph, c.pw, c.epi, t.groups, t.per_thread, t.k_slice, VEC, ARITH>;
     const cudaError_t err = allow_smem(kernel, smem, &allowed);
     if (err != cudaSuccess) {
         return err;
@@ -606,7 +613,7 @@ cudaError_t launch_tile(const Program& p, const float* cache, float* new_cache, 
     return cudaGetLastError();
 }
 
-template <int I, bool ROUND>
+template <int I, int ARITH>
 void launch_conv(Program& p) {
     constexpr ConvSpec c = kConvs[I];
     constexpr ConvTile t = kTiles[I];
@@ -638,16 +645,16 @@ void launch_conv(Program& p) {
         p.ping ^= 1;
     }
     const int tiles = (g.n_pos + npt - 1) / npt;
-    p.err = p.vec ? launch_tile<I, true, ROUND>(p, cache, new_cache, out, tiles)
-                  : launch_tile<I, false, ROUND>(p, cache, new_cache, out, tiles);
+    p.err = p.vec ? launch_tile<I, true, ARITH>(p, cache, new_cache, out, tiles)
+                  : launch_tile<I, false, ARITH>(p, cache, new_cache, out, tiles);
     p.x = out;
     p.tx = g.t_pooled;
     p.wx = g.w_pooled;
 }
 
-template <bool ROUND, std::size_t... I>
+template <int ARITH, std::size_t... I>
 void run_program(Program& p, std::index_sequence<I...>) {
-    (launch_conv<I, ROUND>(p), ...);
+    (launch_conv<I, ARITH>(p), ...);
 }
 
 bool aligned16(const void* ptr) {
@@ -656,7 +663,7 @@ bool aligned16(const void* ptr) {
 
 // The whole program for `n_streams` streams, one launch per conv on `stream`
 // (see owwt_cnn_forward in cnn_step.cu).
-template <bool ROUND>
+template <int ARITH>
 int cnn_forward(const float* mel, int t_in, const float* const* caches_in, float* const* caches_out,
                 const float* const* taps, const float* const* biases, const float* scale, const float* shift,
                 float* emb, float* scratch0, float* scratch1, int n_streams, void* stream) {
@@ -669,7 +676,7 @@ int cnn_forward(const float* mel, int t_in, const float* const* caches_in, float
     }
     Program p{caches_in, caches_out, taps, biases, scale, shift, emb, {scratch0, scratch1},
               n_streams, static_cast<cudaStream_t>(stream), vec, mel, t_in, 32, 0, 0, cudaSuccess};
-    run_program<ROUND>(p, std::make_index_sequence<kNumConvs>{});
+    run_program<ARITH>(p, std::make_index_sequence<kNumConvs>{});
     if (p.err == cudaSuccess && p.cache_i != kNumCaches) {
         p.err = cudaErrorInvalidValue;
     }

@@ -13,6 +13,6 @@ extern "C" int owwt_cnn_forward_bf16(const float* mel, int t_in, const float* co
                                      const float* const* biases, const float* scale, const float* shift,
                                      float* emb, float* scratch0, float* scratch1, int n_streams,
                                      void* stream) {
-    return cnn_forward<true>(mel, t_in, caches_in, caches_out, taps, biases, scale, shift, emb, scratch0,
+    return cnn_forward<kOnePass>(mel, t_in, caches_in, caches_out, taps, biases, scale, shift, emb, scratch0,
                              scratch1, n_streams, stream);
 }

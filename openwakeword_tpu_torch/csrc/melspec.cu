@@ -18,7 +18,7 @@
 //
 // What bounds it: 8 frames x 512 samples x kLiveBins bins x 2 (cos, sin)
 // FMAs, about 2 MFLOP per stream per step against 7 KB of input: compute on
-// the fp32 pipes (fp32 FFMA keeps the "highest"/"high" tiers). The design is
+// the fp32 pipes (fp32 FFMA keeps the "highest" tier exact). The design is
 // one GEMM with a fused epilogue. Rows are (stream, frame), 8 * S of them,
 // implicit: row (s, f) is window[s, 160 f : 160 f + 512]. Columns are the
 // cos and -sin of each live bin with the Hann window folded in (the
@@ -41,7 +41,7 @@
 // Any S >= 1: streams past the end of the last block read zeros and are
 // not written.
 //
-// 1-pass variants (kOnePass = true; entry points *_1pass): the arithmetic of
+// 1-pass variants (ARITH = kOnePass; entry points *_1pass): the arithmetic of
 // the TPU kernels at precision None/DEFAULT, whose MXU products round each
 // operand to bf16 and sum in f32. A bf16 x bf16 product is exact in fp32, so
 // the variants keep the fp32 FFMA loops above and round where the TPU
@@ -53,12 +53,22 @@
 // keeps bin 256's in fp32, as _make_factored_kernel does. Their bound is
 // the same operations over the card's dense bf16 tensor-core rate: these
 // FFMA variants are the simple first version.
+//
+// 3-pass variants (ARITH = kThreePass; entry points *_3pass): the TPU kernels at
+// Precision.HIGH, each operand split into bf16 halves and each product taken
+// as hi*hi + hi*lo + lo*hi with fp32 sums (bf16_arith.cuh). The host passes
+// the basis and the mel weights split, as packed words, so the basis slices
+// move through the same 16-byte cp.async and take the shared memory of the
+// fp32 kernels; the kernels split the window samples into words as they
+// stage them and the power before the mel projection. Kernel 2 keeps bin
+// 256's power and mel row unsplit, as _make_factored_kernel does. Bound:
+// three times the 1-pass operations at the dense bf16 rate.
 
 #include <atomic>
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "bf16_arith.cuh"
 #include "mel_program.h"
 
 namespace {
@@ -111,12 +121,6 @@ __device__ __forceinline__ void cp_async_wait() {
     asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
 }
 
-// v rounded to bf16 (round-to-nearest-even) where the variant is 1-pass.
-template <bool kOnePass>
-__device__ __forceinline__ float operand(float v) {
-    return kOnePass ? __bfloat162float(__float2bfloat16_rn(v)) : v;
-}
-
 // Starts the copy of basis rows [kSliceK * slice, kSliceK * (slice + 1)) into
 // `dst` as one cp.async group.
 __device__ __forceinline__ void load_slice(float* dst, const float* __restrict__ basis, int slice) {
@@ -127,7 +131,7 @@ __device__ __forceinline__ void load_slice(float* dst, const float* __restrict__
     cp_async_commit();
 }
 
-template <bool kOnePass>
+template <int ARITH>
 __global__ void __launch_bounds__(kThreads, kThreads <= 256 ? 2 : 1)
 melspec_frames_kernel(const float* __restrict__ windows,   // (S, kWindow)
                       const float* __restrict__ basis,     // (kNfft, kCols): cos, -sin per live bin
@@ -150,7 +154,7 @@ melspec_frames_kernel(const float* __restrict__ windows,   // (S, kWindow)
         const int s = i / kSpan;
         const int n = i - s * kSpan;
         const float v = s < n_valid ? windows[static_cast<size_t>(s0 + s) * kWindow + n] : 0.0f;
-        win[kStreams * n + kPad * (n / kHop) + s] = operand<kOnePass>(v);
+        win[kStreams * n + kPad * (n / kHop) + s] = operand<ARITH>(v);
     }
 
     float re[kStreams][kBinsPerThread];
@@ -189,8 +193,8 @@ melspec_frames_kernel(const float* __restrict__ windows,   // (S, kWindow)
             for (int s = 0; s < kStreams; ++s) {
 #pragma unroll
                 for (int q = 0; q < kBinsPerThread; ++q) {
-                    re[s][q] = fmaf(x[s], c[q], re[s][q]);
-                    im[s][q] = fmaf(x[s], sn[q], im[s][q]);
+                    re[s][q] = mac<ARITH>(x[s], c[q], re[s][q]);
+                    im[s][q] = mac<ARITH>(x[s], sn[q], im[s][q]);
                 }
             }
         }
@@ -203,10 +207,10 @@ melspec_frames_kernel(const float* __restrict__ windows,   // (S, kWindow)
 #pragma unroll
     for (int s = 0; s < kStreams; ++s) {
         float4 p;
-        p.x = operand<kOnePass>(re[s][0] * re[s][0] + im[s][0] * im[s][0]);
-        p.y = operand<kOnePass>(re[s][1] * re[s][1] + im[s][1] * im[s][1]);
-        p.z = operand<kOnePass>(re[s][2] * re[s][2] + im[s][2] * im[s][2]);
-        p.w = operand<kOnePass>(re[s][3] * re[s][3] + im[s][3] * im[s][3]);
+        p.x = operand<ARITH>(re[s][0] * re[s][0] + im[s][0] * im[s][0]);
+        p.y = operand<ARITH>(re[s][1] * re[s][1] + im[s][1] * im[s][1]);
+        p.z = operand<ARITH>(re[s][2] * re[s][2] + im[s][2] * im[s][2]);
+        p.w = operand<ARITH>(re[s][3] * re[s][3] + im[s][3] * im[s][3]);
         *reinterpret_cast<float4*>(power + (kFrames * s + f) * kPowStride + kBinsPerThread * g) = p;
     }
     for (int i = 4 * tid; i < kLiveBinsPad * kMels; i += 4 * kThreads) {
@@ -231,10 +235,10 @@ melspec_frames_kernel(const float* __restrict__ windows,   // (S, kWindow)
             const int r = warp + kWarps * i;
             if (kRows % kWarps == 0 || r < kRows) {
                 const float4 p = *reinterpret_cast<const float4*>(power + r * kPowStride + k);
-                acc[i] = fmaf(p.x, w0, acc[i]);
-                acc[i] = fmaf(p.y, w1, acc[i]);
-                acc[i] = fmaf(p.z, w2, acc[i]);
-                acc[i] = fmaf(p.w, w3, acc[i]);
+                acc[i] = mac<ARITH>(p.x, w0, acc[i]);
+                acc[i] = mac<ARITH>(p.y, w1, acc[i]);
+                acc[i] = mac<ARITH>(p.z, w2, acc[i]);
+                acc[i] = mac<ARITH>(p.w, w3, acc[i]);
             }
         }
     }
@@ -273,7 +277,7 @@ static_assert(kTileS * kMels == kFactoredThreads, "one thread per (stream, mel) 
 static_assert(kNfft % kRadix == 0 && kTileS % 4 == 0, "radix-4 branches; frames read as float4 over streams");
 static_assert(kFreqs <= kNfft, "the power reuses the frame buffer");
 
-template <bool kOnePass>
+template <int ARITH>
 __global__ void __launch_bounds__(kFactoredThreads)
 melspec_frames_factored_kernel(const float* __restrict__ windows,
                                const float2* __restrict__ basis,   // (128 a, 128 d, 4 b) of (Re, Im)
@@ -293,7 +297,7 @@ melspec_frames_factored_kernel(const float* __restrict__ windows,
         if (s < n_valid) {
             v = windows[static_cast<size_t>(s0 + s) * kWindow + kHop * frame + n];
         }
-        smem[n * kTileS + s] = operand<kOnePass>(v);
+        smem[n * kTileS + s] = operand<ARITH>(v);
     }
     __syncthreads();
 
@@ -313,14 +317,14 @@ melspec_frames_factored_kernel(const float* __restrict__ windows,
 #pragma unroll
         for (int q = 0; q < kTileS / 4; ++q) {
             const float4 x = x4[q];
-            re[4 * q + 0] = fmaf(x.x, w.x, re[4 * q + 0]);
-            im[4 * q + 0] = fmaf(x.x, w.y, im[4 * q + 0]);
-            re[4 * q + 1] = fmaf(x.y, w.x, re[4 * q + 1]);
-            im[4 * q + 1] = fmaf(x.y, w.y, im[4 * q + 1]);
-            re[4 * q + 2] = fmaf(x.z, w.x, re[4 * q + 2]);
-            im[4 * q + 2] = fmaf(x.z, w.y, im[4 * q + 2]);
-            re[4 * q + 3] = fmaf(x.w, w.x, re[4 * q + 3]);
-            im[4 * q + 3] = fmaf(x.w, w.y, im[4 * q + 3]);
+            re[4 * q + 0] = mac<ARITH>(x.x, w.x, re[4 * q + 0]);
+            im[4 * q + 0] = mac<ARITH>(x.x, w.y, im[4 * q + 0]);
+            re[4 * q + 1] = mac<ARITH>(x.y, w.x, re[4 * q + 1]);
+            im[4 * q + 1] = mac<ARITH>(x.y, w.y, im[4 * q + 1]);
+            re[4 * q + 2] = mac<ARITH>(x.z, w.x, re[4 * q + 2]);
+            im[4 * q + 2] = mac<ARITH>(x.z, w.y, im[4 * q + 2]);
+            re[4 * q + 3] = mac<ARITH>(x.w, w.x, re[4 * q + 3]);
+            im[4 * q + 3] = mac<ARITH>(x.w, w.y, im[4 * q + 3]);
         }
     }
 
@@ -343,7 +347,7 @@ melspec_frames_factored_kernel(const float* __restrict__ windows,
         if (b == 0) {
             const float sr = e_re + f_re;
             const float si = e_im + f_im;
-            power[s * kFreqs + d] = operand<kOnePass>(sr * sr + si * si);
+            power[s * kFreqs + d] = operand<ARITH>(sr * sr + si * si);
             if (d == 0) {
                 const float dr = e_re - f_re;
                 const float di = e_im - f_im;
@@ -352,7 +356,7 @@ melspec_frames_factored_kernel(const float* __restrict__ windows,
         } else if (b == 2) {
             const float cr = e_re + f_im;
             const float ci = e_im - f_re;
-            power[s * kFreqs + kSub + d] = operand<kOnePass>(cr * cr + ci * ci);
+            power[s * kFreqs + kSub + d] = operand<ARITH>(cr * cr + ci * ci);
         }
     }
     __syncthreads();
@@ -364,8 +368,8 @@ melspec_frames_factored_kernel(const float* __restrict__ windows,
         float lo = 0.0f;
         float hi = 0.0f;
         for (int f = 0; f < kSub; ++f) {
-            lo = fmaf(p[f], melw[f * kMels + m], lo);
-            hi = fmaf(p[kSub + f], melw[(kSub + f) * kMels + m], hi);
+            lo = mac<ARITH>(p[f], melw[f * kMels + m], lo);
+            hi = mac<ARITH>(p[kSub + f], melw[(kSub + f) * kMels + m], hi);
         }
         const float mel = (lo + hi) + p[2 * kSub] * melw[2 * kSub * kMels + m];
         out[(static_cast<size_t>(s0 + s) * kFrames + frame) * kMels + m] =
@@ -378,7 +382,7 @@ melspec_frames_factored_kernel(const float* __restrict__ windows,
 // made on the first launch on each device only.
 constexpr size_t kSmemBytes = kSmemFloats * sizeof(float);
 
-template <bool kOnePass>
+template <int ARITH>
 cudaError_t allow_melspec_smem() {
     int device = 0;
     cudaError_t err = cudaGetDevice(&device);
@@ -390,7 +394,7 @@ cudaError_t allow_melspec_smem() {
     if (bit != 0 && (allowed.load(std::memory_order_acquire) & bit) != 0) {
         return cudaSuccess;
     }
-    err = cudaFuncSetAttribute(melspec_frames_kernel<kOnePass>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    err = cudaFuncSetAttribute(melspec_frames_kernel<ARITH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                kSmemBytes);
     if (err == cudaSuccess) {
         allowed.fetch_or(bit, std::memory_order_acq_rel);
@@ -398,30 +402,30 @@ cudaError_t allow_melspec_smem() {
     return err;
 }
 
-template <bool kOnePass>
+template <int ARITH>
 int launch_factored(const float* windows, const float* basis, const float* melw, float* out, int n_streams,
                     void* stream) {
     if (n_streams <= 0) {
         return 0;
     }
     const dim3 grid((n_streams + kTileS - 1) / kTileS, kFrames);
-    melspec_frames_factored_kernel<kOnePass><<<grid, kFactoredThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+    melspec_frames_factored_kernel<ARITH><<<grid, kFactoredThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         windows, reinterpret_cast<const float2*>(basis), melw, out, n_streams);
     return static_cast<int>(cudaGetLastError());
 }
 
-template <bool kOnePass>
+template <int ARITH>
 int launch_direct(const float* windows, const float* basis, const float* melw, float* out, int n_streams,
                   void* stream) {
     if (n_streams <= 0) {
         return 0;
     }
-    const cudaError_t err = allow_melspec_smem<kOnePass>();
+    const cudaError_t err = allow_melspec_smem<ARITH>();
     if (err != cudaSuccess) {
         return static_cast<int>(err);
     }
     const int grid = (n_streams + kStreams - 1) / kStreams;
-    melspec_frames_kernel<kOnePass><<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
+    melspec_frames_kernel<ARITH><<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
         windows, basis, melw, out, n_streams);
     return static_cast<int>(cudaGetLastError());
 }
@@ -430,23 +434,35 @@ int launch_direct(const float* windows, const float* basis, const float* melw, f
 
 // C entry points: launch on `stream` and return cudaGetLastError() (0 = the
 // launch was accepted). Pointers are device pointers to contiguous float32;
-// the *_1pass entries take the rounded constants of the 1-pass variants.
+// the *_1pass entries take the rounded constants of the 1-pass variants, the
+// *_3pass entries the split words of the 3-pass ones (kernel 2's last mel
+// row as float32).
 extern "C" int owwt_melspec_frames(const float* windows, const float* basis, const float* melw, float* out,
                                    int n_streams, void* stream) {
-    return launch_direct<false>(windows, basis, melw, out, n_streams, stream);
+    return launch_direct<kFp32>(windows, basis, melw, out, n_streams, stream);
 }
 
 extern "C" int owwt_melspec_frames_1pass(const float* windows, const float* basis, const float* melw, float* out,
                                          int n_streams, void* stream) {
-    return launch_direct<true>(windows, basis, melw, out, n_streams, stream);
+    return launch_direct<kOnePass>(windows, basis, melw, out, n_streams, stream);
 }
 
 extern "C" int owwt_melspec_frames_factored(const float* windows, const float* basis, const float* melw,
                                             float* out, int n_streams, void* stream) {
-    return launch_factored<false>(windows, basis, melw, out, n_streams, stream);
+    return launch_factored<kFp32>(windows, basis, melw, out, n_streams, stream);
 }
 
 extern "C" int owwt_melspec_frames_factored_1pass(const float* windows, const float* basis, const float* melw,
                                                   float* out, int n_streams, void* stream) {
-    return launch_factored<true>(windows, basis, melw, out, n_streams, stream);
+    return launch_factored<kOnePass>(windows, basis, melw, out, n_streams, stream);
+}
+
+extern "C" int owwt_melspec_frames_3pass(const float* windows, const float* basis, const float* melw, float* out,
+                                         int n_streams, void* stream) {
+    return launch_direct<kThreePass>(windows, basis, melw, out, n_streams, stream);
+}
+
+extern "C" int owwt_melspec_frames_factored_3pass(const float* windows, const float* basis, const float* melw,
+                                                  float* out, int n_streams, void* stream) {
+    return launch_factored<kThreePass>(windows, basis, melw, out, n_streams, stream);
 }

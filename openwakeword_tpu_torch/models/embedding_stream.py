@@ -102,16 +102,20 @@ def _weight_mat(w: torch.Tensor) -> torch.Tensor:
     return w.permute(0, 2, 3, 1).reshape(cout, -1)
 
 
-def _conv_t(x: torch.Tensor, wmat: torch.Tensor, kh: int, kw: int, mode=None) -> torch.Tensor:
+def _conv_t(x: torch.Tensor, wmat: torch.Tensor, kh: int, kw: int, arith: str = "fp32") -> torch.Tensor:
     """x: (Cin, T, W, S) unpadded/valid, wmat from ``_weight_mat`` ->
-    (Cout, T-kh+1, W-kw+1, S), 1-pass where ``mode`` says so or ``wmat``
-    is bf16 (a float32 ``wmat`` then comes rounded, ``bf16.weight``)."""
-    x, wmat = bf16.operands(x, wmat, mode)
+    (Cout, T-kh+1, W-kw+1, S) in the arithmetic ``arith`` of the CNN step
+    kernels (``config.ARITHS``): float32, '1pass' (x rounded to bf16; wmat
+    comes rounded) or '3pass' (``bf16.product_3pass`` of wmat and x)."""
+    x, wmat = x.to(torch.float32), wmat.to(torch.float32)
+    if arith == "1pass":
+        x = bf16.round_bf16(x)
     _, t, wd, s = x.shape
     t_out, w_out = t - kh + 1, wd - kw + 1
     taps = [x[:, dt:dt + t_out, dw:dw + w_out, :] for dt in range(kh) for dw in range(kw)]
     col = torch.cat(taps, dim=0) if len(taps) > 1 else taps[0]
-    out = torch.matmul(wmat, col.reshape(col.shape[0], -1))
+    col = col.reshape(col.shape[0], -1)
+    out = bf16.product_3pass(torch.matmul, wmat, col) if arith == "3pass" else torch.matmul(wmat, col)
     return out.reshape(wmat.shape[0], t_out, w_out, s)
 
 
@@ -129,16 +133,17 @@ def _pool_t(x: torch.Tensor, window) -> torch.Tensor:
 
 def _forward_t(folded: Dict, x: torch.Tensor, caches: Optional[Dict] = None,
                weight_mats: Optional[List[torch.Tensor]] = None,
-               precision=None) -> Tuple[Dict, torch.Tensor]:
+               arith: str = "fp32") -> Tuple[Dict, torch.Tensor]:
     """The layer program in (C, T, W, S) layout.
 
     With ``caches`` given, runs one streaming step (consuming and refreshing
     the 2-row tails); with ``caches=None`` primes from a full window,
     capturing the tails. ``weight_mats`` (one ``_weight_mat`` per conv) skips
-    rebuilding them. ``precision`` 'bf16' is the 1-pass mode of the JAX
-    kernel's ``_dot``: every conv's input (cache rows included) and weights
-    rounded to bf16, the sums float32; the caches keep the inputs unrounded,
-    as the JAX kernel's do. Returns (new caches, embedding (96, S)).
+    rebuilding them. ``arith`` is the arithmetic of the JAX kernel's
+    ``_dot`` modes (``_conv_t``): '1pass' ("bf16") rounds every conv's input
+    (cache rows included) and weights to bf16, '3pass' ("high") splits
+    them, the sums float32; the caches keep the inputs as computed, as the
+    JAX kernel's do. Returns (new caches, embedding (96, S)).
     """
     new_caches: Dict[str, torch.Tensor] = {}
     prime = caches is None
@@ -159,7 +164,7 @@ def _forward_t(folded: Dict, x: torch.Tensor, caches: Optional[Dict] = None,
                 new_caches[name] = x[:, -2:].contiguous()
             c = folded[f"conv_{conv_i}"]
             wmat = weight_mats[conv_i] if weight_mats is not None else _weight_mat(c["w"])
-            x = _conv_t(x, wmat, kh, kw, E.layer_precision(precision, conv_i)) + c["b"][:, None, None, None]
+            x = _conv_t(x, wmat, kh, kw, arith) + c["b"][:, None, None, None]
             if act == "relu":
                 x = torch.relu(x)
             conv_i += 1

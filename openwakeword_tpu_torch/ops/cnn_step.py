@@ -4,8 +4,9 @@
 State for this path is stream-minor: conv caches are (C, 2, W, S), the mel
 rows arrive as (8, 32, S) and the embedding leaves as (96, S). On a CUDA
 tensor ``CnnStepKernel.step`` runs kernel 3 and ``prime`` kernel 4
-(``ops.cnn_step_cuda``, ``csrc/cnn_step.cu``; at ``precision="bf16"`` their
-1-pass variants, ``csrc/cnn_step_bf16.cu``); on a CPU tensor both run
+(``ops.cnn_step_cuda``, ``csrc/cnn_step.cu``; at ``precision="high"``
+their 3-pass variants, ``csrc/cnn_step_high.cu``, at ``precision="bf16"``
+their 1-pass variants, ``csrc/cnn_step_bf16.cu``); on a CPU tensor both run
 their plain PyTorch versions. The stream tile is the kernels' own
 choice, so any S >= 1 works.
 """
@@ -14,11 +15,11 @@ from typing import Dict, List, Tuple
 
 import torch
 
-from openwakeword_tpu_torch import convert
+from openwakeword_tpu_torch import config, convert
 from openwakeword_tpu_torch.models import embedding as E
 from openwakeword_tpu_torch.models import embedding_stream
 from openwakeword_tpu_torch.ops import cnn_step_cuda
-from openwakeword_tpu_torch.ops.bf16 import round_bf16
+from openwakeword_tpu_torch.ops.bf16 import pack_split, round_bf16
 from openwakeword_tpu_torch.ops.cnn_step_cuda import CnnParams
 
 
@@ -96,13 +97,18 @@ def cache_shapes() -> List[Tuple[str, Tuple[int, int, int]]]:
     return shapes
 
 
-def prep_params(folded: Dict, one_pass: bool = False) -> CnnParams:
+def prep_params(folded: Dict, arith: str = "fp32") -> CnnParams:
     """The port's BN-folded params (OIHW convs) -> per conv a
     (kh*kw, Cout, Cin) tap stack and a (Cout, 1) bias, the stem affine as
     (24, 1) scale and shift, and the (Cout, kh*kw*Cin) weight matrices of
     the plain version; all float32 and contiguous on the params' device.
-    Weights may be float32 or bf16; ``one_pass`` rounds them to bf16 (in
-    float32 tensors) for the 1-pass variants."""
+    Weights may be float32 or bf16. ``arith`` (``config.ARITHS``) is the
+    variant: '1pass' rounds the weights to bf16 (in float32 tensors); '3pass'
+    splits the taps once, on the host, into int32 words of bf16 (hi, lo)
+    halves (``bf16.pack_split``), and leaves the plain version's matrices
+    float32 (it splits them per product, at the same rounding points)."""
+    if arith not in config.ARITHS:
+        raise ValueError(f"unknown arithmetic {arith!r} (expected one of {config.ARITHS})")
     taps, biases, mats = [], [], []
     conv_i = 0
     for layer in E.spec():
@@ -112,9 +118,10 @@ def prep_params(folded: Dict, one_pass: bool = False) -> CnnParams:
         w = c["w"]                                            # (Cout, Cin, kh, kw)
         if w.dtype not in (torch.float32, torch.bfloat16):
             raise TypeError(f"conv_{conv_i} weights are {w.dtype}: the CNN step takes float32 or bf16")
-        w = round_bf16(w) if one_pass else w.to(torch.float32)
+        w = round_bf16(w) if arith == "1pass" else w.to(torch.float32)
         cout, cin, kh, kw = w.shape
-        taps.append(w.permute(2, 3, 0, 1).reshape(kh * kw, cout, cin).contiguous())
+        tap = w.permute(2, 3, 0, 1).reshape(kh * kw, cout, cin).contiguous()
+        taps.append(pack_split(tap.cpu()).to(tap.device) if arith == "3pass" else tap)
         biases.append(c["b"].to(torch.float32).reshape(cout, 1).contiguous())
         mats.append(embedding_stream._weight_mat(w).contiguous())
         conv_i += 1
@@ -125,7 +132,7 @@ def prep_params(folded: Dict, one_pass: bool = False) -> CnnParams:
     return CnnParams(tuple(taps), tuple(biases),
                      scale.to(torch.float32).reshape(-1, 1).contiguous(),
                      shift.to(torch.float32).reshape(-1, 1).contiguous(),
-                     tuple(mats), folded, tuple(cache_shapes()), bool(one_pass))
+                     tuple(mats), folded, tuple(cache_shapes()), arith)
 
 
 class CnnStepKernel:
@@ -134,14 +141,16 @@ class CnnStepKernel:
     step(caches, new_mel_t (8, 32, S))  -> (new caches, emb (96, S))
     prime(mel_window_t (76, 32, S))     -> (caches, emb (96, S))
 
-    ``precision`` takes the modes of the JAX kernel's ``_dot``: 'highest'
-    and 'high' run the float32 kernels, 'bf16' their 1-pass bf16 variants
-    (weights rounded here, inputs as the kernels stage them; the caches stay
-    float32 and hold the inputs unrounded, as JAX's do when it is given
-    float32 caches). Any other value raises ValueError: 'fast' and 'mixed'
-    are engine tiers, not modes of this kernel (JAX's ``CnnStepKernel``
-    raises KeyError for them at ``prime``). ``device`` (default: that of the
-    params) is where the params live.
+    ``precision`` takes the modes of the JAX kernel's ``_dot`` and maps them
+    as it does (``config.kernel_arith``): 'highest' runs the float32 kernels,
+    'high' (the default, as in JAX) their 3-pass bf16 variants (weights split
+    here, inputs as the kernels stage them), 'bf16' their 1-pass bf16
+    variants (weights rounded here, inputs as the kernels stage them). The
+    caches stay float32 and hold the inputs unrounded and unsplit, as JAX's
+    do when it is given float32 caches. Any other value raises ValueError:
+    'fast' and 'mixed' are engine tiers, not modes of this kernel (JAX's
+    ``CnnStepKernel`` raises KeyError for them at ``prime``). ``device``
+    (default: that of the params) is where the params live.
     """
 
     PRECISIONS = ("highest", "high", "bf16")
@@ -152,7 +161,7 @@ class CnnStepKernel:
         self.precision = precision
         if device is not None:
             folded = convert.to_device(folded, torch.device(device))
-        self.params = prep_params(folded, one_pass=precision == "bf16")
+        self.params = prep_params(folded, config.kernel_arith(precision))
         self.cache_names = [name for name, _ in self.params.cache_shapes]
 
     def _named(self, caches: List[torch.Tensor]) -> Dict[str, torch.Tensor]:

@@ -8,24 +8,27 @@ return (embedding (96, S), the eleven new caches). A CPU tensor goes through
 the plain PyTorch version (``cnn_step_plain`` / ``cnn_prime_plain``, built on
 ``models.embedding_stream._forward_t``); a CUDA tensor goes through
 ``csrc/cnn_step.cu`` or the call raises. The new caches are fresh tensors:
-the kernel never writes a cache it reads. Params prepped with ``one_pass``
-(``CnnParams.one_pass``) run the 1-pass bf16 variants
-(``csrc/cnn_step_bf16.cu``, the JAX kernel's ``_dot(mode="bf16")``):
-weights rounded by the host, every conv input rounded as the kernel stages
-it, sums, epilogues and caches in float32. Each wrapper counts its launches
-in ``.launches[variant(one_pass)]``.
+the kernel never writes a cache it reads. ``CnnParams.arith`` picks the
+variant, as the JAX kernel's ``_dot`` mode does: 'fp32' (``"highest"``),
+'1pass' (``csrc/cnn_step_bf16.cu``, ``"bf16"``: weights rounded by the
+host, every conv input rounded as the kernel stages it) or '3pass'
+(``csrc/cnn_step_high.cu``, ``"high"``: weights split by the host into
+packed bf16 (hi, lo) words, ``bf16.pack_split``, every conv input split as
+the kernel stages it); sums, epilogues and caches stay float32. Each
+wrapper counts its launches in ``.launches[params.arith]``.
 ``conv_tiles`` picks each conv's block tile, which the build compiles in
 through the generated header ``cnn_tiles.h``.
 """
 
-import contextlib
 import ctypes
 import functools
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from openwakeword_tpu_torch import config
 from openwakeword_tpu_torch.models import embedding_stream
+from openwakeword_tpu_torch.ops.bf16 import fp32_matmul
 from openwakeword_tpu_torch.utils import cuda_build
 
 STEP_ROWS = 8            # new mel rows per step
@@ -42,13 +45,8 @@ THREAD_CHANNELS = 8
 STAGES = 3
 MAX_TILE_THREADS = 256
 SMEM_LIMIT = 227 * 1024    # shared memory one block may take on an H100
-_ENTRY = {"fp32": "owwt_cnn_forward", "1pass": "owwt_cnn_forward_bf16"}
-VARIANTS = tuple(_ENTRY)      # the fp32 kernels and their 1-pass bf16 variants
-
-
-def variant(one_pass: bool = False) -> str:
-    """The kernel variant's name: '1pass' for the 1-pass one, else 'fp32'."""
-    return "1pass" if one_pass else "fp32"
+_ENTRY = {"fp32": "owwt_cnn_forward", "1pass": "owwt_cnn_forward_bf16", "3pass": "owwt_cnn_forward_high"}
+VARIANTS = config.ARITHS      # the fp32 kernels and their 1-pass and 3-pass bf16 variants
 
 
 class ConvTile(NamedTuple):
@@ -107,47 +105,35 @@ def tile_smem_bytes(conv: Tuple[int, ...], tile: ConvTile) -> int:
 class CnnParams(NamedTuple):
     """The BN-folded CNN as the kernels and their plain versions take it
     (built by ``ops.cnn_step.prep_params``)."""
-    taps: Tuple[torch.Tensor, ...]      # per conv: (kh*kw, Cout, Cin), the kernels'
+    taps: Tuple[torch.Tensor, ...]      # per conv: (kh*kw, Cout, Cin), the kernels' (int32 split words at 3-pass)
     biases: Tuple[torch.Tensor, ...]    # per conv: (Cout, 1)
     scale: torch.Tensor                 # the stem's affine, (24, 1)
     shift: torch.Tensor                 # (24, 1)
     mats: Tuple[torch.Tensor, ...]      # per conv: (Cout, kh*kw*Cin), the plain versions'
     folded: Dict                        # the folded params (biases and affine of the plain versions)
     cache_shapes: Tuple[Tuple[str, Tuple[int, int, int]], ...]   # (name, (C, 2, W)), program order
-    one_pass: bool = False              # taps and mats rounded, the 1-pass variants run
-
-
-@contextlib.contextmanager
-def _fp32_matmul():
-    """Full fp32 products (TF32 off) for the duration, whatever the caller set."""
-    before = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = before
+    arith: str = "fp32"                 # the variant: '1pass' rounds taps and mats, '3pass' splits the taps
 
 
 def _plain(params: CnnParams, x: torch.Tensor, caches: Optional[Sequence[torch.Tensor]]):
     names = [name for name, _ in params.cache_shapes]
     caches = None if caches is None else dict(zip(names, caches))
-    with _fp32_matmul():
-        new, emb = embedding_stream._forward_t(params.folded, x[None], caches, list(params.mats),
-                                               "bf16" if params.one_pass else None)
+    with fp32_matmul():
+        new, emb = embedding_stream._forward_t(params.folded, x[None], caches, list(params.mats), params.arith)
     return emb, [new[name] for name in names]
 
 
 def cnn_step_plain(params: CnnParams, caches: Sequence[torch.Tensor],
                    mel_t: torch.Tensor) -> Tuple[torch.Tensor, List[torch.Tensor]]:
     """Plain PyTorch version of kernel 3: ``embedding_stream`` step in
-    (C, T, W, S) layout, 1-pass where ``params.one_pass``."""
+    (C, T, W, S) layout, in the arithmetic ``params.arith``."""
     return _plain(params, mel_t, caches)
 
 
 def cnn_prime_plain(params: CnnParams, mel_window_t: torch.Tensor
                     ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
     """Plain PyTorch version of kernel 4: ``embedding_stream`` prime in
-    (C, T, W, S) layout, 1-pass where ``params.one_pass``."""
+    (C, T, W, S) layout, in the arithmetic ``params.arith``."""
     return _plain(params, mel_window_t, None)
 
 
@@ -201,7 +187,7 @@ def _launch(wrapper, params: CnnParams, x: torch.Tensor, caches: Optional[Sequen
            for _, shape in params.cache_shapes]
     if n_streams == 0:
         return emb, new
-    lib, name = _lib(), variant(params.one_pass)
+    lib, name = _lib(), params.arith
     per_stream = lib.owwt_cnn_scratch_floats(rows, int(caches is None))
     if per_stream < 0:
         raise ValueError(f"the CNN program does not fit a {rows}-row input")

@@ -9,10 +9,11 @@ tensor ops are the plain reference path of the port: the STFT is one
 radix-4 butterfly (``dft="factored"``), then power, the (257, 32) Slaney mel
 projection and librosa-style power_to_db.
 Inputs are raw int16-range float32 values, not normalized to [-1, 1].
-``one_pass=True`` is the arithmetic of the TPU kernels at
-``precision=None``/``DEFAULT`` (``melspec_pallas._make_kernel`` and
-``_make_factored_kernel``): 1-pass bf16 products with float32 sums, rounded
-at the points those kernels round (``ops.bf16``).
+``arith`` picks the arithmetic of the TPU kernels (``melspec_pallas._make_kernel``
+and ``_make_factored_kernel``): 'fp32' is ``precision=HIGHEST``, '1pass'
+``None``/``DEFAULT`` (1-pass bf16 products with float32 sums) and '3pass'
+``HIGH`` (3-pass bf16 splits), each rounded or split at the points those
+kernels take (``ops.bf16``, ``_mel_bf16``).
 """
 
 import functools
@@ -21,7 +22,7 @@ import numpy as np
 import torch
 
 from openwakeword_tpu_torch import config
-from openwakeword_tpu_torch.ops.bf16 import round_bf16
+from openwakeword_tpu_torch.ops import bf16
 
 
 # ---------------------------------------------------------------------------
@@ -214,25 +215,27 @@ def power_to_db(mel: torch.Tensor,
     return log_spec
 
 
-def _mel_1pass(frames: torch.Tensor, dft: str) -> torch.Tensor:
-    """The (..., T, 32) mel power of the TPU kernels' 1-pass arithmetic:
-    'direct' rounds the frames and the windowed basis before the DFT, the
-    power and the mel weights before the mel projection; 'factored' rounds
-    the branch operands and bases before the four branch products, runs the
-    butterfly in float32, rounds the power of bins [0, 256) and their mel
-    weights before their mel products, and adds bin 256's power times its
+def _mel_bf16(frames: torch.Tensor, dft: str, arith: str) -> torch.Tensor:
+    """The (..., T, 32) mel power in the TPU kernels' 1-pass or 3-pass
+    arithmetic (``bf16.product_1pass`` / ``product_3pass``, for ``arith``
+    '1pass' / '3pass'): 'direct' takes the product of the frames and the
+    windowed basis, then of the power and the mel weights; 'factored' takes
+    the four branch products of the branch operands and bases, runs the
+    butterfly in float32, takes the products of the power of bins [0, 128)
+    and [128, 256) and their mel weights, and adds bin 256's power times its
     mel weights in float32."""
+    product = bf16.product_1pass if arith == "1pass" else bf16.product_3pass
     dev = frames.device
     melw = f32_const(mel_filterbank(), dev)                    # (257, 32)
     if dft == "direct":
-        spec = round_bf16(frames) @ round_bf16(f32_const(stft_power_basis(), dev))
+        spec = product(torch.matmul, frames, f32_const(stft_power_basis(), dev))
         power = spec[..., 0::2] ** 2 + spec[..., 1::2] ** 2
-        return round_bf16(power) @ round_bf16(melw)
-    bases = round_bf16(f32_const(factored_dft_bases(), dev))
-    z = torch.einsum("...ba,bad->...bd", round_bf16(deinterleave_branches(frames)), bases)
+        return product(torch.matmul, power, melw)
+    z = product(lambda a, b: torch.einsum("...ba,bad->...bd", a, b),
+                deinterleave_branches(frames), f32_const(factored_dft_bases(), dev))
     p0, p1, p2 = _factored_power_parts(z)
     sub = p0.shape[-1]
-    return (round_bf16(p0) @ round_bf16(melw[:sub]) + round_bf16(p1) @ round_bf16(melw[sub:2 * sub])
+    return (product(torch.matmul, p0, melw[:sub]) + product(torch.matmul, p1, melw[sub:2 * sub])
             + p2 * melw[2 * sub:])
 
 
@@ -240,20 +243,23 @@ def melspectrogram(x: torch.Tensor,
                    apply_transform: bool = True,
                    top_db: float = config.MEL_TOP_DB,
                    dft: str = "direct",
-                   one_pass: bool = False) -> torch.Tensor:
+                   arith: str = "fp32") -> torch.Tensor:
     """Log-mel spectrogram of raw int16-range audio (..., N) -> (..., T, 32),
-    in full float32 (JAX's ``precision=HIGHEST``), or with ``one_pass`` in
-    the TPU kernels' 1-pass bf16 arithmetic (``_mel_1pass``). With
+    in full float32 (``arith='fp32'``, JAX's ``precision=HIGHEST``), or in
+    the TPU kernels' 1-pass or 3-pass bf16 arithmetic ('1pass', '3pass';
+    ``_mel_bf16``). With
     ``apply_transform`` the downstream affine spec/10 + 2 is applied.
     ``dft='factored'`` computes the spectrum by the radix-4 factored DFT
     (``factored_dft_bases``): equal to 'direct' up to float32 rounding, not
     bit-equal."""
     if dft not in ("direct", "factored"):
         raise ValueError(f"unknown dft mode {dft!r} (expected 'direct' or 'factored')")
+    if arith not in config.ARITHS:
+        raise ValueError(f"unknown arithmetic {arith!r} (expected one of {config.ARITHS})")
     x = x.to(torch.float32)
     frames = frame_signal(x)                                   # (..., T, 512)
-    if one_pass:
-        mel = _mel_1pass(frames, dft)
+    if arith != "fp32":
+        mel = _mel_bf16(frames, dft, arith)
     else:
         if dft == "factored":
             bases = f32_const(factored_dft_bases(), x.device)  # (4, 128, 256)

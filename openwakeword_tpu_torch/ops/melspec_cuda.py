@@ -5,17 +5,21 @@
 ``dft="direct"`` is kernel 1 (the windowed cos/sin DFT over the live bins
 only, the DFT bins on which the mel filterbank has a non-zero weight),
 ``dft="factored"`` kernel 2 (the radix-4 factored DFT over all 257 bins),
-both in ``csrc/melspec.cu``. With ``one_pass=True`` each runs its 1-pass
-bf16 variant, the arithmetic of the TPU kernels at ``precision=None``
-(``ops.melspec._mel_1pass``): the basis and the mel weights come rounded
-from the host, the kernel rounds the window samples as it stages them and
-the power before the mel projection. The live range comes from
+both in ``csrc/melspec.cu``. ``arith`` picks the arithmetic of the TPU
+kernels (``ops.melspec._mel_bf16``): 'fp32' (``precision=HIGHEST``), the
+1-pass bf16 variant '1pass' (``precision=None``: the basis and the mel
+weights come rounded from the host, the kernel rounds the window samples as
+it stages them and the power before the mel projection) or the 3-pass
+variant '3pass' (``Precision.HIGH``: the basis and the mel weights come
+split from the host, packed as bf16 (hi, lo) pairs, ``bf16.pack_split``;
+the kernel splits the window samples as it stages them and the power before
+the mel projection). The live range comes from
 ``live_bins()`` and reaches the kernel through the generated header
 ``mel_program.h`` (``utils.cuda_build.generated_headers``). A CPU tensor
 goes through ``melspectrogram_frames_plain``, the plain PyTorch version; a
 CUDA tensor goes through the hand-written kernel or the call raises. There
 is no fallback between the two. The wrapper counts each kernel's launches
-in ``melspectrogram_frames.launches[variant(dft, one_pass)]``.
+in ``melspectrogram_frames.launches[variant(dft, arith)]``.
 """
 
 import ctypes
@@ -27,7 +31,7 @@ import torch
 
 from openwakeword_tpu_torch import config
 from openwakeword_tpu_torch.ops import melspec
-from openwakeword_tpu_torch.ops.bf16 import round_bf16
+from openwakeword_tpu_torch.ops.bf16 import pack_split, round_bf16
 from openwakeword_tpu_torch.utils import cuda_build
 
 WINDOW = config.CHUNK_SAMPLES + config.MEL_LOOKBACK_SAMPLES   # 1760
@@ -35,7 +39,8 @@ FRAMES = config.MELS_PER_CHUNK                                # 8
 N_MELS = config.N_MELS                                        # 32
 DFTS = ("direct", "factored")
 _ENTRY = {"direct": "owwt_melspec_frames", "factored": "owwt_melspec_frames_factored",
-          "direct_1pass": "owwt_melspec_frames_1pass", "factored_1pass": "owwt_melspec_frames_factored_1pass"}
+          "direct_1pass": "owwt_melspec_frames_1pass", "factored_1pass": "owwt_melspec_frames_factored_1pass",
+          "direct_3pass": "owwt_melspec_frames_3pass", "factored_3pass": "owwt_melspec_frames_factored_3pass"}
 VARIANTS = tuple(_ENTRY)
 # kernel 1's bins per warp (4 bins per thread x 4 bin groups; mel_program.h
 # carries it to csrc/melspec.cu, which checks it against its warp shape); the
@@ -43,17 +48,18 @@ VARIANTS = tuple(_ENTRY)
 BIN_TILE = 16
 
 
-def variant(dft: str, one_pass: bool = False) -> str:
-    """The kernel variant's name: the DFT, '_1pass' for the 1-pass one."""
-    return dft + ("_1pass" if one_pass else "")
+def variant(dft: str, arith: str = "fp32") -> str:
+    """The kernel variant's name: the DFT, then '_1pass' or '_3pass' for a
+    bf16 variant."""
+    return dft if arith == "fp32" else f"{dft}_{arith}"
 
 
 def melspectrogram_frames_plain(windows: torch.Tensor, dft: str = "direct",
-                                one_pass: bool = False) -> torch.Tensor:
+                                arith: str = "fp32") -> torch.Tensor:
     """Plain PyTorch version: ``melspectrogram(apply_transform=False,
-    top_db=None, dft=dft, one_pass=one_pass)`` of each window, (S, 1760) ->
+    top_db=None, dft=dft, arith=arith)`` of each window, (S, 1760) ->
     (S, 8, 32) dB."""
-    return melspec.melspectrogram(windows, apply_transform=False, top_db=None, dft=dft, one_pass=one_pass)
+    return melspec.melspectrogram(windows, apply_transform=False, top_db=None, dft=dft, arith=arith)
 
 
 @functools.lru_cache(maxsize=None)
@@ -114,26 +120,35 @@ def _kernel_melw(dft: str) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=None)
-def _device_consts(device: torch.device, dft: str, one_pass: bool = False):
-    """The kernel's DFT basis and mel weights, float32, resident on
-    ``device``. For the 1-pass variants both come rounded to bf16, except
-    kernel 2's bin-256 mel row, which multiplies an unrounded power."""
-    basis = melspec.f32_const(_kernel_basis(dft), device)
-    melw = melspec.f32_const(_kernel_melw(dft), device)
-    if one_pass:
+def _device_consts(device: torch.device, dft: str, arith: str = "fp32"):
+    """The kernel's DFT basis and mel weights, resident on ``device``:
+    float32, rounded to bf16 for the 1-pass variants, packed split words
+    (int32, ``pack_split``) for the 3-pass ones, both made on the host; in
+    either bf16 variant kernel 2's bin-256 mel row stays float32, since it
+    multiplies an unsplit power."""
+    basis = melspec.f32_const(_kernel_basis(dft), "cpu")
+    melw = melspec.f32_const(_kernel_melw(dft), "cpu")
+    rows = melw.shape[0] if dft == "direct" else 2 * (config.N_FFT // melspec.RADIX)
+    if arith == "1pass":
         basis = round_bf16(basis)
-        rows = melw.shape[0] if dft == "direct" else 2 * (config.N_FFT // melspec.RADIX)
         melw = torch.cat([round_bf16(melw[:rows]), melw[rows:]])
-    return basis.contiguous(), melw.contiguous()
+    elif arith == "3pass":
+        basis = pack_split(basis)
+        melw = torch.cat([pack_split(melw[:rows]), melw[rows:].contiguous().view(torch.int32)])
+    elif arith != "fp32":
+        raise ValueError(f"unknown arithmetic {arith!r} (expected one of {config.ARITHS})")
+    return basis.contiguous().to(device), melw.contiguous().to(device)
 
 
-def melspectrogram_frames(windows: torch.Tensor, dft: str = "direct", one_pass: bool = False) -> torch.Tensor:
+def melspectrogram_frames(windows: torch.Tensor, dft: str = "direct", arith: str = "fp32") -> torch.Tensor:
     """(S, 1760) float32 windows -> (S, 8, 32) float32 raw dB mel frames;
-    ``one_pass`` picks the 1-pass bf16 variant."""
+    ``arith`` ('fp32', '1pass', '3pass') picks the variant."""
     if dft not in DFTS:
         raise ValueError(f"unknown dft mode {dft!r} (expected 'direct' or 'factored')")
+    if arith not in config.ARITHS:
+        raise ValueError(f"unknown arithmetic {arith!r} (expected one of {config.ARITHS})")
     if windows.device.type == "cpu":
-        return melspectrogram_frames_plain(windows, dft, one_pass)
+        return melspectrogram_frames_plain(windows, dft, arith)
     if windows.device.type != "cuda":
         raise ValueError(f"melspectrogram_frames takes CPU or CUDA tensors, got {windows.device}")
     if windows.dtype != torch.float32:
@@ -146,8 +161,8 @@ def melspectrogram_frames(windows: torch.Tensor, dft: str = "direct", one_pass: 
     out = torch.empty((n_streams, FRAMES, N_MELS), dtype=torch.float32, device=windows.device)
     if n_streams == 0:
         return out
-    name = variant(dft, one_pass)
-    basis, melw = _device_consts(windows.device, dft, bool(one_pass))
+    name = variant(dft, arith)
+    basis, melw = _device_consts(windows.device, dft, arith)
     with torch.cuda.device(windows.device):
         stream = torch.cuda.current_stream(windows.device).cuda_stream
         rc = _kernel_fn(name)(windows.data_ptr(), basis.data_ptr(), melw.data_ptr(),

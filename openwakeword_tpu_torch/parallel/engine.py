@@ -17,13 +17,18 @@ one device with a leading stream axis. One step advances every stream by
    gating.
 
 ``precision`` takes the JAX engine's tiers and follows the arithmetic they
-run on the TPU (``config.check_precision``): 'highest' and 'high' run every
-product in float32, where scores agree with the JAX engine's 'highest'
-within reassociation of float32 sums; 'fast' runs 1-pass bf16 products in
-every stage (the mel kernels' 1-pass variants, rounded operands in the CNN
-and heads); 'bf16' does too, on bf16 weights, with the mel ring, feature
-ring and conv caches stored in bf16; 'mixed' and per-stage dicts set each
-stage (and each conv). Whether a step primes is decided from
+run on the TPU (``config.check_precision``): 'highest' runs every product
+in float32, where scores agree with the JAX engine's 'highest' within
+reassociation of float32 sums; 'high' (the default) runs the mel stage
+through the 3-pass variant of the mel kernel, as the JAX engine runs its
+Pallas mel kernel at ``Precision.HIGH`` on the TPU, and the CNN and the
+heads in float32 (in JAX those are XLA ops, not Pallas bodies; the one
+difference left at 'high', until the CNN step kernels take over the CNN
+stage); 'fast' runs 1-pass bf16 products in every stage (the mel kernels'
+1-pass variants, rounded operands in the CNN and heads); 'bf16' does too,
+on bf16 weights, with the mel ring, feature ring and conv caches stored in
+bf16; 'mixed' and per-stage dicts set each stage (and each conv), a mel
+mode through ``config.kernel_arith``. Whether a step primes is decided from
 a host-side mirror of ``frames_seen``, which host-known inputs fully
 determine (resets, per-stream resets, the ``valid`` masks and the slot ids
 of ``predict_packets``), so no step reads the device; ``load_state``
@@ -407,7 +412,7 @@ class MultiStreamEngine:
         modes = self._stage_modes
         window = torch.cat([st["pcm_tail"], chunk.to(torch.float32)], dim=-1)      # (S, 1760)
         mel_raw = melspec_cuda.melspectrogram_frames(window, self.mel_dft,
-                                                     config.one_pass(modes["mel"]))  # (S, 8, 32) dB
+                                                     config.kernel_arith(modes["mel"]))  # (S, 8, 32) dB
 
         # A stream's first frame has no PCM look-back: frames 0..2 come from
         # the zero tail, so they are left out of the top_db peak and of the

@@ -1,7 +1,9 @@
 """The port's CUDA kernels on the card: built from ``csrc/``, each held
 against its plain PyTorch version (mel frontend: kernels 1 and 2, 2e-3 dB;
 CNN step and prime: kernels 3 and 4, 1e-4; their 1-pass bf16 variants at
-the tolerances derived below). Marked ``cuda``; skipped where no NVIDIA GPU
+the tolerances derived below; their 3-pass variants at the fp32 kernels'
+tolerances, 1e-4 of each tensor's scale on the CNN, and nearer the plain
+3-pass version than the plain fp32 one). Marked ``cuda``; skipped where no NVIDIA GPU
 is present. Run on a GPU host with
 ``python -m pytest --noconftest tests/test_torch_cuda.py -m cuda``
 (``conftest.py`` imports jax, which the port's GPU host need not have)."""
@@ -65,6 +67,24 @@ def assert_one_pass_close(got, want, ref32, what="", same_order=False):
         assert float((got - ref32).abs().max()) >= e / 2, (what, e)
 
 
+# A 3-pass variant and its plain version take the same exact products and
+# sum them in other orders, so they agree to float32 summation noise; the
+# 3-pass and fp32 functions differ by the dropped lo * lo terms and lo's
+# rounding, which stand above that noise on the mel frames and on conv 1's
+# output: a 3-pass kernel must sit at least THREE_PASS_CLOSER times nearer
+# its plain 3-pass version than the plain fp32 one there (mean |diff|). The
+# mel kernels' sequential fp32 sums over 512 samples carry about half the
+# 3-pass-to-fp32 gap (a ratio of 1.9 at S = 5 on an H100); an fp32 kernel
+# would sit nearer the plain fp32 version (a ratio below 1).
+THREE_PASS_CLOSER = 1.25
+
+
+def assert_nearer_3pass(got, want3, want32, what=""):
+    d3 = float((got.double() - want3.double()).abs().mean())
+    d32 = float((got.double() - want32.double()).abs().mean())
+    assert d32 > 0 and d3 * THREE_PASS_CLOSER <= d32, (what, d3, d32)
+
+
 @pytest.fixture()
 def cuda():
     if not torch.cuda.is_available():
@@ -118,10 +138,10 @@ def test_mel_1pass_kernel_matches_plain(cuda, n_streams, dft):
     if silent is not None:
         w[silent] = 0.0
     x = torch.from_numpy(w).to(cuda)
-    name = melspec_cuda.variant(dft, True)
+    name = melspec_cuda.variant(dft, "1pass")
     before = melspec_cuda.melspectrogram_frames.launches[name]
-    got = melspec_cuda.melspectrogram_frames(x, dft, one_pass=True)
-    want = melspec_cuda.melspectrogram_frames_plain(x, dft, one_pass=True)
+    got = melspec_cuda.melspectrogram_frames(x, dft, arith="1pass")
+    want = melspec_cuda.melspectrogram_frames_plain(x, dft, arith="1pass")
     f32 = melspec_cuda.melspectrogram_frames_plain(x, dft)
     torch.cuda.synchronize()
     assert melspec_cuda.melspectrogram_frames.launches[name] == before + 1
@@ -129,7 +149,32 @@ def test_mel_1pass_kernel_matches_plain(cuda, n_streams, dft):
     assert float((got - want).abs().max()) <= MEL_1PASS_TOL_DB
     assert float(((got - want).abs() > 2e-3).float().mean()) <= MEL_1PASS_SHARE
     assert float((got - f32).abs().max()) > 2e-3
-    assert torch.equal(melspec_cuda.melspectrogram_frames(round_bf16(x), dft, one_pass=True), got)
+    assert torch.equal(melspec_cuda.melspectrogram_frames(round_bf16(x), dft, arith="1pass"), got)
+    if silent is not None:
+        assert float((got[silent] + 100.0).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("dft", ["direct", "factored"])
+@pytest.mark.parametrize("n_streams", [1, 5, 17, 63, 65, 1000, 4095])
+def test_mel_3pass_kernel_matches_plain(cuda, n_streams, dft):
+    """Each 3-pass variant against its plain version at ragged S, with a
+    silent stream: within 2e-3 dB, and nearer the plain 3-pass version than
+    the plain fp32 one (``assert_nearer_3pass``)."""
+    w = (np.random.default_rng(n_streams).uniform(-1, 1, (n_streams, 1760)) * 25000).astype(np.float32)
+    silent = n_streams // 2 if n_streams > 1 else None
+    if silent is not None:
+        w[silent] = 0.0
+    x = torch.from_numpy(w).to(cuda)
+    name = melspec_cuda.variant(dft, "3pass")
+    before = melspec_cuda.melspectrogram_frames.launches[name]
+    got = melspec_cuda.melspectrogram_frames(x, dft, arith="3pass")
+    want = melspec_cuda.melspectrogram_frames_plain(x, dft, arith="3pass")
+    f32 = melspec_cuda.melspectrogram_frames_plain(x, dft)
+    torch.cuda.synchronize()
+    assert melspec_cuda.melspectrogram_frames.launches[name] == before + 1
+    assert got.shape == (n_streams, 8, 32) and got.dtype == torch.float32
+    assert float((got - want).abs().max()) <= 2e-3
+    assert_nearer_3pass(got, want, f32, name)
     if silent is not None:
         assert float((got[silent] + 100.0).abs().max()) <= 1e-4
 
@@ -272,7 +317,7 @@ def test_cnn_kernels_take_misaligned_rows(cuda, cnn_params):
 
 def _bf16_params(cnn_params, cuda):
     on_card = {k: {n: t.to(cuda) for n, t in v.items()} for k, v in cnn_params.items()}
-    return cnn_step.prep_params(on_card, one_pass=True), cnn_step.prep_params(on_card)
+    return cnn_step.prep_params(on_card, arith="1pass"), cnn_step.prep_params(on_card)
 
 
 def _check_bf16_run(p16, p32, window, steps):
@@ -332,6 +377,59 @@ def test_cnn_bf16_kernels_take_misaligned_rows(cuda, cnn_params):
     window = misaligned(rng.uniform(-2, 8, (76, 32, 8)).astype(np.float32))
     steps = [misaligned(rng.uniform(-2, 8, (8, 32, 8)).astype(np.float32)) for _ in range(2)]
     _check_bf16_run(p16, p32, window, steps)
+
+
+def _check_3pass_run(p3, p32, window, steps):
+    """K4-high on ``window``, then K3-high on each of ``steps``, each call
+    fed the plain version's caches: within 1e-4 of each tensor's scale of
+    the plain 3-pass version, and conv 1's output (``cache_2``, the second
+    cache) nearer it than the plain fp32 version's."""
+    got = cnn_step_cuda.cnn_prime(p3, window)
+    want = cnn_step_cuda.cnn_prime_plain(p3, window)
+    ref = cnn_step_cuda.cnn_prime_plain(p32, window)
+    for i in range(len(steps) + 1):
+        torch.cuda.synchronize()
+        assert torch.isfinite(got[0]).all()
+        for j, (a, b) in enumerate(zip([got[0], *got[1]], [want[0], *want[1]])):
+            assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max()), (i, j)
+        assert_nearer_3pass(got[1][1], want[1][1], ref[1][1], f"cache_2 after call {i}")
+        if i == len(steps):
+            break
+        caches = want[1]
+        got = cnn_step_cuda.cnn_step(p3, caches, steps[i])
+        want = cnn_step_cuda.cnn_step_plain(p3, caches, steps[i])
+        ref = cnn_step_cuda.cnn_step_plain(p32, caches, steps[i])
+
+
+# 4-byte copies (S = 1, 5, 33) and 16-byte ones (S = 100, a ragged tile, and 4096)
+@pytest.mark.parametrize("n_streams", [1, 5, 33, 100, 4096])
+def test_cnn_3pass_kernels_match_plain(cuda, cnn_params, n_streams):
+    on_card = {k: {n: t.to(cuda) for n, t in v.items()} for k, v in cnn_params.items()}
+    p3, p32 = cnn_step.prep_params(on_card, arith="3pass"), cnn_step.prep_params(on_card)
+    rng = np.random.default_rng(n_streams)
+    window = torch.from_numpy(rng.uniform(-2, 8, (76, 32, n_streams)).astype(np.float32)).to(cuda)
+    steps = [torch.from_numpy(rng.uniform(-2, 8, (8, 32, n_streams)).astype(np.float32)).to(cuda)
+             for _ in range(3)]
+    before = (cnn_step_cuda.cnn_prime.launches["3pass"], cnn_step_cuda.cnn_step.launches["3pass"])
+    _check_3pass_run(p3, p32, window, steps)
+    assert (cnn_step_cuda.cnn_prime.launches["3pass"], cnn_step_cuda.cnn_step.launches["3pass"]) == \
+        (before[0] + 1, before[1] + 3)
+
+
+def test_cnn_3pass_kernels_take_misaligned_rows(cuda, cnn_params):
+    """As test_cnn_kernels_take_misaligned_rows, for the 3-pass variants."""
+    on_card = {k: {n: t.to(cuda) for n, t in v.items()} for k, v in cnn_params.items()}
+    rng = np.random.default_rng(8)
+
+    def misaligned(a):
+        buf = torch.empty(a.size + 1, device=cuda)
+        view = buf[1:].view(a.shape)
+        view.copy_(torch.from_numpy(a))
+        assert view.is_contiguous() and view.data_ptr() % 16 != 0
+        return view
+    window = misaligned(rng.uniform(-2, 8, (76, 32, 8)).astype(np.float32))
+    steps = [misaligned(rng.uniform(-2, 8, (8, 32, 8)).astype(np.float32)) for _ in range(2)]
+    _check_3pass_run(cnn_step.prep_params(on_card, arith="3pass"), cnn_step.prep_params(on_card), window, steps)
 
 
 def test_cnn_kernel_rejects_bad_inputs(cuda, cnn_params):

@@ -111,7 +111,7 @@ def test_mel_plain_1pass_matches_jax_rounding(rng, dft, n_streams):
     if silent is not None:
         w[silent] = 0.0
     x = torch.from_numpy(w)
-    got = melspec_cuda.melspectrogram_frames(x, dft, one_pass=True).numpy()
+    got = melspec_cuda.melspectrogram_frames(x, dft, arith="1pass").numpy()
     want = jax_mel_1pass(w, dft)
     assert got.shape == want.shape == (n_streams, 8, 32)
     np.testing.assert_allclose(got, want, rtol=0, atol=MEL_TOL_DB)
@@ -127,7 +127,7 @@ def test_mel_1pass_device_constants_are_rounded():
     bf16, except kernel 2's bin-256 mel row, which multiplies an unrounded
     power."""
     for dft in ("direct", "factored"):
-        basis, melw = melspec_cuda._device_consts(torch.device("cpu"), dft, True)
+        basis, melw = melspec_cuda._device_consts(torch.device("cpu"), dft, "1pass")
         basis32, melw32 = melspec_cuda._device_consts(torch.device("cpu"), dft)
         torch.testing.assert_close(basis, round_bf16(basis32), rtol=0, atol=0)
         rows = melw.shape[0] - (dft == "factored")

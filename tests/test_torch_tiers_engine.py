@@ -84,12 +84,15 @@ def _dtypes(tree):
 
 @pytest.mark.parametrize("precision, mel_dft", [
     ("fast", "direct"), ("fast", "factored"), ("bf16", "direct"), ("bf16", "factored"), ("mixed", "direct"),
-    ({"mel": "fast", "heads": "highest"}, "direct"), ({"cnn": MIXED_CONVS, "heads": "fast"}, "factored")])
+    ({"mel": "fast", "heads": "highest"}, "direct"), ({"cnn": MIXED_CONVS, "heads": "fast"}, "factored"),
+    ("high", "direct"), ("high", "factored")])
 def test_tier_matches_jax(weights, jax_highest, precision, mel_dft):
     """predict over 8 frames (the first primes), then predict_frames over 6:
     the port against the JAX engine at the same tier and against JAX
-    'highest'; the parsed tier, the state dtypes and, for the 1-pass mel
-    stage, the variant kernel's wrapper are the JAX engine's / the tier's."""
+    'highest'; the parsed tier, the state dtypes and the mel kernel's
+    variant (1-pass at a 1-pass mel mode, 3-pass at 'high') are the JAX
+    engine's / the tier's."""
+    from openwakeword_tpu_torch import config
     from openwakeword_tpu_torch.ops import melspec_cuda
     je, te = _jax(weights, precision, mel_dft=mel_dft), _port(weights, precision, mel_dft=mel_dft)
     assert te.precision == je.precision
@@ -98,29 +101,50 @@ def test_tier_matches_jax(weights, jax_highest, precision, mel_dft):
     calls = []
     real = melspec_cuda.melspectrogram_frames_plain
 
-    def spy(windows, dft, one_pass=False):
-        calls.append((dft, one_pass))
-        return real(windows, dft, one_pass)
+    def spy(windows, dft, arith="fp32"):
+        calls.append((dft, arith))
+        return real(windows, dft, arith)
     melspec_cuda.melspectrogram_frames_plain = spy
     try:
         got = np.concatenate([np.stack([te.predict(pcm[t]) for t in range(8)]), te.predict_frames(pcm[8:])])
     finally:
         melspec_cuda.melspectrogram_frames_plain = real
     want = np.concatenate([np.stack([je.predict(pcm[t]) for t in range(8)]), je.predict_frames(pcm[8:])])
-    assert set(calls) == {(mel_dft, te._stage_modes["mel"] in ("fast", "bf16"))} and len(calls) == 14
+    assert set(calls) == {(mel_dft, config.kernel_arith(te._stage_modes["mel"]))} and len(calls) == 14
     assert got.dtype == np.float32 and got.shape == want.shape == (14, S, 7)
     assert np.abs(got[5:]).max() > 0                       # past warm-up
     np.testing.assert_allclose(got, want, rtol=0, atol=SCORE_1PASS)
     np.testing.assert_allclose(got, jax_highest, rtol=0, atol=SCORE_1PASS)
-    assert np.abs(got - jax_highest).max() > 0              # a 1-pass stage ran
+    assert np.abs(got - jax_highest).max() > 0              # a 1-pass or 3-pass stage ran
     assert _dtypes(te.state) == _dtypes(je.state)
 
 
-def test_high_runs_float32_like_highest(weights):
-    """'high' is float32 in the port, as 'highest' is."""
-    pcm = _pcm(2, 7, S, 1280)
-    np.testing.assert_array_equal(_port(weights, "high").predict_frames(pcm),
-                                  _port(weights, "highest").predict_frames(pcm))
+def test_high_runs_float32_like_highest(weights, jax_highest):
+    """'high' runs the CNN and the heads in float32, as 'highest' does, and
+    the mel stage through the 3-pass variant (the JAX engine's Pallas mel
+    kernel at ``Precision.HIGH`` on the TPU): every mel call is the 3-pass
+    one, the scores stay within the 1e-3 score budget of JAX 'highest', and
+    they are not the port's 'highest' scores bit for bit."""
+    from openwakeword_tpu_torch.ops import melspec_cuda
+    pcm = _pcm(1, 14, S, 1280)
+    calls = []
+    real = melspec_cuda.melspectrogram_frames_plain
+
+    def spy(windows, dft, arith="fp32"):
+        calls.append((dft, arith))
+        return real(windows, dft, arith)
+    high, highest = _port(weights, "high"), _port(weights, "highest")
+    assert high._stage_modes == dict.fromkeys(("mel", "cnn", "heads"), "high")
+    melspec_cuda.melspectrogram_frames_plain = spy
+    try:
+        got = np.concatenate([np.stack([high.predict(pcm[t]) for t in range(8)]), high.predict_frames(pcm[8:])])
+    finally:
+        melspec_cuda.melspectrogram_frames_plain = real
+    assert calls == [("direct", "3pass")] * 14
+    want = np.concatenate([np.stack([highest.predict(pcm[t]) for t in range(8)]), highest.predict_frames(pcm[8:])])
+    assert np.abs(got[5:]).max() > 0                       # past warm-up
+    np.testing.assert_allclose(got, jax_highest, rtol=0, atol=1e-3)
+    assert not np.array_equal(got, want)
 
 
 @pytest.fixture(scope="module")
