@@ -3,8 +3,9 @@
 It runs ``openwakeword_tpu`` (the JAX package, kept as the reference) on an
 NVIDIA GPU: the multi-stream engine and its serving runtime
 (``parallel``), and the single-stream ``Model`` / ``AudioFeatures`` API.
-The mel frontend is a hand-written CUDA kernel (``csrc/melspec.cu``); the
-embedding CNN, heads and gating are PyTorch ops. It imports neither jax nor
+The mel frontend is hand-written CUDA (``csrc/melspec.cu``; the bf16
+variants of its direct DFT on the tensor cores, ``csrc/melspec_mma.cu``);
+the embedding CNN, heads and gating are PyTorch ops. It imports neither jax nor
 ``openwakeword_tpu``.
 """
 from openwakeword_tpu_torch.model import Model

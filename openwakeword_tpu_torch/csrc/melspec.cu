@@ -1,6 +1,7 @@
 // Streaming mel frontend for Hopper (sm_90a), fp32 on the CUDA cores: kernel 1
 // (direct DFT over the live bins) and, further down, kernel 2 (radix-4
-// factored DFT).
+// factored DFT) with its bf16 variants. Kernel 1's bf16 variants run on the
+// tensor cores, in csrc/melspec_mma.cu.
 //
 // Kernel 1 replaces the TPU kernel openwakeword_tpu/ops/melspec_pallas.py::_make_kernel
 // (melspectrogram_pallas, dft="direct"): for each stream, the 8 new 512-sample
@@ -41,28 +42,27 @@
 // Any S >= 1: streams past the end of the last block read zeros and are
 // not written.
 //
-// 1-pass variants (ARITH = kOnePass; entry points *_1pass): the arithmetic of
-// the TPU kernels at precision None/DEFAULT, whose MXU products round each
-// operand to bf16 and sum in f32. A bf16 x bf16 product is exact in fp32, so
-// the variants keep the fp32 FFMA loops above and round where the TPU
-// kernels' operands are formed: the host passes the basis and the mel
-// weights rounded (ops/melspec_cuda.py::_device_consts); the kernels round
-// the window samples as they stage them with plain loads (the basis goes
-// through cp.async, which cannot convert), and the power before the mel
-// projection, in registers. Kernel 2 rounds the power of bins [0, 256) and
-// keeps bin 256's in fp32, as _make_factored_kernel does. Their bound is
-// the same operations over the card's dense bf16 tensor-core rate: these
-// FFMA variants are the simple first version.
+// Kernel 2's 1-pass variant (ARITH = kOnePass; entry point
+// owwt_melspec_frames_factored_1pass): the arithmetic of the TPU kernel at
+// precision None/DEFAULT, whose MXU products round each operand to bf16 and
+// sum in f32. A bf16 x bf16 product is exact in fp32, so the variant keeps the
+// fp32 FFMA loop and rounds where the TPU kernel's operands are formed: the
+// host passes the basis and the mel weights rounded
+// (ops/melspec_cuda.py::_device_consts); the kernel rounds the window samples
+// as it stages them, and the power of bins [0, 256) before the mel projection,
+// in registers, and keeps bin 256's in fp32, as _make_factored_kernel does.
+// Its bound is the same operations over the card's dense bf16 tensor-core
+// rate.
 //
-// 3-pass variants (ARITH = kThreePass; entry points *_3pass): the TPU kernels at
-// Precision.HIGH, each operand split into bf16 halves and each product taken
-// as hi*hi + hi*lo + lo*hi with fp32 sums (bf16_arith.cuh). The host passes
-// the basis and the mel weights split, as packed words, so the basis slices
-// move through the same 16-byte cp.async and take the shared memory of the
-// fp32 kernels; the kernels split the window samples into words as they
-// stage them and the power before the mel projection. Kernel 2 keeps bin
-// 256's power and mel row unsplit, as _make_factored_kernel does. Bound:
-// three times the 1-pass operations at the dense bf16 rate.
+// Kernel 2's 3-pass variant (ARITH = kThreePass; owwt_melspec_frames_factored_3pass):
+// the TPU kernel at Precision.HIGH, each operand split into bf16 halves and
+// each product taken as hi*hi + hi*lo + lo*hi with fp32 sums
+// (bf16_arith.cuh). The host passes the basis and the mel weights split, as
+// packed words, so they move through the same loads as the fp32 kernel's; the
+// kernel splits the window samples into words as it stages them and the power
+// before the mel projection, and keeps bin 256's power and mel row unsplit, as
+// _make_factored_kernel does. Bound: three times the 1-pass operations at the
+// dense bf16 rate.
 
 #include <atomic>
 
@@ -131,7 +131,6 @@ __device__ __forceinline__ void load_slice(float* dst, const float* __restrict__
     cp_async_commit();
 }
 
-template <int ARITH>
 __global__ void __launch_bounds__(kThreads, kThreads <= 256 ? 2 : 1)
 melspec_frames_kernel(const float* __restrict__ windows,   // (S, kWindow)
                       const float* __restrict__ basis,     // (kNfft, kCols): cos, -sin per live bin
@@ -154,7 +153,7 @@ melspec_frames_kernel(const float* __restrict__ windows,   // (S, kWindow)
         const int s = i / kSpan;
         const int n = i - s * kSpan;
         const float v = s < n_valid ? windows[static_cast<size_t>(s0 + s) * kWindow + n] : 0.0f;
-        win[kStreams * n + kPad * (n / kHop) + s] = operand<ARITH>(v);
+        win[kStreams * n + kPad * (n / kHop) + s] = v;
     }
 
     float re[kStreams][kBinsPerThread];
@@ -193,8 +192,8 @@ melspec_frames_kernel(const float* __restrict__ windows,   // (S, kWindow)
             for (int s = 0; s < kStreams; ++s) {
 #pragma unroll
                 for (int q = 0; q < kBinsPerThread; ++q) {
-                    re[s][q] = mac<ARITH>(x[s], c[q], re[s][q]);
-                    im[s][q] = mac<ARITH>(x[s], sn[q], im[s][q]);
+                    re[s][q] = fmaf(c[q], x[s], re[s][q]);
+                    im[s][q] = fmaf(sn[q], x[s], im[s][q]);
                 }
             }
         }
@@ -207,10 +206,10 @@ melspec_frames_kernel(const float* __restrict__ windows,   // (S, kWindow)
 #pragma unroll
     for (int s = 0; s < kStreams; ++s) {
         float4 p;
-        p.x = operand<ARITH>(re[s][0] * re[s][0] + im[s][0] * im[s][0]);
-        p.y = operand<ARITH>(re[s][1] * re[s][1] + im[s][1] * im[s][1]);
-        p.z = operand<ARITH>(re[s][2] * re[s][2] + im[s][2] * im[s][2]);
-        p.w = operand<ARITH>(re[s][3] * re[s][3] + im[s][3] * im[s][3]);
+        p.x = re[s][0] * re[s][0] + im[s][0] * im[s][0];
+        p.y = re[s][1] * re[s][1] + im[s][1] * im[s][1];
+        p.z = re[s][2] * re[s][2] + im[s][2] * im[s][2];
+        p.w = re[s][3] * re[s][3] + im[s][3] * im[s][3];
         *reinterpret_cast<float4*>(power + (kFrames * s + f) * kPowStride + kBinsPerThread * g) = p;
     }
     for (int i = 4 * tid; i < kLiveBinsPad * kMels; i += 4 * kThreads) {
@@ -235,10 +234,10 @@ melspec_frames_kernel(const float* __restrict__ windows,   // (S, kWindow)
             const int r = warp + kWarps * i;
             if (kRows % kWarps == 0 || r < kRows) {
                 const float4 p = *reinterpret_cast<const float4*>(power + r * kPowStride + k);
-                acc[i] = mac<ARITH>(p.x, w0, acc[i]);
-                acc[i] = mac<ARITH>(p.y, w1, acc[i]);
-                acc[i] = mac<ARITH>(p.z, w2, acc[i]);
-                acc[i] = mac<ARITH>(p.w, w3, acc[i]);
+                acc[i] = fmaf(w0, p.x, acc[i]);
+                acc[i] = fmaf(w1, p.y, acc[i]);
+                acc[i] = fmaf(w2, p.z, acc[i]);
+                acc[i] = fmaf(w3, p.w, acc[i]);
             }
         }
     }
@@ -378,11 +377,10 @@ melspec_frames_factored_kernel(const float* __restrict__ windows,
 }
 
 // Kernel 1 needs more than 48 KB of dynamic shared memory, which a kernel
-// must opt in to once per device and instantiation: a driver call, so it is
-// made on the first launch on each device only.
+// must opt in to once per device: a driver call, so it is made on the first
+// launch on each device only.
 constexpr size_t kSmemBytes = kSmemFloats * sizeof(float);
 
-template <int ARITH>
 cudaError_t allow_melspec_smem() {
     int device = 0;
     cudaError_t err = cudaGetDevice(&device);
@@ -394,7 +392,7 @@ cudaError_t allow_melspec_smem() {
     if (bit != 0 && (allowed.load(std::memory_order_acquire) & bit) != 0) {
         return cudaSuccess;
     }
-    err = cudaFuncSetAttribute(melspec_frames_kernel<ARITH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    err = cudaFuncSetAttribute(melspec_frames_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                kSmemBytes);
     if (err == cudaSuccess) {
         allowed.fetch_or(bit, std::memory_order_acq_rel);
@@ -414,18 +412,17 @@ int launch_factored(const float* windows, const float* basis, const float* melw,
     return static_cast<int>(cudaGetLastError());
 }
 
-template <int ARITH>
 int launch_direct(const float* windows, const float* basis, const float* melw, float* out, int n_streams,
                   void* stream) {
     if (n_streams <= 0) {
         return 0;
     }
-    const cudaError_t err = allow_melspec_smem<ARITH>();
+    const cudaError_t err = allow_melspec_smem();
     if (err != cudaSuccess) {
         return static_cast<int>(err);
     }
     const int grid = (n_streams + kStreams - 1) / kStreams;
-    melspec_frames_kernel<ARITH><<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
+    melspec_frames_kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
         windows, basis, melw, out, n_streams);
     return static_cast<int>(cudaGetLastError());
 }
@@ -434,17 +431,12 @@ int launch_direct(const float* windows, const float* basis, const float* melw, f
 
 // C entry points: launch on `stream` and return cudaGetLastError() (0 = the
 // launch was accepted). Pointers are device pointers to contiguous float32;
-// the *_1pass entries take the rounded constants of the 1-pass variants, the
-// *_3pass entries the split words of the 3-pass ones (kernel 2's last mel
-// row as float32).
+// the *_1pass entry takes the rounded constants of the 1-pass variant, the
+// *_3pass entry the split words of the 3-pass one (the last mel row as
+// float32).
 extern "C" int owwt_melspec_frames(const float* windows, const float* basis, const float* melw, float* out,
                                    int n_streams, void* stream) {
-    return launch_direct<kFp32>(windows, basis, melw, out, n_streams, stream);
-}
-
-extern "C" int owwt_melspec_frames_1pass(const float* windows, const float* basis, const float* melw, float* out,
-                                         int n_streams, void* stream) {
-    return launch_direct<kOnePass>(windows, basis, melw, out, n_streams, stream);
+    return launch_direct(windows, basis, melw, out, n_streams, stream);
 }
 
 extern "C" int owwt_melspec_frames_factored(const float* windows, const float* basis, const float* melw,
@@ -455,11 +447,6 @@ extern "C" int owwt_melspec_frames_factored(const float* windows, const float* b
 extern "C" int owwt_melspec_frames_factored_1pass(const float* windows, const float* basis, const float* melw,
                                                   float* out, int n_streams, void* stream) {
     return launch_factored<kOnePass>(windows, basis, melw, out, n_streams, stream);
-}
-
-extern "C" int owwt_melspec_frames_3pass(const float* windows, const float* basis, const float* melw, float* out,
-                                         int n_streams, void* stream) {
-    return launch_direct<kThreePass>(windows, basis, melw, out, n_streams, stream);
 }
 
 extern "C" int owwt_melspec_frames_factored_3pass(const float* windows, const float* basis, const float* melw,

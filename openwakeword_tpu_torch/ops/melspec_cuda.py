@@ -4,17 +4,19 @@
 ``melspectrogram_frames(windows, dft)`` is the wrapper the engine calls:
 ``dft="direct"`` is kernel 1 (the windowed cos/sin DFT over the live bins
 only, the DFT bins on which the mel filterbank has a non-zero weight),
-``dft="factored"`` kernel 2 (the radix-4 factored DFT over all 257 bins),
-both in ``csrc/melspec.cu``. ``arith`` picks the arithmetic of the TPU
-kernels (``ops.melspec._mel_bf16``): 'fp32' (``precision=HIGHEST``), the
-1-pass bf16 variant '1pass' (``precision=None``: the basis and the mel
-weights come rounded from the host, the kernel rounds the window samples as
-it stages them and the power before the mel projection) or the 3-pass
-variant '3pass' (``Precision.HIGH``: the basis and the mel weights come
-split from the host, packed as bf16 (hi, lo) pairs, ``bf16.pack_split``;
-the kernel splits the window samples as it stages them and the power before
-the mel projection). The live range comes from
-``live_bins()`` and reaches the kernel through the generated header
+``dft="factored"`` kernel 2 (the radix-4 factored DFT over all 257 bins).
+``arith`` picks the arithmetic of the TPU kernels (``ops.melspec._mel_bf16``):
+'fp32' (``precision=HIGHEST``), the 1-pass bf16 variant '1pass'
+(``precision=None``) or the 3-pass variant '3pass' (``Precision.HIGH``).
+Kernel 2 and fp32 kernel 1 run on the fp32 units (``csrc/melspec.cu``):
+kernel 2's bf16 variants take the basis and the mel weights rounded, or split
+and packed as bf16 (hi, lo) pairs (``bf16.pack_split``), from the host, and
+round or split the window samples as they stage them and the power before
+the mel projection. Kernel 1's bf16 variants, K1-1pass and K1-3pass, run their
+products on the tensor cores (``csrc/melspec_mma.cu``): they take the basis
+and the mel weights as bf16 planes (rounded, or a hi and a lo plane) in their
+own layout (``_device_consts``, ``mma_columns``). The live range comes from
+``live_bins()`` and reaches the kernels through the generated header
 ``mel_program.h`` (``utils.cuda_build.generated_headers``). A CPU tensor
 goes through ``melspectrogram_frames_plain``, the plain PyTorch version; a
 CUDA tensor goes through the hand-written kernel or the call raises. There
@@ -31,7 +33,7 @@ import torch
 
 from openwakeword_tpu_torch import config
 from openwakeword_tpu_torch.ops import melspec
-from openwakeword_tpu_torch.ops.bf16 import pack_split, round_bf16
+from openwakeword_tpu_torch.ops.bf16 import pack_split, round_bf16, split_bf16
 from openwakeword_tpu_torch.utils import cuda_build
 
 WINDOW = config.CHUNK_SAMPLES + config.MEL_LOOKBACK_SAMPLES   # 1760
@@ -46,6 +48,10 @@ VARIANTS = tuple(_ENTRY)
 # carries it to csrc/melspec.cu, which checks it against its warp shape); the
 # live range is padded with zero columns to a whole number of tiles
 BIN_TILE = 16
+# K1-1pass's and K1-3pass's bins per warp (4 groups of 8 bins, each a cos and a
+# -sin n8 tensor-core tile; mel_program.h carries it to csrc/melspec_mma.cu); their
+# constants pad the live range with zero bins to a whole number of these tiles
+MMA_BIN_TILE = 32
 
 
 def variant(dft: str, arith: str = "fp32") -> str:
@@ -119,24 +125,58 @@ def _kernel_melw(dft: str) -> np.ndarray:
     return melspec.mel_filterbank()
 
 
+def mma_bins() -> int:
+    """K1-1pass's and K1-3pass's bin count: the padded live range rounded up
+    to whole ``MMA_BIN_TILE``-bin warp tiles (128 at the default range)."""
+    return -(-live_bins()[2] // MMA_BIN_TILE) * MMA_BIN_TILE
+
+
+def mma_columns() -> np.ndarray:
+    """The row order of K1-1pass's and K1-3pass's (N, K) basis: row n holds
+    column ``mma_columns()[n]`` of ``_kernel_basis("direct")`` padded with
+    zero columns to ``2 * mma_bins()``. Per group of 8 bins, the cos columns
+    of the 8 bins (2 * bin), then the -sin columns of the same 8 (2 * bin +
+    1): one tensor-core n8 tile of re and one of im for the same bins."""
+    n = np.arange(2 * mma_bins())
+    return 2 * (8 * (n // 16) + n % 8) + (n % 16) // 8
+
+
+def _mma_consts(arith: str):
+    """Kernel 1's basis and mel weights for K1-1pass / K1-3pass, as float32
+    (planes, rows, K) tensors: the (N, 512) basis in ``mma_columns()`` order
+    and the (32, ``mma_bins()``) transposed mel weights, zero past the live
+    bins; one plane rounded to bf16 (1-pass) or a hi and a lo plane
+    (``split_bf16``, 3-pass)."""
+    padded, bins = live_bins()[2], mma_bins()
+    basis = np.zeros((config.N_FFT, 2 * bins))
+    basis[:, :2 * padded] = _kernel_basis("direct")
+    melw = np.zeros((bins, config.N_MELS))
+    melw[:padded] = _kernel_melw("direct")
+    consts = (melspec.f32_const(basis[:, mma_columns()].T, "cpu"), melspec.f32_const(melw.T, "cpu"))
+    return tuple(torch.stack((round_bf16(c),) if arith == "1pass" else split_bf16(c)) for c in consts)
+
+
 @functools.lru_cache(maxsize=None)
 def _device_consts(device: torch.device, dft: str, arith: str = "fp32"):
-    """The kernel's DFT basis and mel weights, resident on ``device``:
-    float32, rounded to bf16 for the 1-pass variants, packed split words
-    (int32, ``pack_split``) for the 3-pass ones, both made on the host; in
-    either bf16 variant kernel 2's bin-256 mel row stays float32, since it
-    multiplies an unsplit power."""
+    """The kernel's DFT basis and mel weights, resident on ``device``, made
+    on the host: float32 for the fp32 kernels; for K1-1pass and K1-3pass the
+    bf16 planes of ``_mma_consts``; for kernel 2's 1-pass variant float32
+    rounded to bf16, for its 3-pass one packed split words (int32,
+    ``pack_split``), in either with the bin-256 mel row float32, since it
+    multiplies an unrounded power."""
+    if arith not in config.ARITHS:
+        raise ValueError(f"unknown arithmetic {arith!r} (expected one of {config.ARITHS})")
+    if dft == "direct" and arith != "fp32":
+        return tuple(c.to(torch.bfloat16).contiguous().to(device) for c in _mma_consts(arith))
     basis = melspec.f32_const(_kernel_basis(dft), "cpu")
     melw = melspec.f32_const(_kernel_melw(dft), "cpu")
-    rows = melw.shape[0] if dft == "direct" else 2 * (config.N_FFT // melspec.RADIX)
+    rows = 2 * (config.N_FFT // melspec.RADIX)         # kernel 2's bins [0, 256); bin 256 stays float32
     if arith == "1pass":
         basis = round_bf16(basis)
         melw = torch.cat([round_bf16(melw[:rows]), melw[rows:]])
     elif arith == "3pass":
         basis = pack_split(basis)
         melw = torch.cat([pack_split(melw[:rows]), melw[rows:].contiguous().view(torch.int32)])
-    elif arith != "fp32":
-        raise ValueError(f"unknown arithmetic {arith!r} (expected one of {config.ARITHS})")
     return basis.contiguous().to(device), melw.contiguous().to(device)
 
 

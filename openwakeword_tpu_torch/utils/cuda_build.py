@@ -63,8 +63,9 @@ def generated_headers() -> Dict[str, str]:
     ``ops.cnn_step_cuda`` and each conv's block tile from its
     ``conv_tiles()``, as ``csrc/cnn_step.cuh``'s ``kTiles``;
     ``mel_program.h``, the mel frontend's geometry from
-    ``config`` and kernel 1's live DFT bins from
-    ``ops.melspec_cuda.live_bins()``, for ``csrc/melspec.cu``."""
+    ``config``, kernel 1's live DFT bins from
+    ``ops.melspec_cuda.live_bins()`` and its warp tiles, for
+    ``csrc/melspec.cu`` and ``csrc/melspec_mma.cu``."""
     from openwakeword_tpu_torch import config
     from openwakeword_tpu_torch.ops import cnn_step, cnn_step_cuda, melspec_cuda   # they import this module
     table = cnn_step.conv_table()
@@ -75,7 +76,8 @@ def generated_headers() -> Dict[str, str]:
     first, count, padded = melspec_cuda.live_bins()
     mel = {"kWindow": config.CHUNK_SAMPLES + config.MEL_LOOKBACK_SAMPLES, "kFrames": config.MELS_PER_CHUNK,
            "kNfft": config.N_FFT, "kHop": config.HOP_LENGTH, "kMels": config.N_MELS,
-           "kLiveBin0": first, "kLiveBins": count, "kLiveBinsPad": padded, "kBinTile": melspec_cuda.BIN_TILE}
+           "kLiveBin0": first, "kLiveBins": count, "kLiveBinsPad": padded, "kBinTile": melspec_cuda.BIN_TILE,
+           "kMmaBinTile": melspec_cuda.MMA_BIN_TILE}
     return {"cnn_program.h": "// Written by utils/cuda_build.py from ops/cnn_step.py::conv_table:\n"
                              "// (kh, kw, cin, cout, pool_h, pool_w, epilogue) per conv.\n" + rows,
             "cnn_tiles.h": "// Written by utils/cuda_build.py from ops/cnn_step_cuda.py: the tile\n"
@@ -86,7 +88,8 @@ def generated_headers() -> Dict[str, str]:
             "mel_program.h": "// Written by utils/cuda_build.py from config and ops/melspec_cuda.py::live_bins:\n"
                              "// the frame geometry, and the DFT bins [kLiveBin0, kLiveBin0 + kLiveBins) on\n"
                              "// which the mel filterbank has a non-zero weight, padded to kLiveBinsPad,\n"
-                             "// a whole number of kernel 1's kBinTile-bin warp tiles.\n"
+                             "// a whole number of kernel 1's kBinTile-bin warp tiles; K1-1pass and\n"
+                             "// K1-3pass pad them further to whole kMmaBinTile-bin warp tiles.\n"
                              + "".join(f"constexpr int {k} = {v};\n" for k, v in mel.items())}
 
 

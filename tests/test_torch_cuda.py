@@ -73,8 +73,9 @@ def assert_one_pass_close(got, want, ref32, what="", same_order=False):
 # rounding, which stand above that noise on the mel frames and on conv 1's
 # output: a 3-pass kernel must sit at least THREE_PASS_CLOSER times nearer
 # its plain 3-pass version than the plain fp32 one there (mean |diff|). The
-# mel kernels' sequential fp32 sums over 512 samples carry about half the
-# 3-pass-to-fp32 gap (a ratio of 1.9 at S = 5 on an H100); an fp32 kernel
+# mel kernels' own fp32 sums over 512 samples (K2-3pass's sequential FFMAs,
+# K1-3pass's tensor-core steps added with FADD) carry under half the
+# 3-pass-to-fp32 gap (ratios near 2.5 on an H100, PERF.md); an fp32 kernel
 # would sit nearer the plain fp32 version (a ratio below 1).
 THREE_PASS_CLOSER = 1.25
 
@@ -127,8 +128,8 @@ def test_live_bin_kernel_ragged_streams(cuda, n_streams):
 @pytest.mark.parametrize("dft", ["direct", "factored"])
 @pytest.mark.parametrize("n_streams", [1, 5, 17, 63, 65, 1000, 4095])
 def test_mel_1pass_kernel_matches_plain(cuda, n_streams, dft):
-    """Each 1-pass variant against its plain version at ragged S (kernel 1's
-    8-stream and kernel 2's 16-stream tiles), with a silent stream: within
+    """Each 1-pass variant against its plain version at ragged S (K1-1pass's
+    and K2-1pass's 16-stream tiles), with a silent stream: within
     MEL_1PASS_TOL_DB, and beyond 2e-3 dB in at most MEL_1PASS_SHARE of the
     values; it differs from the float32 kernel, and it gives the same
     result, bit for bit, on windows rounded to bf16 beforehand (it rounds
@@ -177,6 +178,46 @@ def test_mel_3pass_kernel_matches_plain(cuda, n_streams, dft):
     assert_nearer_3pass(got, want, f32, name)
     if silent is not None:
         assert float((got[silent] + 100.0).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("arith", ["1pass", "3pass"])
+@pytest.mark.parametrize("n_streams", [15, 16, 17, 31, 32, 33])
+def test_mel_tensor_core_kernels_ragged_block(cuda, arith, n_streams):
+    """K1-1pass and K1-3pass take 16 streams per block: both sides of one
+    and two whole blocks, with a silent stream in the last block, held to
+    their plain versions as above (1-pass: MEL_1PASS_TOL_DB, the share and
+    the bit-equality on rounded windows; 3-pass: 2e-3 dB and nearer the
+    plain 3-pass version than the plain fp32 one)."""
+    w = (np.random.default_rng(n_streams).uniform(-1, 1, (n_streams, 1760)) * 25000).astype(np.float32)
+    w[-1] = 0.0
+    x = torch.from_numpy(w).to(cuda)
+    got = melspec_cuda.melspectrogram_frames(x, "direct", arith=arith)
+    want = melspec_cuda.melspectrogram_frames_plain(x, "direct", arith=arith)
+    f32 = melspec_cuda.melspectrogram_frames_plain(x, "direct")
+    torch.cuda.synchronize()
+    assert got.shape == (n_streams, 8, 32)
+    assert float((got[-1] + 100.0).abs().max()) <= 1e-4
+    if arith == "1pass":
+        assert float((got - want).abs().max()) <= MEL_1PASS_TOL_DB
+        assert float(((got - want).abs() > 2e-3).float().mean()) <= MEL_1PASS_SHARE
+        assert torch.equal(melspec_cuda.melspectrogram_frames(round_bf16(x), "direct", arith="1pass"), got)
+    else:
+        assert float((got - want).abs().max()) <= 2e-3
+        assert_nearer_3pass(got[:-1], want[:-1], f32[:-1], n_streams)
+
+
+def test_mel_3pass_kernel_nearer_at_scale(cuda):
+    """K1-3pass at S=4096, the engine's scale: its tensor-core sums keep it
+    THREE_PASS_CLOSER times nearer the plain 3-pass version than the plain
+    fp32 one."""
+    w = (np.random.default_rng(4096).uniform(-1, 1, (4096, 1760)) * 25000).astype(np.float32)
+    x = torch.from_numpy(w).to(cuda)
+    got = melspec_cuda.melspectrogram_frames(x, "direct", arith="3pass")
+    want = melspec_cuda.melspectrogram_frames_plain(x, "direct", arith="3pass")
+    f32 = melspec_cuda.melspectrogram_frames_plain(x, "direct")
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= 2e-3
+    assert_nearer_3pass(got, want, f32, "S=4096")
 
 
 @pytest.fixture()

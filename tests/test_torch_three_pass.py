@@ -120,17 +120,31 @@ def test_product_3pass_is_jax_three_dots(rng):
 
 
 def test_mel_device_constants_are_host_split():
-    """The 3-pass kernels' constants, made on the host: the basis and the
-    mel weights as packed split words of their float32 values, except kernel
-    2's bin-256 mel row, kept as float32 bits."""
-    for dft in melspec_cuda.DFTS:
-        basis, melw = melspec_cuda._device_consts(torch.device("cpu"), dft, "3pass")
-        basis32, melw32 = melspec_cuda._device_consts(torch.device("cpu"), dft)
-        assert basis.dtype == melw.dtype == torch.int32
-        assert torch.equal(basis, bf16.pack_split(basis32))
-        rows = melw.shape[0] - (dft == "factored")
-        assert torch.equal(melw[:rows], bf16.pack_split(melw32[:rows]))
-        assert torch.equal(melw[rows:].view(torch.float32), melw32[rows:])
+    """The 3-pass kernels' constants, made on the host. K1-3pass (tensor
+    cores): a hi and a lo bf16 plane, which un-permuted (``mma_columns``,
+    the mel weights transposed) are ``split_bf16`` of the float32 kernel's
+    basis and mel weights, bit for bit, zero in the padded bins. K2-3pass:
+    the basis and the mel weights as packed split words of their float32
+    values, except the bin-256 mel row, kept as float32 bits."""
+    basis, melw = melspec_cuda._device_consts(torch.device("cpu"), "direct", "3pass")
+    basis32, melw32 = melspec_cuda._device_consts(torch.device("cpu"), "direct")
+    bins, padded = melspec_cuda.mma_bins(), melspec_cuda.live_bins()[2]
+    assert basis.dtype == melw.dtype == torch.bfloat16
+    assert basis.shape == (2, 2 * bins, 512) and melw.shape == (2, 32, bins)
+    cols = torch.from_numpy(melspec_cuda.mma_columns())
+    for plane, want_basis, want_melw in zip(range(2), bf16.split_bf16(basis32), bf16.split_bf16(melw32)):
+        got = torch.zeros((512, 2 * bins))
+        got[:, cols] = basis[plane].float().t()
+        assert torch.equal(got[:, :2 * padded], want_basis) and not got[:, 2 * padded:].any()
+        got_melw = melw[plane].float().t()
+        assert torch.equal(got_melw[:padded], want_melw) and not got_melw[padded:].any()
+    basis, melw = melspec_cuda._device_consts(torch.device("cpu"), "factored", "3pass")
+    basis32, melw32 = melspec_cuda._device_consts(torch.device("cpu"), "factored")
+    assert basis.dtype == melw.dtype == torch.int32
+    assert torch.equal(basis, bf16.pack_split(basis32))
+    rows = melw.shape[0] - 1
+    assert torch.equal(melw[:rows], bf16.pack_split(melw32[:rows]))
+    assert torch.equal(melw[rows:].view(torch.float32), melw32[rows:])
 
 
 def test_cnn_weights_are_host_split_once(folded):

@@ -124,15 +124,29 @@ def test_mel_plain_1pass_matches_jax_rounding(rng, dft, n_streams):
 
 def test_mel_1pass_device_constants_are_rounded():
     """The kernels' 1-pass constants: the basis and mel weights rounded to
-    bf16, except kernel 2's bin-256 mel row, which multiplies an unrounded
-    power."""
-    for dft in ("direct", "factored"):
-        basis, melw = melspec_cuda._device_consts(torch.device("cpu"), dft, "1pass")
-        basis32, melw32 = melspec_cuda._device_consts(torch.device("cpu"), dft)
-        torch.testing.assert_close(basis, round_bf16(basis32), rtol=0, atol=0)
-        rows = melw.shape[0] - (dft == "factored")
-        torch.testing.assert_close(melw[:rows], round_bf16(melw32[:rows]), rtol=0, atol=0)
-        torch.testing.assert_close(melw[rows:], melw32[rows:], rtol=0, atol=0)
+    bf16. K1-1pass (tensor cores) takes them as one bf16 plane, which
+    un-permuted (``mma_columns``, the mel weights transposed) is
+    ``round_bf16`` of the float32 kernel's constants bit for bit, zero in the
+    padded bins; K2-1pass as float32 values, except the bin-256 mel row,
+    which multiplies an unrounded power."""
+    basis, melw = melspec_cuda._device_consts(torch.device("cpu"), "direct", "1pass")
+    basis32, melw32 = melspec_cuda._device_consts(torch.device("cpu"), "direct")
+    bins, padded = melspec_cuda.mma_bins(), melspec_cuda.live_bins()[2]
+    assert basis.dtype == melw.dtype == torch.bfloat16
+    assert basis.shape == (1, 2 * bins, 512) and melw.shape == (1, 32, bins)
+    got = torch.zeros((512, 2 * bins))
+    got[:, torch.from_numpy(melspec_cuda.mma_columns())] = basis[0].float().t()
+    torch.testing.assert_close(got[:, :2 * padded], round_bf16(basis32), rtol=0, atol=0)
+    assert not got[:, 2 * padded:].any()
+    got_melw = melw[0].float().t()
+    torch.testing.assert_close(got_melw[:padded], round_bf16(melw32), rtol=0, atol=0)
+    assert not got_melw[padded:].any()
+    basis, melw = melspec_cuda._device_consts(torch.device("cpu"), "factored", "1pass")
+    basis32, melw32 = melspec_cuda._device_consts(torch.device("cpu"), "factored")
+    torch.testing.assert_close(basis, round_bf16(basis32), rtol=0, atol=0)
+    rows = melw.shape[0] - 1
+    torch.testing.assert_close(melw[:rows], round_bf16(melw32[:rows]), rtol=0, atol=0)
+    torch.testing.assert_close(melw[rows:], melw32[rows:], rtol=0, atol=0)
 
 
 @pytest.fixture(scope="module")
