@@ -206,20 +206,23 @@ def bound(flops: float, nbytes: int, peak: float = FP32_FLOPS):
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-def mel_work(n_streams: int):
+def mel_work(n_streams: int, const_bytes: int = 4):
     """(fp32 operations, bytes) of the mel frontend's function on
     ``n_streams`` windows, counted once for both kernels: per frame the
     DFT's multiply-adds over the live bins (cos and sin over 512 samples),
     the power of those bins and the mel projection's non-zero filterbank
-    weights; each window read once, each dB value written once, and the
-    live bins' DFT coefficients and the non-zero weights read once."""
+    weights; of each window the samples its 8 frames read, (8 - 1) * 160 +
+    512, read once, each dB value written once, and the live bins' DFT
+    coefficients and the non-zero weights read once at ``const_bytes`` each
+    (4 for fp32 or a bf16 hi and lo, 2 for one rounded bf16 plane)."""
     from openwakeword_tpu_torch import config
     from openwakeword_tpu_torch.ops import melspec_cuda
     _, bins, _ = melspec_cuda.live_bins()
     nonzero = int(np.count_nonzero(melspec_cuda._kernel_melw("direct").astype(np.float32)))
     per_frame = 2 * 2 * config.N_FFT * bins + 3 * bins + 2 * nonzero
-    io = n_streams * (melspec_cuda.WINDOW + melspec_cuda.FRAMES * melspec_cuda.N_MELS)
-    return melspec_cuda.FRAMES * n_streams * per_frame, 4 * (io + 2 * config.N_FFT * bins + nonzero)
+    samples = (melspec_cuda.FRAMES - 1) * config.HOP_LENGTH + config.N_FFT
+    io = 4 * n_streams * (samples + melspec_cuda.FRAMES * melspec_cuda.N_MELS)
+    return melspec_cuda.FRAMES * n_streams * per_frame, io + const_bytes * (2 * config.N_FFT * bins + nonzero)
 
 
 def mma_flops(n_streams: int) -> float:
@@ -726,14 +729,15 @@ def main():
     x_one = x_scale[:1].contiguous()
     k1_one_ms = min(cuda_ms(lambda: mel(x_one, "direct"), 200) for _ in range(2))
     mel_bound = bound(*mel_work(SCALE_STREAMS))
-    mel_bound_1pass = bound(*mel_work(SCALE_STREAMS), peak=BF16_FLOPS)
+    mel_bound_1pass = bound(*mel_work(SCALE_STREAMS, 2), peak=BF16_FLOPS)
     mel_flops, mel_bytes = mel_work(SCALE_STREAMS)
     mel_bound_3pass = bound(3 * mel_flops, mel_bytes, peak=BF16_FLOPS)
     for n, ms in ((1, k1_one_ms), (SCALE_STREAMS, mel_ms["direct"][0])):
         flops, nbytes = mel_work(n)
         bound_ms, bound_by = bound(flops, nbytes)
         print(f"mel kernel 1 at S={n}: {ms:.4f} ms, {flops / ms / 1e9:.2f} TFLOP/s over {flops / 1e9:.4f} GFLOP "
-              f"of live bins, bound {bound_ms:.4f} ms ({bound_by}; {bound_ms / ms:.1%} of it), on {card}")
+              f"of live bins and {nbytes / 1e6:.4f} MB, bound {bound_ms:.4f} ms ({bound_by}; {bound_ms / ms:.1%} "
+              f"of it), on {card}")
     print(f"mel kernel 2 at S={SCALE_STREAMS}: {mel_ms['factored'][0]:.4f} ms against the same bound "
           f"{mel_bound[0]:.4f} ms ({mel_bound[0] / mel_ms['factored'][0]:.1%} of it), on {card}")
     # K1-1pass and K1-3pass on the tensor cores: S=1 and S=4096, their rates
@@ -748,16 +752,17 @@ def main():
           f"product shape at S={SCALE_STREAMS}, one pass) {gemm_ms:.4f} ms, {gemm_flops / gemm_ms / 1e9:.1f} TFLOP/s, "
           f"on {card}")
     del frames_bf16, basis_bf16
-    for name, passes in (("direct_1pass", 1), ("direct_3pass", 3)):
+    # constants per value: one rounded bf16 plane (1-pass), or a hi and a lo plane (3-pass)
+    for name, passes, const_bytes in (("direct_1pass", 1, 2), ("direct_3pass", 3, 4)):
         arith = name.split("_")[1]
         one_ms = min(cuda_ms(lambda: mel(x_one, "direct", arith), 200) for _ in range(2))
         for n, ms in ((1, one_ms), (SCALE_STREAMS, mel_ms[name][0])):
-            flops, nbytes = mel_work(n)
+            flops, nbytes = mel_work(n, const_bytes)
             bound_ms, bound_by = bound(passes * flops, nbytes, peak=BF16_FLOPS)
             print(f"mel kernel ({name}) on the tensor cores at S={n}: {ms:.4f} ms, "
                   f"{passes * flops / ms / 1e9:.2f} TFLOP/s of the function's {passes} x {flops / 1e9:.4f} GFLOP, "
-                  f"{passes * mma_flops(n) / ms / 1e9:.2f} TFLOP/s of MMA work issued, bound {bound_ms:.4f} ms "
-                  f"({bound_by}; {bound_ms / ms:.1%} of it), on {card}")
+                  f"{passes * mma_flops(n) / ms / 1e9:.2f} TFLOP/s of MMA work issued, {nbytes / 1e6:.4f} MB, "
+                  f"bound {bound_ms:.4f} ms ({bound_by}; {bound_ms / ms:.1%} of it), on {card}")
     for name in ("direct_1pass", "factored_1pass"):
         print(f"mel kernel ({name}) at S={SCALE_STREAMS}: {mel_ms[name][0]:.4f} ms against the 1-pass bound "
               f"{mel_bound_1pass[0]:.4f} ms ({mel_bound_1pass[1]}, dense bf16 tensor-core rate; "

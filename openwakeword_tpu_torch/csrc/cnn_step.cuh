@@ -87,6 +87,7 @@
 #include <utility>
 
 #include "bf16_arith.cuh"
+#include "smem.cuh"
 
 namespace {
 
@@ -145,27 +146,6 @@ constexpr size_t tile_smem_bytes(const ConvSpec& c, const ConvTile& t) {
 
 __device__ __forceinline__ float clipped_leaky(float v) {
     return fmaxf(fmaxf(0.2f * v, v), -0.4f);
-}
-
-// cp.async with zero-fill: `src_bytes` of `src` land in shared memory, the
-// rest of the 16 or 4 bytes are zeros (src_bytes = 0 reads nothing).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(src_bytes) : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
-    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src), "r"(src_bytes) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-    asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
 }
 
 // One conv for one block: 32 streams x G*NC positions x all COUT channels.
@@ -275,13 +255,13 @@ conv_layer_kernel(const float* __restrict__ x,        // (CIN, tx, wx, S) new ro
                                      : x + (cx + static_cast<long long>(kt.x) * S);
                 }
                 if (VEC) {
-                    cp_async16(xd + kk * NCELL, src, ok ? 16 : 0);
+                    cp_async16_fill(xd + kk * NCELL, src, ok ? 16 : 0);
                 } else {
                     float* d = reinterpret_cast<float*>(xd + kk * NCELL);
 #pragma unroll
                     for (int l = 0; l < 4; ++l) {
                         const bool okl = ok && cs0 + l < S;
-                        cp_async4(d + l, okl ? src + l : x, okl ? 4 : 0);
+                        cp_async4_fill(d + l, okl ? src + l : x, okl ? 4 : 0);
                     }
                 }
             }
@@ -293,8 +273,8 @@ conv_layer_kernel(const float* __restrict__ x,        // (CIN, tx, wx, S) new ro
                 const int o = i / (KS / 4);
                 const int kk = 4 * (i - o * (KS / 4));
                 const int tap = (k0 + kk) / CIN;
-                cp_async16(wd + o * WKS + kk, taps + (static_cast<size_t>(tap) * COUT + o) * CIN + (k0 + kk - tap * CIN),
-                           16);
+                cp_async16_fill(wd + o * WKS + kk,
+                                taps + (static_cast<size_t>(tap) * COUT + o) * CIN + (k0 + kk - tap * CIN), 16);
             }
         } else {
             for (int i = tid; i < COUT * KS; i += THREADS) {
@@ -302,9 +282,9 @@ conv_layer_kernel(const float* __restrict__ x,        // (CIN, tx, wx, S) new ro
                 const int kk = i - o * KS;
                 const int tap = (k0 + kk) / CIN;
                 const bool ok = k0 + kk < K;
-                cp_async4(wd + o * WKS + kk,
-                          ok ? taps + (static_cast<size_t>(tap) * COUT + o) * CIN + (k0 + kk - tap * CIN) : taps,
-                          ok ? 4 : 0);
+                cp_async4_fill(wd + o * WKS + kk,
+                               ok ? taps + (static_cast<size_t>(tap) * COUT + o) * CIN + (k0 + kk - tap * CIN) : taps,
+                               ok ? 4 : 0);
             }
         }
         cp_async_commit();
@@ -564,26 +544,6 @@ struct Program {
     int tx, wx, cache_i, ping;
     cudaError_t err;
 };
-
-// Kernels above 48 KB of dynamic shared memory must opt in, once per device
-// and instantiation: a costly runtime call, so it is made on the first launch only.
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes, std::atomic<unsigned long long>* allowed) {
-    int device = 0;
-    cudaError_t err = cudaGetDevice(&device);
-    if (err != cudaSuccess) {
-        return err;
-    }
-    const unsigned long long bit = device < 64 ? 1ull << device : 0ull;   // bit d: done on device d
-    if (bit != 0 && (allowed->load(std::memory_order_acquire) & bit) != 0) {
-        return cudaSuccess;
-    }
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
-    if (err == cudaSuccess) {
-        allowed->fetch_or(bit, std::memory_order_acq_rel);
-    }
-    return err;
-}
 
 template <int I, bool VEC, int ARITH>
 cudaError_t launch_tile(const Program& p, const float* cache, float* new_cache, float* out, int position_tiles) {

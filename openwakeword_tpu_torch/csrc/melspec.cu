@@ -70,6 +70,7 @@
 
 #include "bf16_arith.cuh"
 #include "mel_program.h"
+#include "smem.cuh"
 
 namespace {
 
@@ -106,20 +107,6 @@ static_assert(kNfft % kSliceK == 0 && kHop % kSliceK == 0, "a K slice never stra
 static_assert(kHop % 4 == 0 && kStageFloats % 4 == 0 && kPowStride % 4 == 0, "16-byte shared accesses");
 static_assert(kLiveBinsPad * kMels <= 2 * kSliceFloats, "the mel weights fit the basis stages");
 static_assert(kSmemFloats * sizeof(float) <= 227 * 1024, "the block's shared memory fits an SM");
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-    asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
-}
 
 // Starts the copy of basis rows [kSliceK * slice, kSliceK * (slice + 1)) into
 // `dst` as one cp.async group.
@@ -381,25 +368,6 @@ melspec_frames_factored_kernel(const float* __restrict__ windows,
 // launch on each device only.
 constexpr size_t kSmemBytes = kSmemFloats * sizeof(float);
 
-cudaError_t allow_melspec_smem() {
-    int device = 0;
-    cudaError_t err = cudaGetDevice(&device);
-    if (err != cudaSuccess) {
-        return err;
-    }
-    static std::atomic<unsigned long long> allowed{0};         // bit d: done on device d
-    const unsigned long long bit = device < 64 ? 1ull << device : 0ull;
-    if (bit != 0 && (allowed.load(std::memory_order_acquire) & bit) != 0) {
-        return cudaSuccess;
-    }
-    err = cudaFuncSetAttribute(melspec_frames_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kSmemBytes);
-    if (err == cudaSuccess) {
-        allowed.fetch_or(bit, std::memory_order_acq_rel);
-    }
-    return err;
-}
-
 template <int ARITH>
 int launch_factored(const float* windows, const float* basis, const float* melw, float* out, int n_streams,
                     void* stream) {
@@ -417,7 +385,8 @@ int launch_direct(const float* windows, const float* basis, const float* melw, f
     if (n_streams <= 0) {
         return 0;
     }
-    const cudaError_t err = allow_melspec_smem();
+    static std::atomic<unsigned long long> allowed{0};
+    const cudaError_t err = allow_smem(melspec_frames_kernel, kSmemBytes, &allowed);
     if (err != cudaSuccess) {
         return static_cast<int>(err);
     }

@@ -51,10 +51,11 @@
 // tile, lo*hi and hi*lo first, and adds that tile to the accumulators with
 // FADD. The tensor cores' own fp32 sums round a step's terms against the
 // largest of them: taken in place, against a running sum of up to 512 terms,
-// they part the result from the 3-pass function by nearly as much as the
-// dropped lo*lo terms part that function from fp32 (an in-place trial on an
-// H100 sat barely above chip_smoke.py's THREE_PASS_CLOSER). The 1-pass
-// product, whose bf16 rounding dwarfs that, accumulates in place.
+// they can part the result from the 3-pass function by nearly as much as the
+// dropped lo*lo terms part that function from fp32, which would leave little
+// room above chip_smoke.py's THREE_PASS_CLOSER (an in-place variant is not
+// kept, so that margin is not measured). The 1-pass product, whose bf16
+// rounding dwarfs that, accumulates in place.
 // Any S >= 1: streams past the end of the last block read zeros and are not
 // written.
 
@@ -65,6 +66,7 @@
 
 #include "bf16_arith.cuh"
 #include "mel_program.h"
+#include "smem.cuh"
 
 namespace {
 
@@ -135,23 +137,6 @@ struct Smem {
                   "16-byte aligned regions");
     static_assert(kBytes <= kMaxSmem, "the block's shared memory fits an SM");
 };
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-    return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-    asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
-}
 
 // Four 8x8 bf16 matrices, row i of matrix m at the address lane 8m + i passes.
 __device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const __nv_bfloat16* p) {
@@ -431,35 +416,14 @@ melspec_frames_mma_kernel(const float* __restrict__ windows,          // (S, kWi
     }
 }
 
-// More than 48 KB of dynamic shared memory needs an opt-in once per device and
-// instantiation: a driver call, so it is made on the first launch on each device.
-template <int ARITH>
-cudaError_t allow_smem() {
-    int device = 0;
-    cudaError_t err = cudaGetDevice(&device);
-    if (err != cudaSuccess) {
-        return err;
-    }
-    static std::atomic<unsigned long long> allowed{0};         // bit d: done on device d
-    const unsigned long long bit = device < 64 ? 1ull << device : 0ull;
-    if (bit != 0 && (allowed.load(std::memory_order_acquire) & bit) != 0) {
-        return cudaSuccess;
-    }
-    err = cudaFuncSetAttribute(melspec_frames_mma_kernel<ARITH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               Smem<ARITH>::kBytes);
-    if (err == cudaSuccess) {
-        allowed.fetch_or(bit, std::memory_order_acq_rel);
-    }
-    return err;
-}
-
 template <int ARITH>
 int launch(const float* windows, const __nv_bfloat16* basis, const __nv_bfloat16* melw, float* out, int n_streams,
            void* stream) {
     if (n_streams <= 0) {
         return 0;
     }
-    const cudaError_t err = allow_smem<ARITH>();
+    static std::atomic<unsigned long long> allowed{0};
+    const cudaError_t err = allow_smem(melspec_frames_mma_kernel<ARITH>, Smem<ARITH>::kBytes, &allowed);
     if (err != cudaSuccess) {
         return static_cast<int>(err);
     }

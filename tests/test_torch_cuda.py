@@ -257,6 +257,58 @@ def test_live_bin_kernel_other_live_range(cuda, wide_mel_range, n_streams):
     assert float((got[-1] + 100.0).abs().max()) <= 1e-4
 
 
+def _live_range_frames(x, arith):
+    """The plain version's function in ``arith`` ('fp32', '1pass', '3pass')
+    over kernel 1's live bins and their mel weights as ``config`` now sets
+    them (``_kernel_basis`` / ``_kernel_melw``), with the plain version's
+    products (``bf16.product_1pass`` / ``product_3pass``): the plain version
+    itself keeps the default filterbank."""
+    from openwakeword_tpu_torch.ops import bf16, melspec
+    frames = melspec.frame_signal(x)
+    basis = melspec.f32_const(melspec_cuda._kernel_basis("direct"), x.device)
+    melw = melspec.f32_const(melspec_cuda._kernel_melw("direct"), x.device)
+    if arith == "fp32":
+        def product(op, a, b):
+            with bf16.fp32_matmul():
+                return op(a, b)
+    else:
+        product = bf16.product_1pass if arith == "1pass" else bf16.product_3pass
+    spec = product(torch.matmul, frames, basis)
+    power = spec[..., 0::2] ** 2 + spec[..., 1::2] ** 2
+    return melspec.power_to_db(product(torch.matmul, power, melw), top_db=None)
+
+
+@pytest.mark.parametrize("arith", ["1pass", "3pass"])
+@pytest.mark.parametrize("n_streams", [9, 17, 1000])
+def test_tensor_core_kernels_other_live_range(cuda, wide_mel_range, arith, n_streams):
+    """K1-1pass and K1-3pass built for another live range (224 bins: 7 bin
+    warps, 448 threads a block, 16-deep 3-pass K slices), with a silent
+    stream, held as in ``test_mel_1pass_kernel_matches_plain`` /
+    ``test_mel_3pass_kernel_matches_plain`` to the plain products over that
+    range (``_live_range_frames``)."""
+    assert melspec_cuda.live_bins() == (2, 222, 224) and melspec_cuda.mma_bins() == 224
+    w = (np.random.default_rng(n_streams).uniform(-1, 1, (n_streams, 1760)) * 25000).astype(np.float32)
+    w[-1] = 0.0
+    x = torch.from_numpy(w).to(cuda)
+    name = melspec_cuda.variant("direct", arith)
+    before = melspec_cuda.melspectrogram_frames.launches[name]
+    got = melspec_cuda.melspectrogram_frames(x, "direct", arith=arith)
+    want = _live_range_frames(x, arith)
+    f32 = _live_range_frames(x, "fp32")
+    torch.cuda.synchronize()
+    assert melspec_cuda.melspectrogram_frames.launches[name] == before + 1
+    assert got.shape == (n_streams, 8, 32) and got.dtype == torch.float32
+    assert float((got[-1] + 100.0).abs().max()) <= 1e-4
+    if arith == "1pass":
+        assert float((got - want).abs().max()) <= MEL_1PASS_TOL_DB
+        assert float(((got - want).abs() > 2e-3).float().mean()) <= MEL_1PASS_SHARE
+        assert float((got - f32).abs().max()) > 2e-3
+        assert torch.equal(melspec_cuda.melspectrogram_frames(round_bf16(x), "direct", arith="1pass"), got)
+    else:
+        assert float((got - want).abs().max()) <= 2e-3
+        assert_nearer_3pass(got[:-1], want[:-1], f32[:-1], n_streams)
+
+
 def test_mel_kernel_rejects_bad_inputs(cuda):
     with pytest.raises(TypeError):
         melspec_cuda.melspectrogram_frames(torch.zeros((2, 1760), dtype=torch.float64, device=cuda))
