@@ -43,7 +43,8 @@ Phases, each of which exits nonzero on failure:
    ``CnnStepKernel.step`` calls at S=4096, held against the plain versions;
 8. CNN timing at S=4096: kernel 3 vs its plain version vs the engine's NHWC
    eager step, kernel 4 vs its plain version; then one call of each under
-   ``torch.profiler``, printed as each conv's ms and TFLOP/s;
+   ``torch.profiler`` (two calls per trace, a whole one kept), printed as
+   each conv's ms and TFLOP/s;
 9. Model golden: the port's single-stream ``Model`` on the card with the
    golden weights over ``testing.model_packets()``, against the JAX
    ``Model``'s committed scores (tests/fixtures/torch_serving_golden.npz),
@@ -73,7 +74,31 @@ Phases, each of which exits nonzero on failure:
    'high' (the score budget) and in (0, 0.02] at the others; scores finite
    in [0, 1]; each run's mel variant (K1 at 'highest', K1-3pass at 'high' and
    'mixed', K1-1pass at 'fast' and 'bf16', K2-1pass at 'bf16' with
-   ``mel_dft="factored"``) must launch once per step, and no other.
+   ``mel_dft="factored"``) must launch once per step, and no other;
+14. gating add-ons (noise suppression, the VAD gate, folded verifiers):
+   a. golden: the engine at 'highest' on ``testing.gating_inputs()`` with
+      the bundled VAD and two folded verifiers, suppression 'spectral' and
+      'mmse', against the JAX engine's committed scores
+      (tests/fixtures/torch_gating_golden.npz), max |dscore| < 1e-3; K1 once
+      per step; prints the share of rows the gate closed and of verifier
+      entries replaced (from runs without the VAD and without both);
+   b. Model golden: the ``Model`` with 'mmse' suppression and the VAD over
+      ``testing.gating_packets()`` against the JAX ``Model``'s committed
+      scores, < 1e-3; the native suppressor (native/ns.cpp) must build and
+      agree with the PyTorch one on the card within 1 LSB;
+   c. the loaded step at full width: the bench configuration at 'high',
+      S=4096, with 'spectral' suppression, the VAD at 0.5 and seeded
+      ``(w, b)`` verifiers on two models, over ``testing.voiced_frames``
+      (a quarter of the streams carry vowels), 8 warm-up and 50 timed
+      frames: exactly 50 K1-3pass launches, scores finite in [0, 1], streams
+      0-7 against a ``device="cpu"`` engine (the plain 3-pass mel) within
+      1e-3, leaving out entries within 1e-3 of the verifier threshold;
+      prints its ms and device operations per step beside the bare bench
+      step's and those of each add-on alone, timed in turns (bare, loaded,
+      NS, VAD, verifiers, loaded, bare), with each step's five costliest
+      device operations; then the bench
+      configuration plus an ``rnn`` head, 6 frames, its scores against the
+      CPU on streams 0-7 within 1e-3.
 
 The 1-pass bf16 variants of the four kernels run beside their fp32 ones.
 Phase 3 holds K1-1pass and K2-1pass against their plain versions within
@@ -266,24 +291,45 @@ def conv_profile(card: str, step, prime, n_streams: int) -> None:
     from torch.profiler import ProfilerActivity, profile
     from openwakeword_tpu_torch.ops import cnn_step
     table = cnn_step.conv_table()
+    def one_session():
+        """The conv launches of each of two calls traced in one session,
+        split at the pause between the calls. A trace now and then lacks
+        one launch at its start or end, so a filler kernel runs first and
+        last, and a call whose trace is whole is kept."""
+        filler = torch.zeros(1, device="cuda")
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            filler.add_(1.0)
+            torch.cuda.synchronize()
+            for _ in range(2):
+                fn()
+                torch.cuda.synchronize()
+                time.sleep(0.005)
+            filler.add_(1.0)
+            torch.cuda.synchronize()
+        launches = sorted((e for e in prof.events()
+                           if e.device_type == DeviceType.CUDA and "conv_layer_kernel" in e.name),
+                          key=lambda e: e.time_range.start)
+        calls, current = [], []
+        for e in launches:
+            if current and e.time_range.start - current[-1].time_range.end > 2000:     # us: the pause
+                calls.append(current)
+                current = []
+            current.append(e)
+        return calls + [current] if current else calls
+
     for what, fn, rows in (("step", step, 8), ("prime", prime, 76)):
         fn()
         torch.cuda.synchronize()
-        # the profiler's trace now and then lacks one launch of a call: trace
-        # the call again, up to three times in all, before giving up
         for attempt in range(3):
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                fn()
-                torch.cuda.synchronize()
-            launches = sorted((e for e in prof.events()
-                               if e.device_type == DeviceType.CUDA and "conv_layer_kernel" in e.name),
-                              key=lambda e: e.time_range.start)
-            if len(launches) == len(table):
+            calls = one_session()
+            whole = [c for c in calls if len(c) == len(table)]
+            if whole:
+                launches = whole[0]
                 break
-            print(f"the profiler saw {len(launches)} conv launches in one CNN {what} call, expected "
-                  f"{len(table)} (trace {attempt + 1} of 3)")
+            print(f"the profiler saw {[len(c) for c in calls]} conv launches in two CNN {what} calls, expected "
+                  f"{len(table)} in one (trace {attempt + 1} of 3)")
         else:
-            fail(f"the profiler saw {len(launches)} conv launches in one CNN {what} call, expected {len(table)}")
+            fail(f"the profiler saw no whole CNN {what} call of {len(table)} conv launches in three traces")
         tx, wx, convs = rows, 32, []
         for (kh, kw, cin, cout, ph, pw, _), e in zip(table, launches):
             t_out = tx + (2 if kh > 1 and what == "step" else 0) - kh + 1
@@ -620,6 +666,188 @@ def tiers(card: str) -> dict:
     print(f"tier mixed: two runs bit-equal: {bool(np.array_equal(mixed[0], mixed[1]))} "
           f"(max |dscore| between them {float(np.abs(mixed[0] - mixed[1]).max()):.3e})")
     return out
+
+
+def device_ops_per_step(step, n_steps: int = 3) -> tuple:
+    """(device operations, their summed ms, the five costliest by name as
+    (name, count, ms)) of one call of ``step``: every kernel and copy the
+    card ran for it, under torch.profiler. The profiler now and then drops
+    some of a trace's events, never adds one, so ``n_steps`` calls are
+    traced, split at the pauses between them, and the call with the most
+    operations is taken."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n_steps):
+            step()
+            torch.cuda.synchronize()
+            time.sleep(0.02)
+    ops = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA), key=lambda e: e.time_range.start)
+    calls, last_end = [], None
+    for e in ops:
+        if last_end is None or e.time_range.start - last_end > 10000:       # us: the pause between calls
+            calls.append([])
+        calls[-1].append(e)
+        last_end = e.time_range.end if last_end is None else max(last_end, e.time_range.end)
+    ops = max(calls, key=len, default=[])
+    by_name = {}
+    for e in ops:
+        n, ms = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, ms + (e.time_range.end - e.time_range.start) / 1e3)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:5]
+    return len(ops), sum(ms for _, ms in by_name.values()), [(name, n, ms) for name, (n, ms) in top]
+
+
+def gating(card: str) -> int:
+    """Phase 14, the gating add-ons; returns K1-3pass's launches in 14c's
+    timed runs of the loaded step (this slice's main path at 'high')."""
+    import torch
+    from openwakeword_tpu_torch import Model, convert, registry, testing
+    from openwakeword_tpu_torch.io.checkpoints import save_checkpoint
+    from openwakeword_tpu_torch.models import heads
+    from openwakeword_tpu_torch.ns import NoiseSuppression, TorchNoiseSuppression
+    from openwakeword_tpu_torch.ops import melspec_cuda
+    from openwakeword_tpu_torch.parallel.engine import MultiStreamEngine
+    dev = torch.device("cuda", 0)
+    launches = melspec_cuda.melspectrogram_frames.launches
+    with np.load(testing.GATING_FIXTURE) as z:
+        fixture = {k: z[k] for k in z.files}
+    inputs = testing.gating_inputs(int(fixture["seed"]))
+    if inputs["sha256"] != str(fixture["inputs_sha256"]):
+        fail("gating golden inputs do not regenerate bit-exactly with this numpy")
+    head_paths = testing.write_head_checkpoints(inputs["heads"], tempfile.mkdtemp())
+    emb = convert.embedding_from_jax(inputs["embedding"])
+    verifiers = testing.gating_verifiers()
+
+    # 14a. engine golden, both suppression profiles
+    for profile in ("spectral", "mmse"):
+        base_kw = dict(enable_noise_suppression=True, noise_suppression_algorithm=profile,
+                       custom_verifier_threshold=testing.GATING_VERIFIER_THRESHOLD)
+        runs = {}
+        for name, kw in (("full", dict(vad_threshold=testing.GATING_VAD_THRESHOLD, custom_verifier_models=verifiers)),
+                         ("no_vad", dict(custom_verifier_models=verifiers)), ("plain", {})):
+            engine = MultiStreamEngine(wakeword_models=head_paths, n_streams=testing.GOLDEN_STREAMS,
+                                       precision="highest", device=dev, embedding_params=emb, **base_kw, **kw)
+            launches["direct"] = 0
+            runs[name] = testing.run_golden(engine, inputs)
+            if launches["direct"] != 3 * testing.PHASE_FRAMES:
+                fail(f"gating golden ({profile}, {name}): K1 launched {launches['direct']} times in "
+                     f"{3 * testing.PHASE_FRAMES} steps")
+        err = float(np.abs(runs["full"] - fixture[f"scores_{profile}"]).max())
+        gated, replaced = testing.gating_masks(runs["full"], runs["no_vad"], runs["plain"])
+        cols = [engine.labels.index(n) for n in testing.GATING_VERIFIED]
+        same = bool(np.array_equal(gated, fixture[f"gated_{profile}"])
+                    and np.array_equal(replaced, fixture[f"replaced_{profile}"]))
+        print(f"gating golden ({profile}): max |dscore| vs the JAX engine ('highest') {err:.3e} over "
+              f"{runs['full'].shape}; gate closed on {gated.mean():.1%} of the rows, verifiers replaced "
+              f"{replaced[..., cols].mean():.1%} of their labels' entries (JAX: {fixture[f'shares_{profile}'][0]:.1%}, "
+              f"{fixture[f'shares_{profile}'][2]:.1%}; the same entries: {same}), K1 once per step")
+        if not err < SCORE_TOL:
+            fail(f"gating golden scores ({profile}) off by {err} >= {SCORE_TOL}")
+        del engine
+
+    # 14b. Model golden ('mmse' + VAD), and the native suppressor on this host
+    model = Model(wakeword_models=head_paths, device=dev, embedding_params=emb, enable_speex_noise_suppression=True,
+                  noise_suppression_algorithm="mmse", vad_threshold=testing.GATING_VAD_THRESHOLD)
+    scores = testing.run_model_golden(model, testing.gating_packets())
+    err = float(np.abs(scores - fixture["model_scores"]).max())
+    print(f"gating Model golden ('mmse', VAD): max |dscore| vs the JAX Model {err:.3e} over {scores.shape}, "
+          f"{int(np.any(scores != 0, axis=-1).sum())} calls with the gate open")
+    if not err < SCORE_TOL:
+        fail(f"gating Model golden scores off by {err} >= {SCORE_TOL}")
+    try:
+        native = NoiseSuppression()
+    except (ImportError, OSError, RuntimeError) as e:
+        fail(f"the native noise suppressor (native/ns.cpp) did not build or load: {e}")
+    x = np.random.default_rng(140).integers(-8000, 8000, 16000).astype(np.int16)
+    lsb = int(np.abs(native.process_frames(x).astype(np.int32)
+                     - TorchNoiseSuppression(device=dev).process_frames(x).astype(np.int32)).max())
+    print(f"native suppressor built on this host; PyTorch suppressor on the card within {lsb} LSB of it over 1 s")
+    if lsb > 1:
+        fail(f"the PyTorch suppressor on the card is {lsb} LSB from the native one")
+    del model
+
+    # 14c. the loaded step at full width against the bare bench step
+    S, W, T = SCALE_STREAMS, 8, SCALE_FRAMES
+    frames = testing.voiced_frames(W + T, S, seed=14)
+    ver = testing.gating_verifiers(seed=15)
+    loaded_kw = dict(enable_noise_suppression=True, vad_threshold=0.5, custom_verifier_models=ver,
+                     custom_verifier_threshold=testing.GATING_VERIFIER_THRESHOLD)
+    engines = {"bare": MultiStreamEngine(n_streams=S, device=dev),
+               "loaded": MultiStreamEngine(n_streams=S, device=dev, **loaded_kw),
+               "NS": MultiStreamEngine(n_streams=S, device=dev, enable_noise_suppression=True),
+               "VAD": MultiStreamEngine(n_streams=S, device=dev, vad_threshold=0.5),
+               "verifiers": MultiStreamEngine(n_streams=S, device=dev, custom_verifier_models=ver,
+                                              custom_verifier_threshold=testing.GATING_VERIFIER_THRESHOLD)}
+    walls, out = {name: [] for name in engines}, {}
+    for name in ("bare", "loaded", "NS", "VAD", "verifiers", "loaded", "bare"):
+        engine = engines[name]
+        engine.reset()
+        warm = engine.predict_frames(frames[:W])                 # includes the prime
+        for k in launches:
+            launches[k] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scores = engine.predict_frames(frames[W:])
+        walls[name].append(time.perf_counter() - t0)
+        used = {k: v for k, v in launches.items() if v}
+        if used != {"direct_3pass": T}:
+            fail(f"the {name} step at 'high' made mel launches {used} in {T} steps, expected {T} of direct_3pass")
+        if name not in out:
+            out[name] = np.concatenate([warm, scores])
+    k1_loaded = len(walls["loaded"]) * T
+    loaded = out["loaded"]
+    if loaded.shape != (W + T, S, 11) or not (np.isfinite(loaded).all() and loaded.min() >= 0.0
+                                                  and loaded.max() <= 1.0):
+        fail(f"loaded scores are not finite values in [0, 1] of shape {(W + T, S, 11)}: {loaded.shape}")
+    ops = {name: device_ops_per_step(lambda e=engines[name]: e.predict(frames[-1])) for name in engines}
+    t0 = time.perf_counter()
+    cpu_kw = dict(n_streams=8, device="cpu")
+    want = MultiStreamEngine(**cpu_kw, **loaded_kw).predict_frames(frames[:, :8])
+    base = MultiStreamEngine(**cpu_kw, enable_noise_suppression=True).predict_frames(frames[:, :8])
+    cpu_s = time.perf_counter() - t0
+    near = testing.near_verifier_threshold(base, engines["loaded"].labels, testing.GATING_VERIFIED,
+                                           testing.GATING_VERIFIER_THRESHOLD)
+    err = float(np.abs(loaded[:, :8] - want)[~near].max())
+    closed = float((loaded[W:] == 0).all(axis=-1).mean())
+    print(f"loaded step vs the CPU engine on streams 0-7 over {W + T} frames: max |dscore| {err:.3e} "
+          f"({int(near.sum())} entries within 1e-3 of the verifier threshold left out; CPU runs {cpu_s:.1f} s); "
+          f"gate closed on {closed:.1%} of the timed rows")
+    if not err < SCORE_TOL:
+        fail(f"the loaded step on the card disagrees with the CPU engine: {err} >= {SCORE_TOL}")
+    if not (0.0 < closed < 1.0):
+        fail(f"the VAD gate closed on {closed:.1%} of the loaded rows: the gate is not exercised")
+    what = {"bare": "", "loaded": ", spectral NS + VAD 0.5 + 2 verifiers", "NS": ", spectral NS only",
+            "VAD": ", VAD 0.5 only", "verifiers": ", 2 verifiers only"}
+    for name in engines:
+        ms = 1e3 * min(walls[name]) / T
+        n_ops, busy, top = ops[name]
+        print(f"{name} step ('high', bench configuration{what[name]}) at S={S}: {ms:.3f} ms per step (best of "
+              f"{len(walls[name])} run(s) of {T}: {', '.join(f'{1e3 * w / T:.3f}' for w in walls[name])}), "
+              f"{S * 0.08 / (ms / 1e3):.0f} streams in real time, {n_ops} device operations per step ({busy:.3f} ms "
+              f"of them; the most in 3 traced steps), on {card}")
+        print(f"  costliest device operations ({name}): "
+              + "; ".join(f"{n} x {op[:70]} {t:.3f} ms" for op, n, t in top))
+    del engines, out, loaded
+
+    # an rnn head beside the bench heads, at full width
+    rnn_path = os.path.join(tempfile.mkdtemp(), "rnn_head.npz")
+    save_checkpoint(rnn_path, "head", heads.init_params(np.random.default_rng(12), "rnn"))
+    models = [*registry.MODELS, rnn_path]
+    engine = MultiStreamEngine(wakeword_models=models, n_streams=S, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = engine.predict_frames(frames[:6])
+    rnn_s = time.perf_counter() - t0
+    want = MultiStreamEngine(wakeword_models=models, n_streams=8, device="cpu").predict_frames(frames[:6, :8])
+    err = float(np.abs(got[:, :8] - want).max())
+    print(f"rnn head: bench configuration + one rnn head at S={S}, 6 frames in {rnn_s:.3f} s (prime included), "
+          f"max |dscore| vs the CPU on streams 0-7 {err:.3e}, on {card}")
+    if got.shape != (6, S, 12) or not np.isfinite(got).all() or not err < SCORE_TOL:
+        fail(f"the rnn head run at S={S} gives shape {got.shape} or is {err} from the CPU")
+    return k1_loaded
 
 
 def main():
@@ -1118,6 +1346,9 @@ def main():
     mel_launches["direct_3pass"] = serving(card)
     print(f"[{time.perf_counter() - t_start:.1f} s] phase 13")
     mel_launches.update(tiers(card))
+    print(f"[{time.perf_counter() - t_start:.1f} s] phase 14")
+    # K1-3pass's main-path launches: the serving runs' and the loaded step's
+    mel_launches["direct_3pass"] += gating(card)
 
     # no single PyTorch call computes any of these functions (a mel frontend or a
     # 20-conv step is several calls), so library_ms is null throughout

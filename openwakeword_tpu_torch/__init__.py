@@ -2,13 +2,27 @@
 
 It runs ``openwakeword_tpu`` (the JAX package, kept as the reference) on an
 NVIDIA GPU: the multi-stream engine and its serving runtime
-(``parallel``), and the single-stream ``Model`` / ``AudioFeatures`` API.
+(``parallel``), the single-stream ``Model`` / ``AudioFeatures`` API, and
+their gating add-ons (noise suppression, the VAD and speaker verifiers).
 The mel frontend is hand-written CUDA (``csrc/melspec.cu``; the bf16
 variants of its direct DFT on the tensor cores, ``csrc/melspec_mma.cu``);
-the embedding CNN, heads and gating are PyTorch ops. It imports neither jax nor
-``openwakeword_tpu``.
+the embedding CNN, heads, add-ons and gating are PyTorch ops. It imports
+neither jax nor ``openwakeword_tpu``.
 """
+from openwakeword_tpu_torch.registry import (
+    FEATURE_MODELS,
+    MODELS,
+    VAD_MODELS,
+    get_pretrained_model_paths,
+    model_class_mappings,
+)
 from openwakeword_tpu_torch.model import Model
 from openwakeword_tpu_torch.parallel.engine import MultiStreamEngine
+from openwakeword_tpu_torch.vad import VAD
+from openwakeword_tpu_torch import utils  # noqa: F401  (the JAX package's namespace)
 
-__all__ = ["Model", "MultiStreamEngine"]
+__all__ = [
+    "Model", "MultiStreamEngine", "VAD",
+    "MODELS", "FEATURE_MODELS", "VAD_MODELS",
+    "model_class_mappings", "get_pretrained_model_paths",
+]

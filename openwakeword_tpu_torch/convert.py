@@ -31,13 +31,19 @@ def embedding_from_jax(params: Mapping, device="cpu") -> Dict:
 
 
 def head_from_jax(params: Mapping, device="cpu") -> Dict:
-    """One dnn/mlp head's params -> port tensors; '__meta__' is kept as a
+    """One head's params -> port tensors; '__meta__' is kept as a
     plain dict of Python scalars."""
     out = _tree(params, device, lambda k, v, dev: _tensor(v, dev))
     if "__meta__" in params:
         out["__meta__"] = {k: (v.item() if isinstance(v, np.generic) else v)
                            for k, v in dict(params["__meta__"]).items()}
     return out
+
+
+def vad_from_jax(params: Mapping, device="cpu") -> Dict:
+    """VAD network params (``models.vad_net`` layout) -> port tensors, every
+    leaf in its shape."""
+    return _tree(params, device, lambda k, v, dev: _tensor(v, dev))
 
 
 def to_device(tree, device):

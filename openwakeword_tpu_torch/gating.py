@@ -3,7 +3,6 @@
 Warm-up zeroing, patience and debounce filters and the score-history push,
 with the JAX package's semantics: history arrays are oldest-first with the
 newest entry last, and filters run before the current scores are pushed.
-The VAD gate waits for the VAD port.
 """
 
 from typing import Tuple
@@ -53,6 +52,14 @@ def debounce_filter(scores, history, threshold_vec, debounce_frames: int, active
 def push_history(history, scores):
     """Append ``scores`` as the newest history entry, dropping the oldest."""
     return torch.cat([history[..., 1:], scores[..., None]], dim=-1)
+
+
+def vad_gate(scores, gate_scores, vad_threshold: float):
+    """Zero all scores (..., L) unless the largest VAD score of the gate
+    window (..., G), 0.4-0.56 s back, reaches ``vad_threshold``. Negative
+    entries mark ring slots not filled yet and read as 0."""
+    gate_max = torch.where(gate_scores >= 0.0, gate_scores, torch.zeros_like(gate_scores)).amax(dim=-1)
+    return torch.where((gate_max >= vad_threshold)[..., None], scores, torch.zeros_like(scores))
 
 
 def validate_gating_args(patience, threshold, debounce_time) -> Tuple[bool, bool]:

@@ -68,3 +68,11 @@ def load_embedding_params(path: str = "", rng_seed: int = 42) -> Dict:
         "initialization. Its weights differ from the JAX package's jax.random fallback, so "
         "the two packages' scores differ.", path)
     return embedding_model.init_params(np.random.default_rng(rng_seed))
+
+
+def load_vad(path: str) -> Tuple[Dict, Dict]:
+    """(numpy VAD params, file meta) of the checkpoint at ``path``."""
+    kind, params, meta = _load_npz(path)
+    if kind not in ("vad", "unknown"):
+        raise ValueError(f"Checkpoint at {path} is a '{kind}' model, expected a VAD model")
+    return params, meta

@@ -3,15 +3,16 @@
 
 Keeps the reference's public surface and per-call semantics (reference
 openwakeword/model.py:32-504): predict / predict_clip / reset, patience XOR
-debounce filtering, 5-frame warm-up zeroing and the multiclass label
-mapping, with every head of a call batched over its sub-frame windows in one
-device call. The audio frontend is ``features.AudioFeatures`` on the same
-device. Noise suppression, the VAD gate, speaker verifiers and exact int8
-execution raise ``NotImplementedError`` until their slices are ported.
+debounce filtering, 5-frame warm-up zeroing, the multiclass label mapping,
+noise suppression, speaker verifiers and the VAD gate, with every head of a
+call batched over its sub-frame windows in one device call. The audio
+frontend is ``features.AudioFeatures`` on the same device. Exact int8
+execution raises ``NotImplementedError`` until its slice is ported.
 
 For many streams at once use ``openwakeword_tpu_torch.parallel``.
 """
 
+import logging
 import time
 import wave
 from collections import defaultdict, deque
@@ -22,9 +23,11 @@ import numpy as np
 import torch
 
 from openwakeword_tpu_torch import config, convert, gating, registry
+from openwakeword_tpu_torch.custom_verifier_model import fold_verifier, load_verifier
 from openwakeword_tpu_torch.features import AudioFeatures
 from openwakeword_tpu_torch.io import loaders
 from openwakeword_tpu_torch.models import heads as heads_lib
+from openwakeword_tpu_torch.ops import bf16
 from openwakeword_tpu_torch.utils.args import re_arg
 
 
@@ -53,16 +56,19 @@ class Model():
         entries are ``.npz`` head checkpoints or pretrained names; the other
         keyword arguments (``device``, ``embedding_params``, ``rng_seed``, ...)
         go to ``AudioFeatures``, and the heads run on its device.
+
+        ``enable_speex_noise_suppression`` suppresses the audio before the
+        frontend: 'spectral' with the native library (``ns.NoiseSuppression``,
+        or ``ns.TorchNoiseSuppression`` where it cannot be built), 'mmse'
+        with ``ns.TorchNoiseSuppression`` on the device. ``vad_threshold`` >
+        0 gates the scores with ``vad.VAD`` on the raw audio.
+        ``custom_verifier_models`` maps model names to verifier pickles
+        (``custom_verifier_model.load_verifier``), folded and applied on the
+        device.
         """
         if noise_suppression_algorithm not in ("spectral", "mmse"):
             raise ValueError("noise_suppression_algorithm must be 'spectral' or 'mmse'; "
                              f"got {noise_suppression_algorithm!r}")
-        if enable_speex_noise_suppression:
-            raise _not_ported("noise suppression", "slice C")
-        if vad_threshold > 0:
-            raise _not_ported("the VAD gate (vad_threshold > 0)", "slice C")
-        if any((custom_verifier_models or {}).values()):
-            raise _not_ported("custom verifier models", "slice C")
         if quantized_execution == "exact":
             raise _not_ported("exact int8 execution (quantized_execution='exact')", "slice E")
 
@@ -75,6 +81,9 @@ class Model():
         self.model_outputs: Dict[str, int] = {}    # name -> output classes
         self.model_prediction_function: Dict[str, callable] = {}
         self.class_mapping: Dict[str, Dict] = {}
+        self.custom_verifier_models: Dict[str, object] = {}        # name -> pipeline
+        self._verifier_weights: Dict[str, tuple] = {}              # name -> folded (w, b) on device
+        self.custom_verifier_threshold = custom_verifier_threshold
         for mdl_path, mdl_name in zip(wakeword_models, wakeword_model_names):
             params, meta = loaders.load_head(mdl_path, mdl_name)
             head = convert.head_from_jax(params, device)
@@ -101,6 +110,22 @@ class Model():
             else:
                 self.class_mapping[mdl_name] = {str(i): str(i) for i in range(self.model_outputs[mdl_name])}
 
+            if isinstance(custom_verifier_models, dict) and custom_verifier_models.get(mdl_name, False):
+                pipeline = load_verifier(custom_verifier_models[mdl_name])
+                w, b = fold_verifier(pipeline)
+                self.custom_verifier_models[mdl_name] = pipeline
+                self._verifier_weights[mdl_name] = (torch.from_numpy(w).to(device),
+                                                    torch.tensor(b, device=device))
+
+        # blank entries ({'name': ''} / None) count as "no verifier"
+        provided_verifiers = {k for k, v in (custom_verifier_models or {}).items() if v}
+        if len(self.custom_verifier_models) < len(provided_verifiers):
+            unmatched = sorted(provided_verifiers - set(self.models))
+            raise ValueError(
+                f"custom_verifier_models keys {unmatched} do not name any loaded "
+                f"base model (loaded: {sorted(self.models)}); key every verifier "
+                "by its base model's name")
+
         # Ordered output-label vector + label->parent map. A multiclass
         # model's labels follow its mapping dict's insertion order (the
         # engine sorts the keys as integers; each keeps its own order).
@@ -121,6 +146,27 @@ class Model():
             partial(deque, maxlen=config.PREDICTION_BUFFER_MAX))
         self.raw_score_buffer: DefaultDict[str, deque] = defaultdict(
             partial(deque, maxlen=config.PREDICTION_BUFFER_MAX))
+
+        self.speex_ns = None
+        if enable_speex_noise_suppression:
+            from openwakeword_tpu_torch.ns import NoiseSuppression, TorchNoiseSuppression
+            if noise_suppression_algorithm == "mmse":
+                # the native library is spectral-only
+                self.speex_ns = TorchNoiseSuppression(algorithm="mmse", device=device)
+            else:
+                try:
+                    self.speex_ns = NoiseSuppression(frame_size=160, sample_rate=16000)
+                except (ImportError, OSError, RuntimeError) as e:
+                    # a host without a C++ toolchain runs the same suppressor
+                    # in PyTorch (<= 1 LSB apart)
+                    logging.warning("native noise-suppression library unavailable (%s); "
+                                    "falling back to the PyTorch suppressor (ops.ns_torch)", e)
+                    self.speex_ns = TorchNoiseSuppression(device=device)
+
+        self.vad_threshold = vad_threshold
+        if vad_threshold > 0:
+            from openwakeword_tpu_torch.vad import VAD
+            self.vad = VAD(device=device)
 
     # ------------------------------------------------------------------
 
@@ -143,18 +189,32 @@ class Model():
         Semantics per the reference hot path (model.py:232-386): >1280
         prepared samples -> max over per-80 ms sub-frame scores (one batched
         device call per head); <1280 -> recycle the previous score; 5-call
-        warm-up zeroing; patience XOR debounce.
+        warm-up zeroing; verifiers; patience XOR debounce; the VAD gate over
+        scores 0.4-0.56 s back.
         """
         if not isinstance(x, np.ndarray):
             raise ValueError(f"predict expects int16 PCM as a numpy array; got {type(x)}")
 
         timing_dict: Dict[str, Dict] = {"models": {}}
         t0 = time.time()
-        n_prepared = self.preprocessor(x)
+        pcm = self.speex_ns.process_frames(x) if self.speex_ns else x
+        n_prepared = self.preprocessor(pcm)
         timing_dict["models"]["preprocessor"] = time.time() - t0
 
         scores = self._score_heads(n_prepared, timing_dict["models"])
+        scores = self._apply_verifiers(scores)
         scores = self._postprocess(scores, n_prepared, patience, threshold, debounce_time)
+
+        if self.vad_threshold > 0:
+            # the VAD hears the raw audio; the gate reads its buffer [-7:-4]
+            t0 = time.time()
+            self.vad(x)
+            timing_dict["models"]["vad"] = time.time() - t0
+            gate = np.asarray(list(self.vad.prediction_buffer)[config.VAD_GATE_LO:config.VAD_GATE_HI],
+                              dtype=np.float32)
+            if gate.size == 0:
+                gate = np.array([-1.0], dtype=np.float32)   # unfilled sentinel
+            scores = gating.vad_gate(torch.from_numpy(scores), torch.from_numpy(gate), self.vad_threshold).numpy()
 
         predictions = {lbl: float(s) for lbl, s in zip(self._labels, scores)}
         return (predictions, timing_dict) if timing else predictions
@@ -199,6 +259,23 @@ class Model():
             cursor += width
             model_timing[mdl] = time.time() - t0
         return out
+
+    def _apply_verifiers(self, scores: np.ndarray) -> np.ndarray:
+        """Labels at or above the verifier threshold take their model's
+        folded verifier score on the same feature window (the JAX
+        package's ``Model._apply_verifiers``)."""
+        if not self._verifier_weights:
+            return scores
+        scores = scores.copy()
+        for i, lbl in enumerate(self._labels):
+            parent = self.get_parent_model_from_label(lbl)
+            if scores[i] < self.custom_verifier_threshold or parent not in self._verifier_weights:
+                continue
+            w, b = self._verifier_weights[parent]
+            window = torch.from_numpy(self.preprocessor.get_features(self.model_inputs[parent])).to(w.device)
+            with bf16.fp32_matmul():
+                scores[i] = float(torch.sigmoid(window.reshape(-1) @ w + b))
+        return scores
 
     def _postprocess(self, scores: np.ndarray, n_prepared: int,
                      patience: dict, threshold: dict, debounce_time: float) -> np.ndarray:

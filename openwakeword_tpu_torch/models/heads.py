@@ -1,21 +1,25 @@
 """Wake-word classifier heads in PyTorch (counterpart of
-``openwakeword_tpu.models.heads``), for the ``dnn`` and ``mlp``
+``openwakeword_tpu.models.heads``), for the ``dnn``, ``mlp`` and ``rnn``
 architectures:
 
   * ``dnn`` -- Flatten -> Linear(W) -> LayerNorm -> ReLU ->
                n x [Linear(W) -> LayerNorm -> ReLU] -> Linear(classes)
   * ``mlp`` -- Flatten -> Linear(W) -> ReLU -> Linear(W) -> ReLU -> Linear(classes)
+  * ``rnn`` -- 2-layer bidirectional LSTM(64) -> Linear(classes) on the last
+               time step
 
 Binary heads end in sigmoid; multiclass heads in ReLU'd logits (unless the
 meta says ``relu_logits=False``) and softmax. Params are dicts of tensors
 with linears in the JAX package's (n_in, n_out) layout; the architecture
-meta travels separately. The ``rnn`` head waits for a later slice.
+meta travels separately.
 
-A linear is float32, or a 1-pass bf16 product where ``precision`` is
-'fast' or 'bf16' or its weights are stored in bf16 (JAX ``heads.py``:
+A dnn/mlp linear is float32, or a 1-pass bf16 product where ``precision``
+is 'fast' or 'bf16' or its weights are stored in bf16 (JAX ``heads.py``:
 ``x.astype(w.dtype)``, float32 sums, the bias added in float32). A 1-pass
 linear rounds only its input: its float32 weights come rounded once by
-``product_params``.
+``product_params``. The rnn head ignores ``precision``, as JAX's does: its
+products are float32 on float32 weights and 1-pass on bf16 weights (the
+engine's 'bf16' tier), so its params go to ``forward`` as stored.
 """
 
 from typing import Dict, List
@@ -24,10 +28,12 @@ import numpy as np
 import torch
 
 from openwakeword_tpu_torch import config
+from openwakeword_tpu_torch.models import lstm
 from openwakeword_tpu_torch.ops import bf16
 
 EMB_DIM = config.EMB_DIM
-_ROADMAP_RNN = "rnn heads are not ported yet (ROADMAP.md, queue 1, slice A)"
+RNN_HIDDEN = 64
+MODEL_TYPES = ("dnn", "mlp", "rnn")
 
 
 def _linear_init(rng: np.random.Generator, n_in: int, n_out: int) -> Dict:
@@ -62,7 +68,16 @@ def init_params(rng: np.random.Generator, model_type: str = "dnn",
         params["layer2"] = _linear_init(rng, layer_dim, layer_dim)
         params["out"] = _linear_init(rng, layer_dim, n_classes)
     elif model_type == "rnn":
-        raise NotImplementedError(_ROADMAP_RNN)
+        bound = 1.0 / np.sqrt(RNN_HIDDEN)
+        for layer in range(2):
+            in_dim = EMB_DIM if layer == 0 else 2 * RNN_HIDDEN
+            for direction in ("fwd", "bwd"):
+                params[f"lstm{layer}_{direction}"] = {
+                    "w_ih": ((rng.random((in_dim, 4 * RNN_HIDDEN)) * 2.0 - 1.0) * bound).astype(np.float32),
+                    "w_hh": ((rng.random((RNN_HIDDEN, 4 * RNN_HIDDEN)) * 2.0 - 1.0) * bound).astype(np.float32),
+                    "b_ih": np.zeros(4 * RNN_HIDDEN, np.float32),
+                    "b_hh": np.zeros(4 * RNN_HIDDEN, np.float32)}
+        params["out"] = _linear_init(rng, 2 * RNN_HIDDEN, n_classes)
     else:
         raise ValueError(f"Unknown head model_type: {model_type}")
     params["__meta__"] = meta
@@ -103,9 +118,7 @@ def _activate(logits: torch.Tensor, meta: Dict, inference: bool) -> torch.Tensor
 
 def check_supported(meta: Dict):
     """Raise unless the head architecture is one this port runs."""
-    if meta["model_type"] == "rnn":
-        raise NotImplementedError(_ROADMAP_RNN)
-    if meta["model_type"] not in ("dnn", "mlp"):
+    if meta["model_type"] not in MODEL_TYPES:
         raise ValueError(f"Unsupported head model_type: {meta['model_type']}")
 
 
@@ -117,6 +130,14 @@ def forward(params: Dict, x: torch.Tensor, meta: Dict, inference: bool = True,
     def linear(p, z):
         return _product(z, p["w"], precision) + p["b"].float()
 
+    if meta["model_type"] == "rnn":
+        xs = x.to(torch.float32).transpose(0, 1)                         # (T, B, D)
+        for layer in range(2):
+            xs = torch.cat([lstm.scan(params[f"lstm{layer}_fwd"], xs),
+                            lstm.scan(params[f"lstm{layer}_bwd"], xs, reverse=True)], dim=-1)
+        with bf16.fp32_matmul():
+            return _activate(_product(xs[-1], params["out"]["w"], None) + params["out"]["b"].float(),
+                             meta, inference)
     h = x.reshape(x.shape[0], -1)
     if meta["model_type"] == "dnn":
         h = torch.relu(_layer_norm(params["ln1"], linear(params["layer1"], h)))
@@ -142,7 +163,8 @@ def forward_stacked(stacked: Dict, x: torch.Tensor, meta: Dict, inference: bool 
                     precision=None) -> torch.Tensor:
     """Evaluate H stacked dnn/mlp heads on a shared (S, F, 96) input ->
     (S, H, n_classes)."""
-    check_supported(meta)
+    if meta["model_type"] not in ("dnn", "mlp"):
+        raise ValueError(f"Stacked evaluation unsupported for '{meta['model_type']}' heads")
 
     def linear(p, z):
         eq = "sd,hdw->shw" if z.ndim == 2 else "shd,hdw->shw"

@@ -2,19 +2,22 @@
 ``openwakeword_tpu.parallel.engine.MultiStreamEngine``).
 
 All per-stream state -- PCM look-back, mel ring, embedding ring, conv caches,
-score history, warm-up / patience / debounce counters -- lives in tensors on
+score history, warm-up / patience / debounce counters, and the noise
+suppressor's and the VAD's state where they are on -- lives in tensors on
 one device with a leading stream axis. One step advances every stream by
 80 ms in three stages:
 
-1. mel frontend: the PCM tail and the chunk form a (S, 1760) window, which
+1. mel frontend: the PCM tail and the chunk (noise-suppressed first with
+   ``enable_noise_suppression``, ``ops.ns_torch``) form a (S, 1760) window, which
    ``ops.melspec_cuda`` turns into (S, 8, 32) raw dB (a hand-written kernel
    on CUDA: the direct DFT, or the factored one with ``mel_dft="factored"``);
    then the top_db clamp over the valid frames, the /10+2 affine
    and the 76-row mel ring with the first-frame 5-row rule;
 2. incremental embedding CNN (``models.embedding_stream``), re-primed from
    the mel ring in blocks of PRIME_BLOCK_STREAMS when a stream starts;
-3. the feature ring, the heads (same-architecture heads stacked) and the
-   gating.
+3. the feature ring, the heads (same-architecture dnn/mlp heads stacked;
+   an rnn head alone), the folded speaker verifiers, the gating and the VAD
+   gate (``models.vad_net`` on the raw chunk).
 
 ``precision`` takes the JAX engine's tiers and follows the arithmetic they
 run on the TPU (``config.check_precision``): 'highest' runs every product
@@ -48,14 +51,19 @@ import numpy as np
 import torch
 
 from openwakeword_tpu_torch import config, convert, gating, registry
+from openwakeword_tpu_torch.custom_verifier_model import resolve_verifier
 from openwakeword_tpu_torch.io import loaders
 from openwakeword_tpu_torch.models import embedding as embedding_model
 from openwakeword_tpu_torch.models import embedding_stream
 from openwakeword_tpu_torch.models import heads as heads_lib
+from openwakeword_tpu_torch.models import vad_net
+from openwakeword_tpu_torch.ops import bf16
 from openwakeword_tpu_torch.ops import melspec as melspec_ops
 from openwakeword_tpu_torch.ops import melspec_cuda
+from openwakeword_tpu_torch.ops import ns_torch
 
 MEL_RING = config.EMB_WINDOW_FRAMES          # 76 frames
+VAD_RING = 7                                 # enough for the [-7:-4] gate window
 
 
 def seed_embeddings(emb_folded: Dict, noise: torch.Tensor, n_frames: int) -> torch.Tensor:
@@ -132,15 +140,32 @@ class MultiStreamEngine:
     CNN on every step, with no caches. ``realtime_guard`` ('warn' or
     'error') measures the step at construction (``measure_realtime``) and
     warns or raises when it exceeds ``frame_budget_s``.
+
+    The gating add-ons, as in the JAX engine: ``enable_noise_suppression``
+    suppresses each chunk before the mel frontend (``ops.ns_torch``,
+    ``noise_suppression_algorithm`` 'spectral' or 'mmse'); ``vad_threshold``
+    > 0 scores the raw chunk with the VAD (``vad_params``, numpy in the
+    checkpoint layout, or the registry's bundled network) and zeroes every
+    score unless the VAD scored at least the threshold 0.4-0.56 s back;
+    ``custom_verifier_models`` maps a model name to its speaker verifier (a
+    pickle path, a trained pipeline or a folded ``(w, b)`` pair), which
+    replaces that model's scores at or above ``custom_verifier_threshold``
+    with sigmoid(feature window @ w + b).
     """
 
     def __init__(self,
                  wakeword_models: Sequence[str] = (),
                  n_streams: int = 256,
+                 vad_threshold: float = 0.0,
                  patience: Optional[Dict[str, int]] = None,
                  threshold: Optional[Dict[str, float]] = None,
                  debounce_time: float = 0.0,
+                 custom_verifier_models: Optional[Dict[str, object]] = None,
+                 custom_verifier_threshold: float = 0.1,
+                 enable_noise_suppression: bool = False,
+                 noise_suppression_algorithm: str = "spectral",
                  embedding_params: Optional[Dict] = None,
+                 vad_params: Optional[Dict] = None,
                  rng_seed: int = 0,
                  precision: str = "high",
                  mel_dft: str = "direct",
@@ -168,6 +193,14 @@ class MultiStreamEngine:
         torch.backends.cuda.matmul.allow_tf32 = False
         self.n_streams = int(n_streams)
         self.incremental = bool(incremental)
+        self.vad_threshold = float(vad_threshold)
+        # the suppressor runs on the chunk before the mel frontend; the VAD
+        # hears the raw chunk (the Model's contract)
+        self.enable_noise_suppression = bool(enable_noise_suppression)
+        if noise_suppression_algorithm not in ns_torch.PROFILES:
+            raise ValueError("noise_suppression_algorithm must be 'spectral' or 'mmse'; "
+                             f"got {noise_suppression_algorithm!r}")
+        self.noise_suppression_algorithm = noise_suppression_algorithm
 
         # ---- heads: labels and the execution plan (JAX engine :300-351) ----
         heads = _resolve_heads(wakeword_models)
@@ -198,10 +231,12 @@ class MultiStreamEngine:
         self._label_slices = label_head_slices
         self.max_head_frames = max(int(m["input_frames"]) for _, m, _ in self._head_metas)
 
+        # same-architecture dnn/mlp heads are stacked; an rnn head runs alone
         label_starts = {name: start for start, _, name, _, _ in label_head_slices}
         groups: Dict[tuple, list] = {}
         for name, meta, cols in self._head_metas:
-            groups.setdefault(tuple(sorted(meta.items())), []).append((name, meta, cols))
+            key = ("single", name) if meta["model_type"] == "rnn" else tuple(sorted(meta.items()))
+            groups.setdefault(key, []).append((name, meta, cols))
         self._exec_plan = []
         n_groups = 0
         for members in groups.values():
@@ -243,23 +278,74 @@ class MultiStreamEngine:
         self._threshold_vec = torch.from_numpy(threshold_vec).to(self.device)
         self._recycle_mask = torch.from_numpy(recycle).to(self.device)
 
+        # ---- folded verifiers (JAX engine :389-437): one (L, F*96) product ----
+        self.custom_verifier_threshold = float(custom_verifier_threshold)
+        provided = {k: v for k, v in (custom_verifier_models or {}).items() if v}   # falsy: no verifier
+        self._use_verifiers = bool(provided)
+        if self._use_verifiers:
+            unmatched = sorted(set(provided) - set(self.model_names))
+            if unmatched:
+                raise ValueError(
+                    f"custom_verifier_models keys {unmatched} do not name any "
+                    f"loaded base model (loaded: {sorted(self.model_names)}); "
+                    "key every verifier by the model it verifies")
+            F = self.max_head_frames
+            frames_of = {name: int(meta["input_frames"]) for name, meta, _ in self._head_metas}
+            ver_w = np.zeros((n_labels, F * config.EMB_DIM), dtype=np.float32)
+            ver_b = np.zeros(n_labels, dtype=np.float32)
+            ver_mask = np.zeros(n_labels, dtype=bool)
+            for start, end, name, _, _ in label_head_slices:
+                if name not in provided:
+                    continue
+                w, b = resolve_verifier(provided[name])
+                fh = frames_of[name]
+                if w.shape != (fh * config.EMB_DIM,):
+                    raise ValueError(
+                        f"verifier for '{name}' covers {w.shape[0] // config.EMB_DIM} "
+                        f"feature frames but the head reads {fh}; retrain the "
+                        "verifier on the head's own feature windows")
+                # a head shorter than the ring reads its trailing fh frames:
+                # zero leading coefficients make the whole ring its window
+                ver_w[start:end, (F - fh) * config.EMB_DIM:] = w
+                ver_b[start:end] = b
+                ver_mask[start:end] = True
+            self._verifier_mask = torch.from_numpy(ver_mask).to(self.device)
+
         # ---- embedding ----
         if embedding_params is None:
             embedding_params = convert.embedding_from_jax(loaders.load_embedding_params())
         self.params = {"embedding": convert.to_device(embedding_model.ensure_folded(embedding_params), self.device),
                        "heads": head_params}
+        if self.vad_threshold > 0:
+            if vad_params is None:
+                from openwakeword_tpu_torch.vad import load_vad_apply
+                _, vad_params, _ = load_vad_apply()
+            self.params["vad"] = convert.vad_from_jax(vad_params, self.device)
         if tiers.name == "bf16":
             # matmul/conv weights (>= 2-D float leaves, stacked heads' biases
-            # and norms included) in bf16; 1-D biases, norms and affines stay
-            # float32 (JAX engine :494-503)
+            # and norms included, the VAD's too) in bf16; 1-D biases, norms
+            # and affines stay float32 (JAX engine :491-503)
             self.params = _cast_weights_bf16(self.params)
+        if self._use_verifiers:
+            # bf16 coefficients at 'bf16', as the JAX engine stores them
+            # (:505-513); the product sums in float32 either way
+            self.params["verifier"] = {"w": torch.from_numpy(ver_w).to(self.device, self._state_dtype),
+                                       "b": torch.from_numpy(ver_b).to(self.device)}
         # what each step's products read, built once: float32 weights, those
         # of the 1-pass stages (and convs) rounded to bf16, so a step rounds
-        # only its activations; the params themselves seed the feature ring
+        # only its activations; the params themselves seed the feature ring.
+        # An rnn head reads its params as stored (1-pass on bf16 weights only)
+        # and the VAD its weights widened to float32.
+        single_rnn = {key for kind, key, meta, _ in self._exec_plan if meta["model_type"] == "rnn"}
         self._step_params = {
             "embedding": embedding_model.product_params(self.params["embedding"], self._stage_modes["cnn"]),
-            "heads": {k: heads_lib.product_params(v, self._stage_modes["heads"])
+            "heads": {k: v if k in single_rnn else heads_lib.product_params(v, self._stage_modes["heads"])
                       for k, v in self.params["heads"].items()}}
+        if "vad" in self.params:
+            self._step_params["vad"] = vad_net.product_params(self.params["vad"])
+        if self._use_verifiers:
+            self._step_params["verifier"] = {"w_t": self.params["verifier"]["w"].to(torch.float32).t().contiguous(),
+                                             "b": self.params["verifier"]["b"]}
 
         # one noise clip seeds every stream's feature ring, at every reset
         self._rng_seed = rng_seed
@@ -322,6 +408,15 @@ class MultiStreamEngine:
             # first step primes every cache before a stream step reads one
             state["conv_caches"] = {k: torch.zeros((S, *shape), dtype=ring, device=dev)
                                     for k, shape in embedding_stream.cache_shapes().items()}
+        if self.vad_threshold > 0:
+            vad_shape = (S, config.VAD_STATE_LAYERS, config.VAD_STATE_DIM)
+            state["vad_h"] = torch.zeros(vad_shape, dtype=f32, device=dev)
+            state["vad_c"] = torch.zeros(vad_shape, dtype=f32, device=dev)
+            state["vad_ring"] = torch.full((S, VAD_RING), -1.0, dtype=f32, device=dev)   # -1: not filled
+        if self.enable_noise_suppression:
+            # float32 at every tier: the power and the noise floor span ~12
+            # orders of magnitude (JAX engine :629-637)
+            state["ns"] = ns_torch.init_state(S, self.noise_suppression_algorithm, dev)
         return state
 
     def reset(self):
@@ -410,7 +505,10 @@ class MultiStreamEngine:
         st = self.state
         F = self.max_head_frames
         modes = self._stage_modes
-        window = torch.cat([st["pcm_tail"], chunk.to(torch.float32)], dim=-1)      # (S, 1760)
+        raw_chunk = chunk = chunk.to(torch.float32)
+        if self.enable_noise_suppression:
+            ns_state, chunk = ns_torch.process_chunk(st["ns"], chunk, self.noise_suppression_algorithm)
+        window = torch.cat([st["pcm_tail"], chunk], dim=-1)                        # (S, 1760)
         mel_raw = melspec_cuda.melspectrogram_frames(window, self.mel_dft,
                                                      config.kernel_arith(modes["mel"]))  # (S, 8, 32) dB
 
@@ -462,6 +560,18 @@ class MultiStreamEngine:
             recycled = st["score_hist"][:, :, -1] * self._recycle_mask
             scores = torch.where(valid[:, None], scores, recycled)
 
+        if self._use_verifiers:
+            # every label at or above the threshold -- a recycled score on a
+            # starved slot too, which reads its frozen ring -- takes its
+            # model's verifier score over the same feature window
+            ver_ring = feat_ring if valid is None else torch.where(valid[:, None, None], feat_ring, st["feat_ring"])
+            vp = self._step_params["verifier"]
+            with bf16.fp32_matmul():
+                ver_scores = torch.sigmoid(ver_ring.reshape(ver_ring.shape[0], -1).to(torch.float32) @ vp["w_t"]
+                                           + vp["b"])
+            scores = torch.where(self._verifier_mask & (scores >= self.custom_verifier_threshold),
+                                 ver_scores, scores)
+
         scores = gating.warmup_zero(scores, st["ticks"])
         raw_scores = scores
         if self._use_patience:
@@ -480,6 +590,8 @@ class MultiStreamEngine:
         }
         if conv_caches is not None:
             new["conv_caches"] = conv_caches
+        if self.enable_noise_suppression:
+            new["ns"] = ns_state
         if self._use_patience:
             raw_push = raw_scores
             if valid is not None:
@@ -487,15 +599,33 @@ class MultiStreamEngine:
                 prev_raw = st["raw_hist"][:, :, -1] * self._recycle_mask
                 raw_push = torch.where(valid[:, None], raw_scores, prev_raw)
             new["raw_hist"] = gating.push_history(st["raw_hist"], raw_push)
+
+        if self.vad_threshold > 0:
+            # two 640-sample VAD calls per step, scores averaged (the VAD's
+            # __call__ frame size); each reads samples 0..591 of its chunk
+            h, c = st["vad_h"].transpose(0, 1), st["vad_c"].transpose(0, 1)       # (2, S, 64)
+            vp = self._step_params["vad"]
+            s1, h, c = vad_net.apply(vp, raw_chunk[:, 0:640] / 32767.0, h, c)
+            s2, h, c = vad_net.apply(vp, raw_chunk[:, 640:1280] / 32767.0, h, c)
+            new["vad_h"], new["vad_c"] = h.transpose(0, 1), c.transpose(0, 1)
+            new["vad_ring"] = torch.cat([st["vad_ring"][:, 1:], ((s1 + s2) / 2.0)[:, None]], dim=-1)
+
         if valid is not None:
-            # streams without a frame keep their audio-path state; score
-            # history and ticks advance for every call
+            # streams without a frame keep their audio-path state (the
+            # suppressor's and the VAD's too); score history and ticks
+            # advance for every call
             def keep(n, o):
+                if isinstance(n, dict):
+                    return {k: keep(v, o[k]) for k, v in n.items()}
                 return torch.where(valid.reshape((-1,) + (1,) * (n.ndim - 1)), n, o)
-            for k in ("pcm_tail", "mel_ring", "feat_ring", "frames_seen"):
-                new[k] = keep(new[k], st[k])
-            if conv_caches is not None:
-                new["conv_caches"] = {k: keep(v, st["conv_caches"][k]) for k, v in conv_caches.items()}
+            for k in ("pcm_tail", "mel_ring", "feat_ring", "frames_seen", "conv_caches", "ns",
+                      "vad_h", "vad_c", "vad_ring"):
+                if k in new:
+                    new[k] = keep(new[k], st[k])
+        if self.vad_threshold > 0:
+            # the gate window ring[0:3] is the VAD buffer's [-7:-4]; the score
+            # history keeps the ungated scores (JAX engine :443-466)
+            scores = gating.vad_gate(scores, new["vad_ring"][:, 0:3], self.vad_threshold)
         self.state = new
         return scores
 

@@ -16,6 +16,11 @@ FEATURE_MODELS = {
     "embedding": {"model_path": os.path.join(_RES, "embedding_model.npz")},
 }
 
+# the bundled VAD is a native vad_net checkpoint, not the released Silero graph
+VAD_MODELS = {
+    "silero_vad": {"model_path": os.path.join(_RES, "silero_vad.npz")},
+}
+
 MODELS = {
     "alexa": {"model_path": os.path.join(_RES, "alexa_v0.1.npz")},
     "hey_mycroft": {"model_path": os.path.join(_RES, "hey_mycroft_v0.1.npz")},
@@ -48,11 +53,16 @@ PRETRAINED_HEAD_SPECS = {
 }
 
 
+def get_pretrained_model_paths(inference_framework: str = "torch"):
+    """Paths of all pretrained wakeword checkpoints."""
+    return [m["model_path"] for m in MODELS.values()]
+
+
 def resolve_wakeword_models(wakeword_models):
     """Resolve model specs (file paths or pretrained names, spaces allowed)
     to (paths, names); empty input selects every pretrained model. Same
     contract as ``openwakeword_tpu.registry.resolve_wakeword_models``."""
-    pretrained = [m["model_path"] for m in MODELS.values()]
+    pretrained = get_pretrained_model_paths()
     if not wakeword_models:
         return list(pretrained), list(MODELS.keys())
     paths, names = [], []

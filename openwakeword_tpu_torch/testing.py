@@ -14,6 +14,14 @@ same weights: ``run_model_golden`` feeds a ``Model`` a fixed sequence of
 packets of mixed sizes, ``run_server_golden`` drives a ``StreamServer``
 through a fixed schedule of every ingest path with slot churn, in ``step()``
 or ``step_async()`` mode. Both take either package's objects.
+
+The gating golden (``tests/fixtures/torch_gating_golden.npz``) runs the
+same weights with the add-ons on: noise suppression, the bundled VAD and
+folded verifiers on two labels (``gating_verifiers``), over the golden
+audio with synthetic vowels mixed into three streams (``gating_inputs``)
+and over the Model packets with vowels mixed in (``gating_packets``), so
+that the VAD gate both opens and closes. ``gating_masks`` tells which rows
+the gate closed and which scores a verifier replaced.
 """
 
 import contextlib
@@ -41,6 +49,13 @@ SERVER_CAPACITY = 8
 SERVER_QUEUE_FRAMES = 4
 SERVER_TICKS = 30
 SERVER_THRESHOLD = 0.5
+GATING_FIXTURE = os.path.join(_FIXTURES, "torch_gating_golden.npz")
+GATING_SEED = 20262
+GATING_VAD_THRESHOLD = 0.5
+GATING_VERIFIER_THRESHOLD = 0.3
+GATING_VERIFIED = ("alexa", "hey_mycroft")
+# (stream, first frame, end frame) of the golden streams that carry a vowel
+GATING_BURSTS = ((0, 4, 18), (1, 10, 26), (2, 18, 30))
 
 
 def golden_inputs(seed: int = GOLDEN_SEED) -> Dict:
@@ -105,6 +120,103 @@ def run_golden(engine, inputs: Dict) -> np.ndarray:
     out = [engine.predict(pcm[t]) for t in range(n)]
     out += [engine.predict_masked(pcm[n + t], mask[t]) for t in range(n)]
     return np.concatenate([np.stack(out), np.asarray(engine.predict_frames(pcm[2 * n:]))])
+
+
+def vowel(n: int, rng: np.random.Generator, sr: int = 16000) -> np.ndarray:
+    """``n`` samples of a synthetic vowel in [-1, 1] (float64): harmonics of
+    f0 in [100, 220) Hz below 4 kHz, shaped by three formants, in 4 Hz
+    syllables. The VAD scores such audio near 1 and noise near 0."""
+    t = np.arange(n) / sr
+    f0 = 100.0 + 120.0 * rng.random()
+    formants = ((300.0 + 500.0 * rng.random(), 120.0), (900.0 + 1400.0 * rng.random(), 200.0), (2600.0, 300.0))
+    x = np.zeros(n)
+    for k in range(1, int(4000.0 // f0) + 1):
+        gain = sum(np.exp(-((k * f0 - f) / bw) ** 2) for f, bw in formants)
+        x += gain * np.sin(2.0 * np.pi * k * f0 * t + 2.0 * np.pi * rng.random())
+    x *= 0.5 - 0.5 * np.cos(2.0 * np.pi * 4.0 * t)
+    return x / np.abs(x).max()
+
+
+def _mix(pcm: np.ndarray, voice: np.ndarray) -> np.ndarray:
+    return np.clip(np.round(pcm.astype(np.float64) + voice), -32768, 32767).astype(np.int16)
+
+
+def gating_inputs(seed: int = GOLDEN_SEED) -> Dict:
+    """``golden_inputs(seed)`` with a vowel of amplitude 16000 mixed into the
+    frames of GATING_BURSTS; ``sha256`` covers the mixed audio."""
+    inputs = golden_inputs(seed)
+    rng = np.random.default_rng(GATING_SEED)
+    pcm = inputs["pcm"].copy()
+    for s, a, b in GATING_BURSTS:
+        voice = 16000.0 * vowel((b - a) * 1280, rng).reshape(b - a, 1280)
+        pcm[a:b, s] = _mix(pcm[a:b, s], voice)
+    inputs["pcm"] = pcm
+    inputs["sha256"] = inputs_sha256(inputs["embedding"], inputs["heads"], pcm, inputs["mask"])
+    return inputs
+
+
+def gating_verifiers(seed: int = GATING_SEED, names=GATING_VERIFIED, frames: int = 16) -> Dict:
+    """Seeded folded verifiers ``{name: (w, b)}`` on ``frames``-frame heads:
+    w ~ N(0, 0.02^2) per coefficient, b in [-0.5, 0.5)."""
+    rng = np.random.default_rng(seed)
+    return {name: ((0.02 * embedding_model._normal(rng, (frames * 96,))).astype(np.float32),
+                   np.float32(rng.random() - 0.5)) for name in names}
+
+
+def gating_packets(seed: int = SERVING_SEED) -> List[np.ndarray]:
+    """``model_packets(seed)`` with a vowel of amplitude 16000 mixed into the
+    audio of packets 15 to 34."""
+    packets = model_packets(seed)
+    lengths = [len(p) for p in packets[15:35]]
+    voice = 16000.0 * vowel(sum(lengths), np.random.default_rng(GATING_SEED + 1))
+    out, at = list(packets), 0
+    for i, n in enumerate(lengths, start=15):
+        out[i] = _mix(packets[i], voice[at:at + n])
+        at += n
+    return out
+
+
+def voiced_frames(n_frames: int, n_streams: int, seed: int, share: float = 0.25) -> np.ndarray:
+    """(n_frames, n_streams, 1280) int16: uniform noise of amplitude 2000 on
+    every stream, and on ``share`` of the streams a vowel of amplitude 2000
+    to 12000 over a random run of frames (one of 16 vowels drawn once)."""
+    rng = np.random.default_rng(seed)
+    pcm = rng.integers(-2000, 2000, (n_frames, n_streams, 1280), dtype=np.int16)
+    bank = np.stack([vowel(n_frames * 1280, rng) for _ in range(16)]).astype(np.float32)
+    bank = bank.reshape(16, n_frames, 1280)
+    voiced = np.flatnonzero(rng.random(n_streams) < share)
+    which = rng.integers(0, 16, voiced.size)
+    gain = (2000.0 + 10000.0 * rng.random(voiced.size)).astype(np.float32)
+    start = rng.integers(0, n_frames // 2, voiced.size)
+    stop = np.minimum(start + rng.integers(n_frames // 4, n_frames, voiced.size), n_frames)
+    for j, s in enumerate(voiced):
+        a, b = start[j], stop[j]
+        pcm[a:b, s] = np.clip(pcm[a:b, s] + np.round(gain[j] * bank[which[j], a:b]), -32768, 32767)
+    return pcm
+
+
+def gating_masks(full: np.ndarray, no_vad: np.ndarray, plain: np.ndarray):
+    """(gated, replaced) of one engine run with the add-ons on (``full``),
+    the same without the VAD (``no_vad``) and without the VAD and the
+    verifiers (``plain``), scores (..., L): ``gated`` (...) marks the rows
+    the VAD gate changed (it closed over non-zero scores; the score history
+    keeps the ungated scores, so the other rows are equal), ``replaced``
+    (..., L) the scores a verifier changed."""
+    return np.any(full != no_vad, axis=-1), no_vad != plain
+
+
+def near_verifier_threshold(base: np.ndarray, labels: List[str], verified, threshold: float,
+                            margin: float = 1e-3) -> np.ndarray:
+    """(..., L) bool: the verified labels' entries whose score without the
+    verifiers (``base``) lies within ``margin`` of the verifier threshold.
+    Two runs that agree to rounding may decide those differently (one keeps
+    the score, the other takes the verifier's), so a comparison of two
+    loaded runs leaves them out and reports how many it left out."""
+    near = np.zeros(base.shape, dtype=bool)
+    for name in verified:
+        i = labels.index(name)
+        near[..., i] = np.abs(base[..., i] - threshold) < margin
+    return near
 
 
 def model_packets(seed: int = SERVING_SEED) -> List[np.ndarray]:

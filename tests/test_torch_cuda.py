@@ -587,3 +587,51 @@ def test_model_golden_on_card(cuda, serving_golden):
 def test_ingest_library_builds():
     from openwakeword_tpu_torch.parallel import ingest
     assert ingest.warm()
+
+
+# the gating add-ons on the card
+
+
+@pytest.mark.parametrize("profile", ["spectral", "mmse"])
+def test_loaded_engine_on_card_matches_cpu(cuda, profile):
+    """The bench configuration at 'high' with suppression, the VAD and two
+    folded verifiers, S = 64, on the card against the same engine on the
+    CPU (the plain 3-pass mel): scores within 1e-3, leaving out the entries
+    within 1e-3 of the verifier threshold (``testing.near_verifier_threshold``);
+    K1-3pass launches once per step."""
+    from openwakeword_tpu_torch import testing
+    from openwakeword_tpu_torch.parallel.engine import MultiStreamEngine
+    S, T = 64, 20
+    pcm = testing.voiced_frames(T, S, seed=21, share=0.5)
+    kw = dict(n_streams=S, vad_threshold=0.5, enable_noise_suppression=True, noise_suppression_algorithm=profile,
+              custom_verifier_models=testing.gating_verifiers(), custom_verifier_threshold=0.3)
+    card = MultiStreamEngine(device=cuda, **kw)
+    cpu = MultiStreamEngine(device="cpu", **kw)
+    base = MultiStreamEngine(device="cpu", n_streams=S, enable_noise_suppression=True,
+                             noise_suppression_algorithm=profile).predict_frames(pcm)
+    launches = melspec_cuda.melspectrogram_frames.launches
+    before = launches["direct_3pass"]
+    got = card.predict_frames(pcm)
+    assert launches["direct_3pass"] - before == T
+    want = cpu.predict_frames(pcm)
+    near = testing.near_verifier_threshold(base, card.labels, testing.GATING_VERIFIED, 0.3)
+    assert np.isfinite(got).all() and got.min() >= 0.0 and got.max() <= 1.0
+    assert np.abs(got - want)[~near].max() < 1e-3
+    assert near.mean() < 0.01
+    warm = got[5:]                                                          # past the warm-up zeroing
+    assert (warm == 0).all(axis=-1).any() and (warm != 0).any()             # the gate closed and opened
+
+
+@pytest.mark.parametrize("profile", ["spectral", "mmse"])
+def test_torch_noise_suppression_on_card(cuda, profile):
+    from openwakeword_tpu_torch.ns import TorchNoiseSuppression
+    rng = np.random.default_rng(22)
+    on_card = TorchNoiseSuppression(algorithm=profile, device=cuda)
+    on_cpu = TorchNoiseSuppression(algorithm=profile, device="cpu")
+    for n in (1280, 3333, 160, 4000):
+        x = np.round((rng.random(n) * 2 - 1) * 8000).astype(np.int16)
+        got, want = on_card.process_frames(x), on_cpu.process_frames(x)
+        assert np.abs(got.astype(np.int32) - want.astype(np.int32)).max() <= 1
+    for k, v in on_cpu._state.items():
+        np.testing.assert_allclose(on_card._state[k].cpu().numpy(), v.numpy(), rtol=1e-5,
+                                   atol=1e-5 * float(v.abs().max()), err_msg=k)

@@ -182,16 +182,30 @@ def test_cuda_device_without_cuda_raises(weights):
         MultiStreamEngine(wakeword_models=weights[0], n_streams=1)
 
 
-def test_import_leaves_jax_out():
+def test_import_leaves_jax_out(tmp_path):
+    """Importing the port, every module of it, and loading a verifier
+    pickled by the JAX package, imports no jax, jaxlib or openwakeword_tpu."""
+    import pickle
+    from openwakeword_tpu.custom_verifier_model import train_verifier_model
+    rng = np.random.default_rng(3)
+    pkl = str(tmp_path / "verifier.pkl")
+    with open(pkl, "wb") as f:
+        pickle.dump(train_verifier_model(rng.standard_normal((20, 16, 96)), np.arange(20) % 2), f)
     code = ("import sys, openwakeword_tpu_torch, openwakeword_tpu_torch.testing, "
             "openwakeword_tpu_torch.ops.melspec_cuda, openwakeword_tpu_torch.ops.cnn_step, "
             "openwakeword_tpu_torch.utils.cuda_build, openwakeword_tpu_torch.model, "
             "openwakeword_tpu_torch.features, openwakeword_tpu_torch.streaming, "
             "openwakeword_tpu_torch.parallel.server, openwakeword_tpu_torch.parallel.bulk, "
             "openwakeword_tpu_torch.parallel.ingest, openwakeword_tpu_torch.utils.args, "
-            "openwakeword_tpu_torch.utils.native_lib; "
-            "from openwakeword_tpu_torch import Model, MultiStreamEngine; "
+            "openwakeword_tpu_torch.utils.native_lib, openwakeword_tpu_torch.ops.ns_torch, "
+            "openwakeword_tpu_torch.ns, openwakeword_tpu_torch.vad, openwakeword_tpu_torch.models.vad_net, "
+            "openwakeword_tpu_torch.models.lstm, openwakeword_tpu_torch.custom_verifier_model; "
+            "from openwakeword_tpu_torch import Model, MultiStreamEngine, VAD, VAD_MODELS, MODELS, "
+            "FEATURE_MODELS, model_class_mappings, get_pretrained_model_paths; "
+            "from openwakeword_tpu_torch.utils import AudioFeatures, bulk_predict, re_arg; "
             "from openwakeword_tpu_torch.parallel import MultiStreamEngine, StreamServer, bulk_predict; "
+            "from openwakeword_tpu_torch.custom_verifier_model import load_verifier, fold_verifier; "
+            f"w, b = fold_verifier(load_verifier({pkl!r})); assert w.shape == (16 * 96,); "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'openwakeword_tpu')]; "
             "assert not bad, bad")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -199,3 +213,40 @@ def test_import_leaves_jax_out():
     proc = subprocess.run([sys.executable, "-c", code], cwd=root, env=env, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+@pytest.fixture(scope="module")
+def rnn_weights(weights, tmp_path_factory):
+    """``weights`` plus an rnn head checkpoint."""
+    paths, emb = weights
+    path = str(tmp_path_factory.mktemp("rnn") / "rnn_head.npz")
+    save_checkpoint(path, "head", heads.init_params(np.random.default_rng(12), "rnn", n_classes=1))
+    return [*paths, path], emb
+
+
+def test_rnn_head_engine_matches_jax(rnn_weights):
+    """An rnn head runs alone in the plan (JAX's 'single' entry) beside the
+    others; its scores match the JAX engine's."""
+    je, te = _engines(rnn_weights)
+    assert te.labels == je.labels and te.labels[-1] == "rnn_head"
+    assert [kind for kind, *_ in te._exec_plan] == [kind for kind, *_ in je._exec_plan]
+    pcm = _pcm(13, 12, S, 1280)
+    np.testing.assert_allclose(te.predict_frames(pcm), np.asarray(je.predict_frames(pcm)), rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("precision", ["fast", "bf16"])
+def test_rnn_head_keeps_its_own_precision(rnn_weights, precision):
+    """At 'fast' the rnn head stays float32 (its weights are); at 'bf16' it
+    runs 1-pass on the bf16 weights the engine stores. Either way its score
+    is ``heads.forward`` on the engine's own feature ring."""
+    paths, emb = rnn_weights
+    te = MultiStreamEngine(wakeword_models=paths, n_streams=S, precision=precision, device="cpu",
+                           embedding_params=convert.embedding_from_jax(emb))
+    rnn = te.params["heads"]["rnn_head"]
+    assert rnn["lstm0_fwd"]["w_ih"].dtype == (torch.bfloat16 if precision == "bf16" else torch.float32)
+    assert te._step_params["heads"]["rnn_head"] is rnn
+    for t, frame in enumerate(_pcm(14, 7, S, 1280)):
+        scores = te.predict(frame)
+    meta = [m for n, m, _ in te._head_metas if n == "rnn_head"][0]
+    want = heads.forward(rnn, te.state["feat_ring"][:, -16:].float(), meta).numpy()
+    np.testing.assert_array_equal(scores[:, -1], want[:, 0])

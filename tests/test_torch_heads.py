@@ -39,19 +39,41 @@ def _both(p):
     ("dnn", dict(n_blocks=2, layer_dim=32)),
     ("mlp", dict(input_frames=34, n_classes=7, layer_dim=128)),
     ("mlp", dict(input_frames=8, n_classes=3, layer_dim=16, relu_logits=False)),
+    ("rnn", dict()),
+    ("rnn", dict(input_frames=12, n_classes=4)),
+    ("rnn", dict(bf16_weights=True)),
+    ("rnn", dict(input_frames=6, n_classes=3, bf16_weights=True)),
 ])
 def test_forward_matches_jax(rng, kind, kwargs):
+    """float32 heads, and rnn heads on bf16 weights (as the engine's 'bf16'
+    tier stores them): their products are 1-pass in both packages."""
+    kwargs = dict(kwargs)
     relu_logits = kwargs.pop("relu_logits", None)
+    bf16_weights = kwargs.pop("bf16_weights", False)
     p = _perturb_norms(heads.init_params(rng, kind, **kwargs), rng)
     if relu_logits is not None:
         p["__meta__"]["relu_logits"] = relu_logits
     meta, jp, tp = _both(p)
+    if bf16_weights:
+        jp = jax.tree.map(lambda a: a.astype(jnp.bfloat16) if a.ndim >= 2 else a, jp)
+        tp = {k: {n: t.to(torch.bfloat16) if t.ndim >= 2 else t for n, t in v.items()} for k, v in tp.items()}
     x = rng.standard_normal((5, meta["input_frames"], 96)).astype(np.float32)
     for inference in (True, False):
         want = np.asarray(jax_heads.forward(jp, jnp.asarray(x), meta, inference=inference))
         got = heads.forward(tp, torch.from_numpy(x), meta, inference=inference).numpy()
         assert got.shape == (5, meta["n_classes"])
         np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
+
+
+def test_rnn_head_ignores_precision(rng):
+    """The rnn head's products follow its weights' dtype, not ``precision``
+    (JAX ``heads._lstm_scan`` and ``_apply_linear(..., precision=None)``)."""
+    p = heads.init_params(rng, "rnn")
+    meta, _, tp = _both(p)
+    x = torch.from_numpy(rng.standard_normal((3, 16, 96)).astype(np.float32))
+    fp32 = heads.forward(tp, x, meta)
+    for precision in ("fast", "bf16", "high"):
+        torch.testing.assert_close(heads.forward(tp, x, meta, precision=precision), fp32, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("kind,kwargs", [("dnn", {}), ("mlp", dict(n_classes=4, layer_dim=32))])
@@ -70,13 +92,6 @@ def test_forward_stacked_matches_jax(rng, kind, kwargs):
     for h, p in enumerate(ps):
         one = heads.forward(convert.head_from_jax(p), torch.from_numpy(x), meta).numpy()
         np.testing.assert_allclose(got[:, h], one, rtol=0, atol=ATOL)
-
-
-def test_rnn_heads_are_not_ported(rng):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        heads.init_params(rng, "rnn")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        heads.forward({}, torch.zeros((1, 16, 96)), {"model_type": "rnn", "n_classes": 1})
 
 
 # ---- gating, against openwakeword_tpu.gating run with xp=numpy ----

@@ -2,7 +2,9 @@
 package, on the same numpy weights and audio: ``ChunkAccumulator``,
 ``AudioFeatures`` (streaming and batch) and ``Model`` (predict, predict_clip,
 reset, patience, debounce, label order), plus the options that raise until
-their slices are ported.
+their slices are ported. The gating add-ons (noise suppression, the VAD gate,
+verifiers) are held in ``test_torch_gating.py``, ``test_torch_ns.py``,
+``test_torch_vad.py`` and ``test_torch_verifier.py``.
 
 Both sides are float32 on the CPU: mel frames agree within 2e-3 dB (the JAX
 package's mel tolerance, tests/test_pallas.py), embeddings within 1e-4 (its
@@ -215,9 +217,6 @@ def test_deprecated_model_paths_argument(golden):
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(enable_speex_noise_suppression=True),
-    dict(vad_threshold=0.5),
-    dict(custom_verifier_models={"alexa": "verifier.pkl"}),
     dict(quantized_execution="exact"),
     dict(embedding="student"),
 ])
