@@ -98,7 +98,31 @@ Phases, each of which exits nonzero on failure:
       NS, VAD, verifiers, loaded, bare), with each step's five costliest
       device operations; then the bench
       configuration plus an ``rnn`` head, 6 frames, its scores against the
-      CPU on streams 0-7 within 1e-3.
+      CPU on streams 0-7 within 1e-3;
+15. the student embedding and the ONNX import:
+   a. golden: the engine with ``embedding="student"`` at 'highest' (the
+      bench heads, S=8) against the JAX engine's committed scores
+      (tests/fixtures/torch_student_golden.npz), < 1e-4, K1 once per step;
+      then the bench heads on the student at S=4096, 8 warm-up and 50 timed
+      frames at 'highest', 'high' and 'fast': exactly one K1, K1-3pass or
+      K1-1pass launch per step, scores finite in [0, 1], drift against the
+      student's 'highest' in (0, 1e-3] at 'high' and (0, 0.02] at 'fast',
+      streams 0-7 against a ``device="cpu"`` engine within 1e-3 (at 'fast'
+      within 2 E, E the CPU's own 'fast' distance from its 'highest': two
+      1-pass runs flip roundings in other places); prints ms and device
+      operations per step;
+   b. the committed graphs (tests/fixtures/torch_onnx/) through
+      ``io.loaders`` on the card against the JAX package's outputs, < 1e-5:
+      a dnn head, a conv graph head and its QDQ twin on seeded windows, the
+      Silero-shaped program over 5 calls with its state threaded; the
+      ``Model`` with those three ``.onnx`` heads against the JAX ``Model``'s
+      committed scores, < 1e-3; ``Model.predict`` timed with the six ``.npz``
+      bench heads and with seven ``.onnx`` heads (five copies of the dnn
+      head, the two graph heads); the bench step at S=4096 with the Silero
+      program as its VAD gate, timed in turns with the bare step (K1-3pass
+      once per step each), streams 0-7 against the CPU engine within 1e-3
+      (rows whose gate window holds a VAD score within 1e-5 of the
+      threshold left out), with ms and device operations per step.
 
 The 1-pass bf16 variants of the four kernels run beside their fp32 ones.
 Phase 3 holds K1-1pass and K2-1pass against their plain versions within
@@ -850,6 +874,219 @@ def gating(card: str) -> int:
     return k1_loaded
 
 
+def student_and_onnx(card: str) -> dict:
+    """Phase 15, the student embedding (15a) and the ONNX import (15b);
+    returns the mel kernels' launches in the runs that put them on the main
+    path: K1, K1-3pass and K1-1pass in the student engines at 'highest',
+    'high' and 'fast', K1-3pass in the step with the Silero program."""
+    import shutil
+    import torch
+    from openwakeword_tpu_torch import Model, config, convert, registry, testing
+    from openwakeword_tpu_torch.io import loaders
+    from openwakeword_tpu_torch.models import heads, silero
+    from openwakeword_tpu_torch.ops import melspec_cuda
+    from openwakeword_tpu_torch.parallel.engine import MultiStreamEngine
+    dev = torch.device("cuda", 0)
+    launches = melspec_cuda.melspectrogram_frames.launches
+    out = {"direct": 0, "direct_1pass": 0, "direct_3pass": 0}
+
+    def run_counted(engine, frames, want):
+        """predict_frames with the mel counts zeroed just before, checked just
+        after: exactly one launch of ``want`` per step and no other."""
+        for k in launches:
+            launches[k] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scores = engine.predict_frames(frames)
+        wall = time.perf_counter() - t0
+        used = {k: v for k, v in launches.items() if v}
+        if used != {want: frames.shape[0]}:
+            fail(f"mel launches {used} in {frames.shape[0]} steps, expected one {want} per step")
+        out[want] += frames.shape[0]
+        return scores, wall
+
+    def check_scores(scores, shape, what):
+        if scores.shape != shape or not (np.isfinite(scores).all() and scores.min() >= 0.0
+                                         and scores.max() <= 1.0):
+            fail(f"{what}: scores are not finite values in [0, 1] of shape {shape}: {scores.shape}")
+
+    # 15a. the student embedding: golden, then the bench heads at S=4096 per tier
+    with np.load(testing.STUDENT_FIXTURE) as z:
+        fixture = {k: z[k] for k in z.files}
+    inputs = testing.student_inputs(int(fixture["seed"]))
+    if inputs["sha256"] != str(fixture["inputs_sha256"]):
+        fail("student golden inputs do not regenerate bit-exactly with this numpy")
+    head_paths = testing.write_head_checkpoints(inputs["heads"], tempfile.mkdtemp())
+    engine = MultiStreamEngine(wakeword_models=head_paths, n_streams=testing.STUDENT_STREAMS, precision="highest",
+                               device=dev, embedding_params=convert.student_from_jax(inputs["embedding"]))
+    if engine.embedding != "student":
+        fail(f"the engine resolved embedding={engine.embedding!r} from student params")
+    scores, _ = run_counted(engine, inputs["pcm"], "direct")
+    err = float(np.abs(scores - fixture["scores"]).max())
+    print(f"student golden: max |dscore| vs the JAX engine ('highest', student embedding) {err:.3e} over "
+          f"{scores.shape}, K1 once per step")
+    if not err < 1e-4:
+        fail(f"student golden scores off by {err} >= 1e-4")
+    del engine
+
+    S, W, T = SCALE_STREAMS, 8, SCALE_FRAMES
+    frames = np.random.default_rng(150).integers(-2000, 2000, (W + T, S, 1280), dtype=np.int16)
+    reference, walls, ops = None, {}, {}
+    for precision, want in (("highest", "direct"), ("high", "direct_3pass"), ("fast", "direct_1pass")):
+        # no student checkpoint on disk: the seeded init (seed 42), with a warning
+        engine = MultiStreamEngine(n_streams=S, precision=precision, embedding="student", device=dev)
+        warm = engine.predict_frames(frames[:W])                 # includes the prime
+        scores, wall = run_counted(engine, frames[W:], want)
+        scores = np.concatenate([warm, scores])
+        check_scores(scores, (W + T, S, 11), f"student '{precision}'")
+        if precision == "highest":
+            reference, drift, limit = scores, 0.0, 0.0
+        else:
+            drift = float(np.abs(scores - reference).max())
+            limit = SCORE_TOL if precision == "high" else TIER_DRIFT_TOL
+            if not 0.0 < drift <= limit:
+                fail(f"student '{precision}': max |dscore| vs the student's 'highest' {drift}, outside (0, {limit}]")
+        t0 = time.perf_counter()
+        cpu = MultiStreamEngine(n_streams=8, precision=precision, embedding="student",
+                                device="cpu").predict_frames(frames[:, :8])
+        cpu_s = time.perf_counter() - t0
+        cpu_err = float(np.abs(scores[:, :8] - cpu).max())
+        if precision == "highest":
+            cpu_ref, cpu_limit = cpu, SCORE_TOL
+        elif config.one_pass(precision):
+            # two 1-pass runs that sum in other orders flip roundings that feed
+            # the later products: each lies within E of fp32, so within 2 E of
+            # each other, E the CPU's own 1-pass distance from its 'highest'
+            cpu_limit = max(SCORE_TOL, 2.0 * float(np.abs(cpu - cpu_ref).max()))
+        if not cpu_err < cpu_limit:
+            fail(f"student '{precision}' on the card vs the CPU engine on streams 0-7: {cpu_err} >= {cpu_limit}")
+        n_ops, busy, top = device_ops_per_step(lambda e=engine: e.predict(frames[-1]))
+        ms = 1e3 * wall / T
+        walls[precision], ops[precision] = ms, n_ops
+        print(f"student step '{precision}' (bench heads, student embedding) at S={S}: {ms:.3f} ms per step over "
+              f"{T} frames, {S * 0.08 / (ms / 1e3):.0f} streams in real time, {n_ops} device operations per step "
+              f"({busy:.3f} ms of them), {want} {T} launches, max |dscore| vs the student's 'highest' {drift:.3e}"
+              f"{f' (limit {limit})' if limit else ''}, vs the CPU engine on streams 0-7 {cpu_err:.3e} "
+              f"(limit {cpu_limit:.3e}) "
+              f"(CPU {cpu_s:.1f} s), state {str(engine.state['conv_caches']['blocks'].dtype).replace('torch.', '')}, "
+              f"on {card}")
+        print(f"  costliest device operations (student '{precision}'): "
+              + "; ".join(f"{n} x {op[:70]} {t:.3f} ms" for op, n, t in top))
+        del engine
+
+    # 15b. ONNX: the committed graphs against the JAX goldens
+    with np.load(testing.ONNX_FIXTURE) as z:
+        fixture = {k: z[k] for k in z.files}
+    onnx_in = testing.onnx_inputs(int(fixture["seed"]))
+    if not np.array_equal(onnx_in["windows"], fixture["windows"]):
+        fail("ONNX golden inputs do not regenerate bit-exactly with this numpy")
+    path = {k: os.path.join(testing.ONNX_DIR, f) for k, f in testing.ONNX_FILES.items()}
+    windows = torch.from_numpy(onnx_in["windows"]).to(dev)
+    for key in ("head", "graph", "qdq"):
+        kind, params, _ = loaders.load_model_file(path[key])
+        head = convert.head_from_jax(params, dev)
+        meta = head.pop("__meta__")
+        got = heads.forward(head, windows, meta).cpu().numpy()
+        err = float(np.abs(got - fixture[f"scores_{key}"]).max())
+        print(f"onnx golden {testing.ONNX_FILES[key]} ({kind}, {meta['model_type']}): max |diff| vs the JAX "
+              f"package {err:.3e} over {got.shape}")
+        if not err < 1e-5:
+            fail(f"{testing.ONNX_FILES[key]} on the card is {err} from the JAX golden (limit 1e-5)")
+    params, meta = loaders.load_vad(path["silero"])
+    prog = silero.from_meta(meta, params)
+    vad_params = convert.vad_from_jax(prog.params, dev)
+    got = testing.run_silero(prog.apply, vad_params, onnx_in["audio"], lambda t: t.cpu().numpy(),
+                             lambda a: torch.from_numpy(a).to(dev))
+    err = max(float(np.abs(a - fixture[n]).max()) for a, n in zip(got, ("silero_scores", "silero_h", "silero_c")))
+    print(f"onnx golden {testing.ONNX_FILES['silero']} (Silero program, {testing.SILERO_CALLS} calls with the "
+          f"state threaded): max |diff| vs the JAX package {err:.3e} (scores, h, c)")
+    if not err < 1e-5:
+        fail(f"the Silero program on the card is {err} from the JAX golden (limit 1e-5)")
+
+    # Model with .onnx heads: golden, then Model.predict timed beside the .npz bench heads
+    onnx_dir = tempfile.mkdtemp()
+    golden_heads = []
+    for key, name in (("head", "alexa_onnx"), ("graph", "cnn_graph"), ("qdq", "qdq_graph")):
+        golden_heads.append(os.path.join(onnx_dir, f"{name}.onnx"))
+        shutil.copy(path[key], golden_heads[-1])
+    emb = convert.embedding_from_jax(testing.golden_inputs()["embedding"])
+    model = Model(wakeword_models=golden_heads, device=dev, embedding_params=emb)
+    scores = testing.run_model_golden(model, testing.model_packets())
+    err = float(np.abs(scores - fixture["model_scores"]).max())
+    print(f"onnx Model golden (dnn, conv graph and QDQ graph heads from .onnx): max |dscore| vs the JAX Model "
+          f"{err:.3e} over {scores.shape}")
+    if not err < SCORE_TOL:
+        fail(f"the Model with .onnx heads is {err} from the JAX golden (limit {SCORE_TOL})")
+    bench_onnx = []
+    for name in ("alexa", "hey_mycroft", "hey_jarvis", "hey_rhasspy", "weather"):
+        bench_onnx.append(os.path.join(onnx_dir, f"{name}.onnx"))
+        shutil.copy(path["head"], bench_onnx[-1])
+    models = {".npz bench heads (6)": Model(device=dev, embedding_params=emb),
+              ".onnx heads (5 dnn + conv graph + QDQ graph)": Model(
+                  wakeword_models=bench_onnx + golden_heads[1:], device=dev, embedding_params=emb)}
+    frame = np.zeros(1280, np.int16)
+    per_call = {name: [] for name in models}
+    for name in list(models) + list(models)[::-1]:
+        m = models[name]
+        for _ in range(5):
+            m.predict(frame)
+        t0 = time.perf_counter()
+        for _ in range(50):
+            m.predict(frame)
+        per_call[name].append(1e3 * (time.perf_counter() - t0) / 50)
+    for name, m in models.items():
+        print(f"onnx Model.predict with {name}: {min(per_call[name]):.3f} ms per 1280-sample call (runs "
+              f"{', '.join(f'{v:.3f}' for v in per_call[name])}), {len(m.models)} heads, on {card}")
+    del model, models
+
+    # the step with the Silero program as its VAD gate at S=4096, against the bare step
+    registry.VAD_MODELS["silero_vad"]["model_path"] = path["silero"]
+    gate = 0.5277          # inside the range the seeded Silero-shaped graph scores this audio (0.5274-0.5287)
+    vframes = testing.voiced_frames(W + T, S, seed=151)
+    engines = {"bare": MultiStreamEngine(n_streams=S, device=dev),
+               "silero": MultiStreamEngine(n_streams=S, device=dev, vad_threshold=gate)}
+    if not isinstance(getattr(engines["silero"]._vad_apply, "__self__", None), silero.SileroProgram):
+        fail("the engine's VAD stage did not load the Silero program")
+    walls = {name: [] for name in engines}
+    first = {}
+    for name in ("bare", "silero", "silero", "bare"):
+        engine = engines[name]
+        engine.reset()
+        warm = engine.predict_frames(vframes[:W])
+        scores, wall = run_counted(engine, vframes[W:], "direct_3pass")
+        walls[name].append(wall)
+        first.setdefault(name, np.concatenate([warm, scores]))
+    loaded = first["silero"]
+    check_scores(loaded, (W + T, S, 11), "Silero-gated step")
+    # the CPU engine step by step, noting the rows whose gate window holds a
+    # VAD score within 1e-5 of the threshold (the card may gate them the other way)
+    cpu = MultiStreamEngine(n_streams=8, device="cpu", vad_threshold=gate)
+    want, near = [], []
+    for t in range(W + T):
+        want.append(cpu.predict(vframes[t, :8]))
+        near.append((np.abs(cpu.state["vad_ring"][:, 0:3].numpy() - gate) < 1e-5).any(axis=-1))
+    want, near = np.stack(want), np.stack(near)
+    err = float(np.abs(loaded[:, :8] - want)[~near].max())
+    closed = float((loaded[W:] == 0).all(axis=-1).mean())
+    if not err < SCORE_TOL:
+        fail(f"the Silero-gated step on the card vs the CPU engine on streams 0-7: {err} >= {SCORE_TOL}")
+    if not 0.0 < closed < 1.0:
+        fail(f"the Silero gate closed on {closed:.1%} of the rows: the gate is not exercised")
+    print(f"silero step vs the CPU engine on streams 0-7 over {W + T} frames: max |dscore| {err:.3e} "
+          f"({int(near.sum())} rows with a VAD score within 1e-5 of the gate left out); gate (threshold {gate}) "
+          f"closed on {closed:.1%} of the timed rows")
+    for name, engine in engines.items():
+        ms = 1e3 * min(walls[name]) / T
+        n_ops, busy, top = device_ops_per_step(lambda e=engine: e.predict(vframes[-1]))
+        print(f"{name} step ('high', bench configuration{', Silero program as the VAD' if name == 'silero' else ''})"
+              f" at S={S}: {ms:.3f} ms per step (runs {', '.join(f'{1e3 * w / T:.3f}' for w in walls[name])}), "
+              f"{S * 0.08 / (ms / 1e3):.0f} streams in real time, {n_ops} device operations per step ({busy:.3f} "
+              f"ms of them), on {card}")
+        print(f"  costliest device operations ({name}): "
+              + "; ".join(f"{n} x {op[:70]} {t:.3f} ms" for op, n, t in top))
+    return out
+
+
 def main():
     t_start = time.perf_counter()
     import torch
@@ -1349,6 +1586,9 @@ def main():
     print(f"[{time.perf_counter() - t_start:.1f} s] phase 14")
     # K1-3pass's main-path launches: the serving runs' and the loaded step's
     mel_launches["direct_3pass"] += gating(card)
+    print(f"[{time.perf_counter() - t_start:.1f} s] phase 15")
+    for k, n in student_and_onnx(card).items():
+        mel_launches[k] += n
 
     # no single PyTorch call computes any of these functions (a mel frontend or a
     # 20-conv step is several calls), so library_ms is null throughout

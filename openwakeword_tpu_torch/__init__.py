@@ -2,12 +2,14 @@
 
 It runs ``openwakeword_tpu`` (the JAX package, kept as the reference) on an
 NVIDIA GPU: the multi-stream engine and its serving runtime
-(``parallel``), the single-stream ``Model`` / ``AudioFeatures`` API, and
-their gating add-ons (noise suppression, the VAD and speaker verifiers).
-The mel frontend is hand-written CUDA (``csrc/melspec.cu``; the bf16
-variants of its direct DFT on the tensor cores, ``csrc/melspec_mma.cu``);
-the embedding CNN, heads, add-ons and gating are PyTorch ops. It imports
-neither jax nor ``openwakeword_tpu``.
+(``parallel``), the single-stream ``Model`` / ``AudioFeatures`` API,
+their gating add-ons (noise suppression, the VAD and speaker verifiers),
+the student embedding and ``.onnx`` model files (``io.onnx_import``, run by
+the graph executor ``io.onnx_graph``). The mel frontend is hand-written
+CUDA (``csrc/melspec.cu``; the bf16 variants of its direct DFT on the
+tensor cores, ``csrc/melspec_mma.cu``); the embeddings, heads, graphs,
+add-ons and gating are PyTorch ops. It imports neither jax nor
+``openwakeword_tpu``.
 """
 from openwakeword_tpu_torch.registry import (
     FEATURE_MODELS,

@@ -1,9 +1,9 @@
 """Carry params from the JAX package's layout into the port's tensors.
 
 The JAX package (and the shared ``.npz`` checkpoints) store embedding convs
-as HWIO and head linears as (n_in, n_out), with a head's architecture under
-``"__meta__"``. The port runs convs as OIHW, so conv weights are
-transposed; every other leaf keeps its shape. Leaves may be numpy arrays or
+as HWIO and head and student linears as (n_in, n_out), with a head's
+architecture under ``"__meta__"``. The port runs convs as OIHW, so conv
+weights are transposed; every other leaf keeps its shape. Leaves may be numpy arrays or
 anything ``numpy.asarray`` accepts; nothing here imports jax.
 """
 
@@ -38,6 +38,12 @@ def head_from_jax(params: Mapping, device="cpu") -> Dict:
         out["__meta__"] = {k: (v.item() if isinstance(v, np.generic) else v)
                            for k, v in dict(params["__meta__"]).items()}
     return out
+
+
+def student_from_jax(params: Mapping, device="cpu") -> Dict:
+    """Student embedding params (``models.embedding_student`` layout) ->
+    port tensors, every leaf in its shape."""
+    return _tree(params, device, lambda k, v, dev: _tensor(v, dev))
 
 
 def vad_from_jax(params: Mapping, device="cpu") -> Dict:

@@ -21,15 +21,15 @@ from typing import Callable, List, Union
 import numpy as np
 import torch
 
-from openwakeword_tpu_torch import config, convert
+from openwakeword_tpu_torch import config
 from openwakeword_tpu_torch.io import loaders
 from openwakeword_tpu_torch.models import embedding as embedding_model
+from openwakeword_tpu_torch.models import embedding_student
 from openwakeword_tpu_torch.ops import melspec as melspec_ops
 from openwakeword_tpu_torch.ops import melspec_cuda
 from openwakeword_tpu_torch.streaming import ChunkAccumulator
 
-_ROADMAP_STUDENT = ("embedding='student' is not ported yet (ROADMAP.md, queue 1, slice D: "
-                    "the student embedding)")
+_EMBED = {"default": embedding_model.apply_folded, "student": embedding_student.apply}
 
 
 class AudioFeatures():
@@ -48,18 +48,19 @@ class AudioFeatures():
                  rng_seed: int = 0):
         """Args mirror the JAX package's constructor. ``device`` is the torch
         device: "cuda" by default, which raises without CUDA; "cpu" runs the
-        plain PyTorch versions. ``embedding_params`` takes the port's tensors
-        (``convert.embedding_from_jax``); without them the weights load from
-        ``embedding_model_path`` or the registry's checkpoint, else a
-        numpy-seeded init (``io.loaders``). The embedding always runs
+        plain PyTorch versions. ``embedding='student'`` runs the student
+        network (``models.embedding_student``). ``embedding_params`` takes
+        the port's tensors (``convert.embedding_from_jax`` or
+        ``convert.student_from_jax``), which decide the network; without
+        them the weights load from ``embedding_model_path`` (``.npz`` or
+        ``.onnx``) or the registry's checkpoint, else a numpy-seeded init
+        (``io.loaders.resolve_embedding``). The faithful CNN always runs
         BN-folded; ``fold_embedding_batchnorm``, ``ncpu``,
         ``melspec_model_path`` and ``inference_framework`` are accepted for
         API compatibility."""
         if inference_framework not in ("torch", "jax", "tflite", "onnx"):
             raise ValueError(f"Unknown inference_framework '{inference_framework}'")
-        if embedding == "student":
-            raise NotImplementedError(_ROADMAP_STUDENT)
-        if embedding != "default":
+        if embedding not in ("default", "student"):
             raise ValueError(f"embedding must be 'default' or 'student', got {embedding!r}")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -68,14 +69,11 @@ class AudioFeatures():
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
         self.sr = sr
-        self.embedding = "default"
         self._np_rng = np.random.default_rng(rng_seed)
-
-        if embedding_params is None:
-            embedding_params = convert.embedding_from_jax(
-                loaders.load_embedding_params(embedding_model_path))
-        self._embedding_params = convert.to_device(
-            embedding_model.ensure_folded(embedding_params), self.device)
+        # the resolved network: explicit params win over the argument
+        self.embedding, self._embedding_params = loaders.resolve_embedding(
+            embedding, embedding_params, self.device, embedding_model_path)
+        self._embed_fn = _EMBED[self.embedding]
 
         # Streaming state (host mirrors; the FLOPs run on the device)
         self.raw_data_buffer = np.zeros(0, dtype=np.int16)   # <= 10 s of PCM
@@ -135,7 +133,7 @@ class AudioFeatures():
 
     def _embed(self, windows: np.ndarray) -> np.ndarray:
         """(B, 76, 32) mel windows -> (B, 96) embeddings."""
-        return embedding_model.apply_folded(self._embedding_params, self._to_device(windows)).cpu().numpy()
+        return self._embed_fn(self._embedding_params, self._to_device(windows)).cpu().numpy()
 
     def _get_embeddings_from_melspec(self, melspec: np.ndarray) -> np.ndarray:
         """(76, 32[, 1]) or (B, 76, 32[, 1]) mel window(s) -> (B, 96) embeddings."""

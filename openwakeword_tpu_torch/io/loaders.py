@@ -1,10 +1,13 @@
-"""Weight resolution for the engine (counterpart of
+"""Model-file loading and weight resolution (counterpart of
+``openwakeword_tpu.io.loaders.load_model_file``,
 ``openwakeword_tpu.model.Model._load_head`` and
 ``openwakeword_tpu.features._load_embedding_params``).
 
-A checkpoint on disk is loaded as is. Without one, the published
+``load_model_file`` reads a native ``.npz`` checkpoint or imports an
+``.onnx`` artifact (``io.onnx_import``: heads, embeddings, the Silero VAD
+program). A checkpoint on disk is loaded as is. Without one, the published
 architecture gets a deterministic numpy-seeded init (heads: seed
-``crc32(file stem)``, embedding: seed 42, the JAX package's seeds). Those
+``crc32(file stem)``, embeddings: seed 42, the JAX package's seeds). Those
 draws are NOT the JAX package's ``jax.random`` fallback weights, so scores of
 artifact-less engines differ between the two packages; parity runs hand
 both the same weights explicitly.
@@ -13,30 +16,40 @@ both the same weights explicitly.
 import logging
 import os
 import zlib
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 
-from openwakeword_tpu_torch import config, registry
+from openwakeword_tpu_torch import config, convert, registry
 from openwakeword_tpu_torch.io.checkpoints import load_checkpoint
 from openwakeword_tpu_torch.models import embedding as embedding_model
+from openwakeword_tpu_torch.models import embedding_student
 from openwakeword_tpu_torch.models import heads as heads_lib
 
-_ROADMAP_IMPORT = (".onnx/.tflite import is not ported yet (ROADMAP.md, queue 1, "
-                   "slice E); convert to .npz with the JAX package")
+_ROADMAP_TFLITE = (".tflite import is not ported yet (ROADMAP.md, queue 1, slice E2: "
+                   "io/tflite_import.py and io/tflite_graph.py); convert to .npz or .onnx")
 
 
-def _load_npz(path: str) -> Tuple[str, Dict, Dict]:
+def load_model_file(path: str) -> Tuple[str, Dict, Dict]:
+    """Load a model file -> (kind, numpy params, meta): a native ``.npz``
+    checkpoint or an ``.onnx`` artifact. kind is 'embedding', 'head' or
+    'vad' (or the checkpoint's own kind)."""
     ext = os.path.splitext(path)[1].lower()
-    if ext != ".npz":
-        raise NotImplementedError(f"{path}: {_ROADMAP_IMPORT}")
-    return load_checkpoint(path)
+    if ext == ".npz":
+        return load_checkpoint(path)
+    if ext == ".onnx":
+        from openwakeword_tpu_torch.io.onnx_import import import_onnx_model
+        return import_onnx_model(path)
+    if ext == ".tflite":
+        raise NotImplementedError(f"{path}: {_ROADMAP_TFLITE}")
+    raise ValueError(f"Unsupported model file extension '{ext}' for {path}")
 
 
 def load_head(path: str, name: str) -> Tuple[Dict, Dict]:
-    """(numpy head params with '__meta__', file meta) in the checkpoint layout."""
+    """(numpy head params with '__meta__', file meta) in the checkpoint
+    layout; an imported graph head's meta carries its program."""
     if os.path.exists(path):
-        kind, params, meta = _load_npz(path)
+        kind, params, meta = load_model_file(path)
         if kind not in ("head", "unknown"):
             raise ValueError(f"Model file {path} is a '{kind}' checkpoint, expected a wakeword head")
         if "__meta__" not in params:
@@ -54,15 +67,22 @@ def load_head(path: str, name: str) -> Tuple[Dict, Dict]:
     return heads_lib.init_params(rng, **spec), {}
 
 
-def load_embedding_params(path: str = "", rng_seed: int = 42) -> Dict:
-    """Embedding params (numpy, checkpoint layout): the given checkpoint,
-    the registry artifact, or a numpy-seeded init with a warning."""
-    path = path or registry.FEATURE_MODELS["embedding"]["model_path"]
+def load_embedding_params(path: str = "", rng_seed: int = 42, embedding: str = "default") -> Dict:
+    """Embedding params (numpy, checkpoint layout): the given checkpoint
+    (``.npz`` or ``.onnx``), the registry artifact of ``embedding``
+    ('default' or 'student'), or a numpy-seeded init with a warning."""
+    reg_key = "embedding_student" if embedding == "student" else "embedding"
+    path = path or registry.FEATURE_MODELS[reg_key]["model_path"]
     if path and os.path.exists(path):
-        kind, params, _ = _load_npz(path)
-        if kind not in ("embedding", "unknown"):
+        kind, params, _ = load_model_file(path)
+        if kind not in ("embedding", "embedding_student", "unknown"):
             raise ValueError(f"Checkpoint at {path} is a '{kind}' model, expected an embedding model")
         return params
+    if embedding == "student":
+        logging.warning(
+            "No student-embedding checkpoint found at '%s'; using a deterministic numpy-seeded "
+            "initialization. Its weights differ from the JAX package's jax.random fallback.", path)
+        return embedding_student.init_params(np.random.default_rng(rng_seed))
     logging.warning(
         "No speech-embedding checkpoint found at '%s'; using a deterministic numpy-seeded "
         "initialization. Its weights differ from the JAX package's jax.random fallback, so "
@@ -71,8 +91,32 @@ def load_embedding_params(path: str = "", rng_seed: int = 42) -> Dict:
 
 
 def load_vad(path: str) -> Tuple[Dict, Dict]:
-    """(numpy VAD params, file meta) of the checkpoint at ``path``."""
-    kind, params, meta = _load_npz(path)
+    """(numpy VAD params, file meta) of the checkpoint or ``.onnx`` graph at
+    ``path``; an imported Silero graph's meta has ``"format":
+    "onnx_program"`` and its program spec."""
+    kind, params, meta = load_model_file(path)
     if kind not in ("vad", "unknown"):
         raise ValueError(f"Checkpoint at {path} is a '{kind}' model, expected a VAD model")
     return params, meta
+
+
+def resolve_embedding(embedding: str, embedding_params: Optional[Dict], device,
+                      path: str = "") -> Tuple[str, Dict]:
+    """(resolved embedding name, params as tensors on ``device``), as the JAX
+    engine and ``AudioFeatures`` resolve them: params passed explicitly (the
+    port's tensors) decide the network, so student params run the student
+    whatever ``embedding`` says; without params the checkpoint at ``path``
+    or the registry's for ``embedding`` loads, else a seeded init. The
+    faithful CNN's params come BN-folded."""
+    if embedding not in ("default", "student"):
+        raise ValueError(f"embedding must be 'default' or 'student', got {embedding!r}")
+    if embedding_params is None:
+        raw = load_embedding_params(path, embedding=embedding)
+        embedding_params = (convert.student_from_jax(raw) if embedding_student.is_student(raw)
+                            else convert.embedding_from_jax(raw))
+    if embedding_student.is_student(embedding_params):
+        return "student", convert.to_device(embedding_params, device)
+    if embedding == "student":
+        raise ValueError("embedding='student' but embedding_params is a faithful-CNN pytree; "
+                         "pass student params or omit embedding_params to load/init the student network")
+    return "default", convert.to_device(embedding_model.ensure_folded(embedding_params), device)

@@ -6,8 +6,10 @@ openwakeword/model.py:32-504): predict / predict_clip / reset, patience XOR
 debounce filtering, 5-frame warm-up zeroing, the multiclass label mapping,
 noise suppression, speaker verifiers and the VAD gate, with every head of a
 call batched over its sub-frame windows in one device call. The audio
-frontend is ``features.AudioFeatures`` on the same device. Exact int8
-execution raises ``NotImplementedError`` until its slice is ported.
+frontend is ``features.AudioFeatures`` on the same device. Heads load from
+``.npz`` checkpoints or ``.onnx`` artifacts (``io.loaders``); exact int8
+execution and ``.tflite`` files raise ``NotImplementedError`` until their
+slice (E2) is ported.
 
 For many streams at once use ``openwakeword_tpu_torch.parallel``.
 """
@@ -53,7 +55,9 @@ class Model():
             **kwargs,
             ):
         """Args mirror the JAX package's constructor. ``wakeword_models``
-        entries are ``.npz`` head checkpoints or pretrained names; the other
+        entries are ``.npz`` head checkpoints, ``.onnx`` artifacts (the
+        dnn/mlp/rnn families, or any classifier graph as a 'graph' head) or
+        pretrained names; the other
         keyword arguments (``device``, ``embedding_params``, ``rng_seed``, ...)
         go to ``AudioFeatures``, and the heads run on its device.
 
@@ -70,7 +74,8 @@ class Model():
             raise ValueError("noise_suppression_algorithm must be 'spectral' or 'mmse'; "
                              f"got {noise_suppression_algorithm!r}")
         if quantized_execution == "exact":
-            raise _not_ported("exact int8 execution (quantized_execution='exact')", "slice E")
+            raise _not_ported("exact int8 execution (quantized_execution='exact')",
+                              "slice E2: ops/qmath.py and io/tflite_graph.py")
 
         wakeword_models, wakeword_model_names = registry.resolve_wakeword_models(wakeword_models)
         self.preprocessor = AudioFeatures(**kwargs)
@@ -84,8 +89,11 @@ class Model():
         self.custom_verifier_models: Dict[str, object] = {}        # name -> pipeline
         self._verifier_weights: Dict[str, tuple] = {}              # name -> folded (w, b) on device
         self.custom_verifier_threshold = custom_verifier_threshold
+        head_frontends: Dict[str, str] = {}        # name -> the embedding a head was trained on
         for mdl_path, mdl_name in zip(wakeword_models, wakeword_model_names):
             params, meta = loaders.load_head(mdl_path, mdl_name)
+            if meta.get("embedding"):
+                head_frontends[mdl_name] = meta["embedding"]
             head = convert.head_from_jax(params, device)
             head_meta = head.pop("__meta__")
             heads_lib.check_supported(head_meta)
@@ -116,6 +124,14 @@ class Model():
                 self.custom_verifier_models[mdl_name] = pipeline
                 self._verifier_weights[mdl_name] = (torch.from_numpy(w).to(device),
                                                     torch.tensor(b, device=device))
+
+        # a head trained on the other frontend scores meaninglessly: say so
+        for mdl_name, trained_on in head_frontends.items():
+            if trained_on != self.preprocessor.embedding:
+                logging.warning(
+                    "Model '%s' was trained on the '%s' embedding frontend but this engine runs "
+                    "embedding='%s'; its scores will be unreliable. Construct the engine with "
+                    "embedding='%s'.", mdl_name, trained_on, self.preprocessor.embedding, trained_on)
 
         # blank entries ({'name': ''} / None) count as "no verifier"
         provided_verifiers = {k for k, v in (custom_verifier_models or {}).items() if v}

@@ -1,12 +1,17 @@
 """Wake-word classifier heads in PyTorch (counterpart of
-``openwakeword_tpu.models.heads``), for the ``dnn``, ``mlp`` and ``rnn``
-architectures:
+``openwakeword_tpu.models.heads``), for the ``dnn``, ``mlp``, ``rnn`` and
+``graph`` architectures:
 
-  * ``dnn`` -- Flatten -> Linear(W) -> LayerNorm -> ReLU ->
-               n x [Linear(W) -> LayerNorm -> ReLU] -> Linear(classes)
-  * ``mlp`` -- Flatten -> Linear(W) -> ReLU -> Linear(W) -> ReLU -> Linear(classes)
-  * ``rnn`` -- 2-layer bidirectional LSTM(64) -> Linear(classes) on the last
-               time step
+  * ``dnn``   -- Flatten -> Linear(W) -> LayerNorm -> ReLU ->
+                 n x [Linear(W) -> LayerNorm -> ReLU] -> Linear(classes)
+  * ``mlp``   -- Flatten -> Linear(W) -> ReLU -> Linear(W) -> ReLU -> Linear(classes)
+  * ``rnn``   -- 2-layer bidirectional LSTM(64) -> Linear(classes) on the last
+                 time step
+  * ``graph`` -- an imported classifier graph (``io.onnx_import``) run by
+                 ``io.onnx_graph``; its first output is the score, its
+                 params the graph's float initializers. Inference only; a
+                 graph with a pinned batch (``batch1_only``) runs one sample
+                 at a time.
 
 Binary heads end in sigmoid; multiclass heads in ReLU'd logits (unless the
 meta says ``relu_logits=False``) and softmax. Params are dicts of tensors
@@ -33,7 +38,8 @@ from openwakeword_tpu_torch.ops import bf16
 
 EMB_DIM = config.EMB_DIM
 RNN_HIDDEN = 64
-MODEL_TYPES = ("dnn", "mlp", "rnn")
+MODEL_TYPES = ("dnn", "mlp", "rnn", "graph")
+SINGLE_TYPES = ("rnn", "graph")          # never stacked: each runs alone
 
 
 def _linear_init(rng: np.random.Generator, n_in: int, n_out: int) -> Dict:
@@ -126,6 +132,8 @@ def forward(params: Dict, x: torch.Tensor, meta: Dict, inference: bool = True,
             precision=None) -> torch.Tensor:
     """Score a (B, F, 96) embedding window -> (B, n_classes)."""
     check_supported(meta)
+    if meta["model_type"] == "graph":
+        return _forward_graph(params, x, meta, inference)
 
     def linear(p, z):
         return _product(z, p["w"], precision) + p["b"].float()
@@ -147,6 +155,23 @@ def forward(params: Dict, x: torch.Tensor, meta: Dict, inference: bool = True,
         h = torch.relu(linear(params["layer1"], h))
         h = torch.relu(linear(params["layer2"], h))
     return _activate(linear(params["out"], h), meta, inference)
+
+
+def _forward_graph(params: Dict, x: torch.Tensor, meta: Dict, inference: bool) -> torch.Tensor:
+    """An imported graph head on (B, F, 96) windows -> (B, n_classes). The
+    graph carries its own output activation, so its first output is the
+    score. ``params`` should be the same dict from call to call (the
+    executor builds one plan per params dict)."""
+    if not inference:
+        raise ValueError("graph-imported heads are inference-only (train native "
+                         "dnn/mlp/rnn heads)")
+    x = x.to(torch.float32)
+    h = x.reshape(x.shape[0], -1) if meta["input_rank"] == 2 else x
+    prog, in_name, out_name = meta["program"], meta["input_name"], meta["output_name"]
+    if meta.get("batch1_only"):
+        return torch.stack([prog.apply(params, {in_name: h[i:i + 1]})[out_name].to(torch.float32).reshape(-1)
+                            for i in range(h.shape[0])])
+    return prog.apply(params, {in_name: h})[out_name].to(torch.float32).reshape(x.shape[0], -1)
 
 
 def stack_params(params_list: List[Dict]) -> Dict:

@@ -14,9 +14,11 @@ one device with a leading stream axis. One step advances every stream by
    then the top_db clamp over the valid frames, the /10+2 affine
    and the 76-row mel ring with the first-frame 5-row rule;
 2. incremental embedding CNN (``models.embedding_stream``), re-primed from
-   the mel ring in blocks of PRIME_BLOCK_STREAMS when a stream starts;
+   the mel ring in blocks of PRIME_BLOCK_STREAMS when a stream starts; with
+   ``embedding="student"`` the student network (``models.embedding_student``),
+   whose streaming state is a (S, 19, 256) block ring;
 3. the feature ring, the heads (same-architecture dnn/mlp heads stacked;
-   an rnn head alone), the folded speaker verifiers, the gating and the VAD
+   an rnn head or an imported graph head alone), the folded speaker verifiers, the gating and the VAD
    gate (``models.vad_net`` on the raw chunk).
 
 ``precision`` takes the JAX engine's tiers and follows the arithmetic they
@@ -45,7 +47,7 @@ loop can ingest the next tick while the card computes this one.
 
 import logging
 import time
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -55,6 +57,7 @@ from openwakeword_tpu_torch.custom_verifier_model import resolve_verifier
 from openwakeword_tpu_torch.io import loaders
 from openwakeword_tpu_torch.models import embedding as embedding_model
 from openwakeword_tpu_torch.models import embedding_stream
+from openwakeword_tpu_torch.models import embedding_student
 from openwakeword_tpu_torch.models import heads as heads_lib
 from openwakeword_tpu_torch.models import vad_net
 from openwakeword_tpu_torch.ops import bf16
@@ -66,13 +69,36 @@ MEL_RING = config.EMB_WINDOW_FRAMES          # 76 frames
 VAD_RING = 7                                 # enough for the [-7:-4] gate window
 
 
-def seed_embeddings(emb_folded: Dict, noise: torch.Tensor, n_frames: int) -> torch.Tensor:
+def seed_embeddings(emb_folded: Dict, noise: torch.Tensor, n_frames: int,
+                    emb_apply=embedding_model.apply_folded) -> torch.Tensor:
     """The last ``n_frames`` embeddings of a noise clip, for feature-ring
-    seeding: full melspectrogram with top_db, every 76-row window at hop 8."""
+    seeding: full melspectrogram with top_db, every 76-row window at hop 8,
+    through ``emb_apply`` (the faithful CNN's, or the student's)."""
     spec = melspec_ops.melspectrogram(noise, top_db=config.MEL_TOP_DB)      # (T, 32)
     n_windows = (spec.shape[0] - MEL_RING) // 8 + 1
     wins = torch.stack([spec[i * 8:i * 8 + MEL_RING] for i in range(n_windows)])
-    return embedding_model.apply_folded(emb_folded, wins)[-n_frames:]
+    return emb_apply(emb_folded, wins)[-n_frames:]
+
+
+class _Embedding(NamedTuple):
+    """The embedding network's functions: ``apply`` (full windows),
+    ``init_caches`` and ``step`` (streaming), ``product_params`` (the
+    weights as a precision's products read them) and ``cache_shapes``."""
+    apply: Callable
+    init_caches: Callable
+    step: Callable
+    product_params: Callable
+    cache_shapes: Callable
+
+
+EMBEDDINGS = {
+    "default": _Embedding(embedding_model.apply_folded, embedding_stream.init_caches,
+                          embedding_stream.step, embedding_model.product_params,
+                          embedding_stream.cache_shapes),
+    "student": _Embedding(embedding_student.apply, embedding_student.init_caches,
+                          embedding_student.step, embedding_student.product_params,
+                          embedding_student.cache_shapes),
+}
 
 
 def _resolve_heads(wakeword_models: Sequence[str]) -> List[Tuple[str, Dict, Dict, Dict]]:
@@ -132,7 +158,9 @@ class MultiStreamEngine:
     ``device`` defaults to "cuda" and there is no CPU fallback: a CUDA device
     without CUDA raises. ``device="cpu"`` runs every stage with plain
     PyTorch ops (the tests' path). ``embedding_params`` takes the port's
-    tensors (``convert.embedding_from_jax``), BN-folded or not. The engine
+    tensors (``convert.embedding_from_jax``, BN-folded or not, or
+    ``convert.student_from_jax``); ``embedding`` ('default' or 'student')
+    picks the network when no params are given (``io.loaders.resolve_embedding``). The engine
     turns TF32 off for cuDNN convolutions and cuBLAS matmuls
     (``torch.backends``), process-wide, so float32 means float32.
 
@@ -145,7 +173,8 @@ class MultiStreamEngine:
     suppresses each chunk before the mel frontend (``ops.ns_torch``,
     ``noise_suppression_algorithm`` 'spectral' or 'mmse'); ``vad_threshold``
     > 0 scores the raw chunk with the VAD (``vad_params``, numpy in the
-    checkpoint layout, or the registry's bundled network) and zeroes every
+    ``vad_net`` layout, or the registry's VAD: the bundled network or an
+    imported Silero program) and zeroes every
     score unless the VAD scored at least the threshold 0.4-0.56 s back;
     ``custom_verifier_models`` maps a model name to its speaker verifier (a
     pickle path, a trained pipeline or a folded ``(w, b)`` pair), which
@@ -165,6 +194,7 @@ class MultiStreamEngine:
                  enable_noise_suppression: bool = False,
                  noise_suppression_algorithm: str = "spectral",
                  embedding_params: Optional[Dict] = None,
+                 embedding: str = "default",
                  vad_params: Optional[Dict] = None,
                  rng_seed: int = 0,
                  precision: str = "high",
@@ -174,7 +204,7 @@ class MultiStreamEngine:
                  frame_budget_s: float = 0.08,
                  device="cuda"):
         gating.validate_gating_args(patience, threshold, debounce_time)
-        tiers = config.check_precision(precision)
+        tiers = config.check_precision(precision, embedding)
         # 'bf16' or the float32 storage tier ('high' for dicts and 'mixed',
         # as in the JAX engine); the per-stage modes drive the arithmetic
         self.precision = tiers.name
@@ -209,7 +239,10 @@ class MultiStreamEngine:
         head_params = {}
         self.labels: List[str] = []
         label_head_slices = []
-        for name, params, mapping, _ in heads:
+        head_frontends = {}      # name -> the embedding a head was trained on
+        for name, params, mapping, file_meta in heads:
+            if file_meta.get("embedding"):
+                head_frontends[name] = file_meta["embedding"]
             head_params[name] = convert.head_from_jax(params, self.device)
             meta = head_params[name].pop("__meta__")
             heads_lib.check_supported(meta)
@@ -231,11 +264,13 @@ class MultiStreamEngine:
         self._label_slices = label_head_slices
         self.max_head_frames = max(int(m["input_frames"]) for _, m, _ in self._head_metas)
 
-        # same-architecture dnn/mlp heads are stacked; an rnn head runs alone
+        # same-architecture dnn/mlp heads are stacked; an rnn or graph head
+        # runs alone
         label_starts = {name: start for start, _, name, _, _ in label_head_slices}
         groups: Dict[tuple, list] = {}
         for name, meta, cols in self._head_metas:
-            key = ("single", name) if meta["model_type"] == "rnn" else tuple(sorted(meta.items()))
+            key = (("single", name) if meta["model_type"] in heads_lib.SINGLE_TYPES
+                   else tuple(sorted(meta.items())))
             groups.setdefault(key, []).append((name, meta, cols))
         self._exec_plan = []
         n_groups = 0
@@ -311,15 +346,33 @@ class MultiStreamEngine:
                 ver_mask[start:end] = True
             self._verifier_mask = torch.from_numpy(ver_mask).to(self.device)
 
-        # ---- embedding ----
-        if embedding_params is None:
-            embedding_params = convert.embedding_from_jax(loaders.load_embedding_params())
-        self.params = {"embedding": convert.to_device(embedding_model.ensure_folded(embedding_params), self.device),
-                       "heads": head_params}
+        # ---- embedding (JAX engine :441-474) ----
+        self.embedding, emb_params = loaders.resolve_embedding(embedding, embedding_params, self.device)
+        self._emb = EMBEDDINGS[self.embedding]
+        # a head trained on the other frontend scores meaninglessly: say so
+        for name, trained_on in head_frontends.items():
+            if trained_on != self.embedding:
+                logging.warning(
+                    "Model '%s' was trained on the '%s' embedding frontend but this engine runs "
+                    "embedding='%s'; its scores will be unreliable. Construct the engine with "
+                    "embedding='%s'.", name, trained_on, self.embedding, trained_on)
+        pinned = [n for n, m, _ in self._head_metas
+                  if m["model_type"] == "graph" and m.get("batch1_only")]
+        if pinned and self.n_streams > 1:
+            logging.warning(
+                "Graph head(s) %s have pinned batch-1 shapes and run one stream at a time; "
+                "verify the configured %d streams are real-time on this device with "
+                "measure_realtime(), or construct with realtime_guard='warn'|'error'.",
+                pinned, self.n_streams)
+        self.params = {"embedding": emb_params, "heads": head_params}
         if self.vad_threshold > 0:
+            # the registry's VAD may be an imported Silero program
+            # (``models.silero``): it shares vad_net's (params, x, h, c)
+            # contract, so the step runs either
+            self._vad_apply = vad_net.apply
             if vad_params is None:
                 from openwakeword_tpu_torch.vad import load_vad_apply
-                _, vad_params, _ = load_vad_apply()
+                self._vad_apply, vad_params, _ = load_vad_apply()
             self.params["vad"] = convert.vad_from_jax(vad_params, self.device)
         if tiers.name == "bf16":
             # matmul/conv weights (>= 2-D float leaves, stacked heads' biases
@@ -334,12 +387,14 @@ class MultiStreamEngine:
         # what each step's products read, built once: float32 weights, those
         # of the 1-pass stages (and convs) rounded to bf16, so a step rounds
         # only its activations; the params themselves seed the feature ring.
-        # An rnn head reads its params as stored (1-pass on bf16 weights only)
+        # An rnn head reads its params as stored (1-pass on bf16 weights only),
+        # a graph head its params widened to float32 (``heads.product_params``)
         # and the VAD its weights widened to float32.
-        single_rnn = {key for kind, key, meta, _ in self._exec_plan if meta["model_type"] == "rnn"}
+        types = {key: meta["model_type"] for _, key, meta, _ in self._exec_plan}
         self._step_params = {
-            "embedding": embedding_model.product_params(self.params["embedding"], self._stage_modes["cnn"]),
-            "heads": {k: v if k in single_rnn else heads_lib.product_params(v, self._stage_modes["heads"])
+            "embedding": self._emb.product_params(self.params["embedding"], self._stage_modes["cnn"]),
+            "heads": {k: v if types[k] == "rnn" else heads_lib.product_params(
+                          v, None if types[k] == "graph" else self._stage_modes["heads"])
                       for k, v in self.params["heads"].items()}}
         if "vad" in self.params:
             self._step_params["vad"] = vad_net.product_params(self.params["vad"])
@@ -378,7 +433,8 @@ class MultiStreamEngine:
             F = self.max_head_frames
             n_samples = max(16000 * config.FEATURE_SEED_SECONDS, (MEL_RING + 8 * (F - 1) + 4) * 160)
             noise = np.random.default_rng(seed).integers(-1000, 1000, n_samples).astype(np.float32)
-            ring = seed_embeddings(self.params["embedding"], torch.from_numpy(noise).to(self.device), F)
+            ring = seed_embeddings(self.params["embedding"], torch.from_numpy(noise).to(self.device), F,
+                                   self._emb.apply)
             self._seed_rings[seed] = ring
         return ring
 
@@ -391,8 +447,9 @@ class MultiStreamEngine:
         S, dev, f32, ring = n_streams, self.device, torch.float32, self._state_dtype
         n_labels = len(self.labels)
         seed_ring = self._seed_ring(self._rng_seed if rng_seed is None else rng_seed)
-        # at 'bf16' the activation rings and conv caches are bf16; the PCM
-        # tail and the score histories stay float32 (JAX engine :619-628)
+        # at 'bf16' the activation rings and conv caches (the student's block
+        # ring) are bf16; the PCM tail and the score histories stay float32
+        # (JAX engine :619-628)
         state = {
             "pcm_tail": torch.zeros((S, config.MEL_LOOKBACK_SAMPLES), dtype=f32, device=dev),
             "mel_ring": torch.ones((S, MEL_RING, config.N_MELS), dtype=ring, device=dev),
@@ -407,7 +464,7 @@ class MultiStreamEngine:
             # placeholders: every stream starts at frames_seen == 0, so the
             # first step primes every cache before a stream step reads one
             state["conv_caches"] = {k: torch.zeros((S, *shape), dtype=ring, device=dev)
-                                    for k, shape in embedding_stream.cache_shapes().items()}
+                                    for k, shape in self._emb.cache_shapes().items()}
         if self.vad_threshold > 0:
             vad_shape = (S, config.VAD_STATE_LAYERS, config.VAD_STATE_DIM)
             state["vad_h"] = torch.zeros(vad_shape, dtype=f32, device=dev)
@@ -490,10 +547,11 @@ class MultiStreamEngine:
         """Caches and embeddings of every stream from its 76-row mel ring, in
         blocks of PRIME_BLOCK_STREAMS streams to bound the stem's temporaries."""
         folded, mode = self._step_params["embedding"], self._stage_modes["cnn"]
+        init_caches = self._emb.init_caches
         blk = int(config.PRIME_BLOCK_STREAMS)
         if mel_ring.shape[0] <= blk:
-            return embedding_stream.init_caches(folded, mel_ring, mode)
-        parts = [embedding_stream.init_caches(folded, mel_ring[i:i + blk], mode)
+            return init_caches(folded, mel_ring, mode)
+        parts = [init_caches(folded, mel_ring[i:i + blk], mode)
                  for i in range(0, mel_ring.shape[0], blk)]
         caches = {k: torch.cat([c[k] for c, _ in parts]) for k in parts[0][0]}
         return caches, torch.cat([e for _, e in parts])
@@ -529,13 +587,13 @@ class MultiStreamEngine:
 
         conv_caches = None
         if not self.incremental:
-            emb = embedding_model.apply_folded(self._step_params["embedding"], mel_ring, modes["cnn"])  # (S, 96)
+            emb = self._emb.apply(self._step_params["embedding"], mel_ring, modes["cnn"])  # (S, 96)
         else:
             if prime:
                 conv_caches, emb = self._prime(mel_ring)
             else:
-                conv_caches, emb = embedding_stream.step(self._step_params["embedding"], st["conv_caches"], mel,
-                                                         modes["cnn"])
+                conv_caches, emb = self._emb.step(self._step_params["embedding"], st["conv_caches"], mel,
+                                                  modes["cnn"])
             conv_caches = {k: v.to(st["conv_caches"][k].dtype) for k, v in conv_caches.items()}
         feat_ring = torch.cat([st["feat_ring"][:, 1:], emb[:, None, :].to(st["feat_ring"].dtype)], dim=1)
 
@@ -605,8 +663,8 @@ class MultiStreamEngine:
             # __call__ frame size); each reads samples 0..591 of its chunk
             h, c = st["vad_h"].transpose(0, 1), st["vad_c"].transpose(0, 1)       # (2, S, 64)
             vp = self._step_params["vad"]
-            s1, h, c = vad_net.apply(vp, raw_chunk[:, 0:640] / 32767.0, h, c)
-            s2, h, c = vad_net.apply(vp, raw_chunk[:, 640:1280] / 32767.0, h, c)
+            s1, h, c = self._vad_apply(vp, raw_chunk[:, 0:640] / 32767.0, h, c)
+            s2, h, c = self._vad_apply(vp, raw_chunk[:, 640:1280] / 32767.0, h, c)
             new["vad_h"], new["vad_c"] = h.transpose(0, 1), c.transpose(0, 1)
             new["vad_ring"] = torch.cat([st["vad_ring"][:, 1:], ((s1 + s2) / 2.0)[:, None]], dim=-1)
 

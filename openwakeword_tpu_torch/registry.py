@@ -14,6 +14,9 @@ _RES = os.path.join(pathlib.Path(__file__).resolve().parent.parent,
 
 FEATURE_MODELS = {
     "embedding": {"model_path": os.path.join(_RES, "embedding_model.npz")},
+    # the student embedding (models.embedding_student); made by distillation,
+    # no upstream artifact
+    "embedding_student": {"model_path": os.path.join(_RES, "embedding_student.npz")},
 }
 
 # the bundled VAD is a native vad_net checkpoint, not the released Silero graph

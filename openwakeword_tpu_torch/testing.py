@@ -22,6 +22,13 @@ audio with synthetic vowels mixed into three streams (``gating_inputs``)
 and over the Model packets with vowels mixed in (``gating_packets``), so
 that the VAD gate both opens and closes. ``gating_masks`` tells which rows
 the gate closed and which scores a verifier replaced.
+
+The student golden (``tests/fixtures/torch_student_golden.npz``) runs the
+bench heads on the student embedding (``student_inputs``: seeded student
+weights, STUDENT_STREAMS streams of STUDENT_FRAMES frames). The ONNX goldens
+(``tests/fixtures/torch_onnx/``) hold ``.onnx`` fixtures built by
+``tests/fixture_builders.py`` and the JAX package's outputs on the seeded
+inputs of ``onnx_inputs``.
 """
 
 import contextlib
@@ -56,6 +63,19 @@ GATING_VERIFIER_THRESHOLD = 0.3
 GATING_VERIFIED = ("alexa", "hey_mycroft")
 # (stream, first frame, end frame) of the golden streams that carry a vowel
 GATING_BURSTS = ((0, 4, 18), (1, 10, 26), (2, 18, 30))
+STUDENT_FIXTURE = os.path.join(_FIXTURES, "torch_student_golden.npz")
+STUDENT_SEED = 20263
+STUDENT_STREAMS = 8
+STUDENT_FRAMES = 20
+ONNX_DIR = os.path.join(_FIXTURES, "torch_onnx")
+ONNX_FIXTURE = os.path.join(ONNX_DIR, "golden.npz")
+ONNX_SEED = 20264
+ONNX_BATCH = 4
+SILERO_CALLS = 5
+# the committed graphs: a bench-architecture dnn head, a conv graph head (not
+# a train.py family), its QDQ-quantized twin, and a Silero-shaped VAD
+ONNX_FILES = {"head": "head_dnn.onnx", "graph": "graph_cnn.onnx", "qdq": "graph_qdq.onnx",
+              "silero": "silero_vad.onnx"}
 
 
 def golden_inputs(seed: int = GOLDEN_SEED) -> Dict:
@@ -337,3 +357,55 @@ def run_server_golden(server, mode: str, seed: int = SERVING_SEED) -> Dict[str, 
             "valid": np.stack([recorded[f][1] for f in frames]),
             "activations": np.array(sorted(acts), dtype=np.float64).reshape(-1, 4),
             "overflow_drops": np.int64(server.overflow_drops)}
+
+
+def student_params(rng: np.random.Generator) -> Dict:
+    """Student embedding weights (checkpoint layout) with non-trivial biases
+    and LayerNorm, from ``rng``."""
+    from openwakeword_tpu_torch.models import embedding_student
+    p = embedding_student.init_params(rng)
+    for k, v in p.items():
+        if k == "block_ln":
+            n = v["gamma"].shape[0]
+            p[k] = {"gamma": (0.8 + 0.4 * rng.random(n)).astype(np.float32),
+                    "beta": (0.2 * (rng.random(n) - 0.5)).astype(np.float32)}
+        else:
+            v["b"] = (0.1 * (rng.random(v["b"].shape[0]) - 0.5)).astype(np.float32)
+    return p
+
+
+def student_inputs(seed: int = STUDENT_SEED) -> Dict:
+    """Student weights, the bench heads of ``golden_inputs`` and
+    (STUDENT_FRAMES, STUDENT_STREAMS, 1280) int16 PCM."""
+    rng = np.random.default_rng(seed)
+    emb = student_params(rng)
+    heads = golden_inputs()["heads"]
+    amp = np.array([300.0, 3000.0, 12000.0, 30000.0])[np.arange(STUDENT_STREAMS) % 4]
+    pcm = np.round((rng.random((STUDENT_FRAMES, STUDENT_STREAMS, 1280)) * 2.0 - 1.0)
+                   * amp[None, :, None]).astype(np.int16)
+    mask = np.ones((1, STUDENT_STREAMS), dtype=bool)
+    return {"embedding": emb, "heads": heads, "pcm": pcm,
+            "sha256": inputs_sha256(emb, heads, pcm, mask)}
+
+
+def onnx_inputs(seed: int = ONNX_SEED) -> Dict:
+    """Seeded inputs of the ONNX goldens: (ONNX_BATCH, 16, 96) embedding
+    windows for the heads, SILERO_CALLS chunks of (ONNX_BATCH, 640) audio in
+    [-1, 1] for the VAD graph, from a zero state."""
+    rng = np.random.default_rng(seed)
+    windows = (rng.random((ONNX_BATCH, 16, 96)) * 4.0 - 2.0).astype(np.float32)
+    audio = ((rng.random((SILERO_CALLS, ONNX_BATCH, 640)) * 2.0 - 1.0) * 0.3).astype(np.float32)
+    return {"windows": windows, "audio": audio}
+
+
+def run_silero(apply, params, audio: np.ndarray, to_array, from_array):
+    """Scores (calls, B) and the final (h, c) of a VAD ``apply`` threaded
+    over ``audio`` (calls, B, N) from a zero state; ``to_array`` /
+    ``from_array`` move between numpy and the package's arrays."""
+    b = audio.shape[1]
+    h = c = from_array(np.zeros((2, b, 64), np.float32))
+    scores = []
+    for x in audio:
+        s, h, c = apply(params, from_array(x), h, c)
+        scores.append(to_array(s))
+    return np.stack(scores), to_array(h), to_array(c)

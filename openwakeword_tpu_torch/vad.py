@@ -4,9 +4,12 @@ audio in chunks, explicit (2, B, 64) recurrent state across calls, chunk
 scores averaged, and a 125-entry (~10 s) score history that the ``Model``'s
 VAD gate reads.
 
-The network is ``models.vad_net``, with the registry's bundled checkpoint
-(a native ``vad_net`` network, not the released Silero graph). An imported
-Silero ONNX program waits for the ONNX import (ROADMAP.md, queue 1, slice E).
+Two networks sit behind the same ``(params, x, h, c) -> (score, h', c')``
+contract: an imported Silero VAD graph (``silero_vad.onnx``, or its ``.npz``
+conversion with ``"format": "onnx_program"``), run by ``models.silero``
+through the graph executor, and the native ``models.vad_net``, whose
+registry checkpoint is bundled (a native network, not the released Silero
+graph).
 """
 
 import logging
@@ -19,10 +22,7 @@ import torch
 
 from openwakeword_tpu_torch import config, convert, registry
 from openwakeword_tpu_torch.io import loaders
-from openwakeword_tpu_torch.models import vad_net
-
-_ROADMAP_SILERO = ("imported Silero VAD programs are not ported yet (ROADMAP.md, queue 1, slice E: "
-                   "the ONNX import)")
+from openwakeword_tpu_torch.models import silero, vad_net
 
 
 def load_vad_apply(model_path: str = "", params=None) -> Tuple[Callable, Dict, int]:
@@ -30,16 +30,19 @@ def load_vad_apply(model_path: str = "", params=None) -> Tuple[Callable, Dict, i
 
     ``apply_fn(params, x, h, c) -> (score (B,), h', c')`` takes the params
     as float32 tensors (``vad_net.product_params``); the single-stream
-    ``VAD`` and the engine's step both call it. Without a checkpoint the
-    network gets a deterministic numpy-seeded init (not the JAX package's
-    ``jax.random`` draws)."""
+    ``VAD`` and the engine's step both call it. ``model_path`` may be a
+    native ``.npz`` checkpoint, an ``onnx_program`` checkpoint or a
+    ``.onnx`` graph; the last two run as a ``models.silero`` program.
+    Without a checkpoint the network gets a deterministic numpy-seeded init
+    (not the JAX package's ``jax.random`` draws)."""
     if params is not None:
         return vad_net.apply, params, vad_net.MIN_SAMPLES
     path = model_path or registry.VAD_MODELS["silero_vad"]["model_path"]
     if path and os.path.exists(path):
         params, meta = loaders.load_vad(path)
         if meta.get("format") == "onnx_program":
-            raise NotImplementedError(f"{path}: {_ROADMAP_SILERO}")
+            prog = silero.from_meta(meta, params)
+            return prog.apply, prog.params, prog.min_samples
         logging.warning(
             "VAD checkpoint at '%s' is a native vad_net network (the bundled "
             "one is a home-trained substitute), NOT the released Silero VAD: "
@@ -57,13 +60,18 @@ class VAD():
     which raises without CUDA; "cpu" runs on the CPU)."""
 
     def __init__(self, model_path: str = "", n_threads: int = 1, params=None, device="cuda"):
-        """``model_path`` is a native ``.npz`` checkpoint; it defaults to the
-        registry's bundled VAD. ``params`` (numpy, checkpoint layout) takes
-        the place of a file. ``n_threads`` is accepted for API parity."""
+        """``model_path`` is a native ``.npz`` checkpoint, an imported Silero
+        program or a ``.onnx`` graph; it defaults to the registry's bundled
+        VAD. ``params`` (numpy, the ``vad_net`` layout) takes the place of a
+        file. ``n_threads`` is accepted for API parity."""
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("VAD(device='cuda') needs a CUDA device; pass device='cpu' to run on the CPU")
         self._apply, params, self._min_samples = load_vad_apply(model_path, params)
+        # vad_net steps once per whole STFT hop, so a short last chunk can be
+        # cut to its last hop (bounded input shapes); an imported graph makes
+        # no such promise and sees its tail whole
+        self._tail_quantum = vad_net.HOP if self._apply is vad_net.apply else None
         self.params = vad_net.product_params(convert.vad_from_jax(params, self.device))
         self.prediction_buffer: deque = deque(maxlen=config.VAD_BUFFER_MAX)
         self.sample_rate = np.array(config.SAMPLE_RATE).astype(np.int64)
@@ -81,9 +89,9 @@ class VAD():
     def predict(self, x: np.ndarray, frame_size: int = config.VAD_FRAME_SAMPLES) -> float:
         """Average VAD score over ``frame_size``-sample chunks of ``x``
         (16 kHz int16), advancing the recurrent state chunk by chunk. A
-        chunk shorter than 256 samples is zero-padded; a shorter last chunk
-        is cut to the last whole STFT hop, which the network does not see
-        past (the same scores as the uncut chunk)."""
+        chunk shorter than 256 samples is zero-padded; with ``vad_net`` a
+        shorter last chunk is cut to the last whole STFT hop, which the
+        network does not see past (the same scores as the uncut chunk)."""
         if x.shape[0] == 0:
             return 0.0                       # an empty mean would put NaN in the gate buffer
         scores = []
@@ -92,8 +100,9 @@ class VAD():
             chunk = (x[i:i + frame_size] / 32767).astype(np.float32)
             if chunk.shape[0] < self._min_samples:
                 chunk = np.pad(chunk, (0, self._min_samples - chunk.shape[0]))
-            elif chunk.shape[0] < frame_size:
-                keep = self._min_samples + ((chunk.shape[0] - self._min_samples) // vad_net.HOP) * vad_net.HOP
+            elif self._tail_quantum and chunk.shape[0] < frame_size:
+                q = self._tail_quantum
+                keep = self._min_samples + ((chunk.shape[0] - self._min_samples) // q) * q
                 chunk = chunk[:keep]
             score, h, c = self._apply(self.params, torch.from_numpy(chunk[None]).to(self.device), h, c)
             scores.append(float(score[0]))

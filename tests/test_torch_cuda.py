@@ -635,3 +635,55 @@ def test_torch_noise_suppression_on_card(cuda, profile):
     for k, v in on_cpu._state.items():
         np.testing.assert_allclose(on_card._state[k].cpu().numpy(), v.numpy(), rtol=1e-5,
                                    atol=1e-5 * float(v.abs().max()), err_msg=k)
+
+
+# ---------------------------------------------------------------------------
+# the student embedding and the ONNX import on the card
+
+
+@pytest.mark.parametrize("precision,variant", [("highest", "direct"), ("fast", "direct_1pass")])
+def test_student_engine_on_card_matches_cpu(cuda, precision, variant):
+    """The bench heads on the student embedding, S = 64, on the card against
+    the same engine on the CPU within 1e-3 (at 'fast' within 2 E, E the
+    CPU's own 1-pass distance from its 'highest'); the mel kernel of the
+    tier launches once per step."""
+    from openwakeword_tpu_torch.parallel.engine import MultiStreamEngine
+    S, T = 64, 12
+    pcm = np.random.default_rng(23).integers(-3000, 3000, (T, S, 1280), dtype=np.int16)
+    kw = dict(n_streams=S, precision=precision, embedding="student")
+    card = MultiStreamEngine(device=cuda, **kw)
+    launches = melspec_cuda.melspectrogram_frames.launches
+    before = launches[variant]
+    got = card.predict_frames(pcm)
+    assert launches[variant] - before == T
+    want = MultiStreamEngine(device="cpu", **kw).predict_frames(pcm)
+    limit = 1e-3
+    if precision == "fast":
+        exact = MultiStreamEngine(device="cpu", **dict(kw, precision="highest")).predict_frames(pcm)
+        limit = max(limit, 2 * float(np.abs(want - exact).max()))
+    assert np.isfinite(got).all() and np.abs(got - want).max() < limit
+
+
+def test_onnx_fixtures_on_card_match_cpu(cuda):
+    """The committed graphs (a dnn head, a conv graph head, its QDQ twin and
+    the Silero-shaped program) on the card against the CPU within 1e-5."""
+    import os
+    from openwakeword_tpu_torch import testing
+    from openwakeword_tpu_torch.io import loaders
+    from openwakeword_tpu_torch.models import heads, silero
+    inputs = testing.onnx_inputs()
+    for key in ("head", "graph", "qdq"):
+        _, params, _ = loaders.load_model_file(os.path.join(testing.ONNX_DIR, testing.ONNX_FILES[key]))
+        outs = []
+        for dev in (cuda, torch.device("cpu")):
+            head = convert.head_from_jax(params, dev)
+            meta = head.pop("__meta__")
+            outs.append(heads.forward(head, torch.from_numpy(inputs["windows"]).to(dev), meta).cpu().numpy())
+        np.testing.assert_allclose(outs[0], outs[1], atol=1e-5, rtol=0, err_msg=key)
+    params, meta = loaders.load_vad(os.path.join(testing.ONNX_DIR, testing.ONNX_FILES["silero"]))
+    prog = silero.from_meta(meta, params)
+    runs = [testing.run_silero(prog.apply, convert.vad_from_jax(prog.params, dev), inputs["audio"],
+                               lambda t: t.cpu().numpy(), lambda a, d=dev: torch.from_numpy(a).to(d))
+            for dev in (cuda, torch.device("cpu"))]
+    for a, b in zip(*runs):
+        np.testing.assert_allclose(a, b, atol=1e-5, rtol=0)

@@ -183,8 +183,9 @@ def test_cuda_device_without_cuda_raises(weights):
 
 
 def test_import_leaves_jax_out(tmp_path):
-    """Importing the port, every module of it, and loading a verifier
-    pickled by the JAX package, imports no jax, jaxlib or openwakeword_tpu."""
+    """Importing the port, every module of it, loading a verifier pickled by
+    the JAX package, importing the committed ``.onnx`` fixtures and building
+    the student embedding imports no jax, jaxlib or openwakeword_tpu."""
     import pickle
     from openwakeword_tpu.custom_verifier_model import train_verifier_model
     rng = np.random.default_rng(3)
@@ -199,7 +200,16 @@ def test_import_leaves_jax_out(tmp_path):
             "openwakeword_tpu_torch.parallel.ingest, openwakeword_tpu_torch.utils.args, "
             "openwakeword_tpu_torch.utils.native_lib, openwakeword_tpu_torch.ops.ns_torch, "
             "openwakeword_tpu_torch.ns, openwakeword_tpu_torch.vad, openwakeword_tpu_torch.models.vad_net, "
-            "openwakeword_tpu_torch.models.lstm, openwakeword_tpu_torch.custom_verifier_model; "
+            "openwakeword_tpu_torch.models.lstm, openwakeword_tpu_torch.custom_verifier_model, "
+            "openwakeword_tpu_torch.models.embedding_student, openwakeword_tpu_torch.models.silero, "
+            "openwakeword_tpu_torch.io.onnx_proto, openwakeword_tpu_torch.io.onnx_graph, "
+            "openwakeword_tpu_torch.io.onnx_import, openwakeword_tpu_torch.io.graph_head; "
+            "from openwakeword_tpu_torch.io.loaders import load_model_file; "
+            "kinds = [load_model_file(f'tests/fixtures/torch_onnx/{f}')[0] for f in "
+            "('head_dnn.onnx', 'graph_cnn.onnx', 'graph_qdq.onnx', 'silero_vad.onnx')]; "
+            "assert kinds == ['head', 'head', 'head', 'vad'], kinds; "
+            "from openwakeword_tpu_torch.features import AudioFeatures; "
+            "assert AudioFeatures(embedding='student', device='cpu').embedding == 'student'; "
             "from openwakeword_tpu_torch import Model, MultiStreamEngine, VAD, VAD_MODELS, MODELS, "
             "FEATURE_MODELS, model_class_mappings, get_pretrained_model_paths; "
             "from openwakeword_tpu_torch.utils import AudioFeatures, bulk_predict, re_arg; "

@@ -111,12 +111,22 @@ def test_load_vad_apply_without_checkpoint_is_seeded(tmp_path):
     assert params["proj"]["w"].shape == (32, 64) and params["out"]["w"].shape == (64, 1)
 
 
-def test_onnx_program_checkpoint_raises(tmp_path, bundled):
+def test_onnx_program_checkpoint_raises(tmp_path):
+    """An ``onnx_program`` checkpoint loads as a Silero program since slice
+    E1 (tests/test_torch_onnx.py runs real ones); a program with an op the
+    executor lacks raises naming the op when it runs."""
     from openwakeword_tpu_torch.io.checkpoints import save_checkpoint
+    spec = {"nodes": [{"op_type": "NonMaxSuppression", "name": "nms", "input": ["input", "h", "c"],
+                       "output": ["output", "hn", "cn"], "attributes": {}}],
+            "input_names": ["input", "h", "c"], "output_names": ["output", "hn", "cn"],
+            "param_key": {}, "static_inputs": {}, "inits_static": {}}
     path = str(tmp_path / "silero.npz")
-    save_checkpoint(path, "vad", bundled, meta={"format": "onnx_program"})
-    with pytest.raises(NotImplementedError, match="slice E"):
-        load_vad_apply(path)
+    save_checkpoint(path, "vad", {}, meta={"format": "onnx_program", "spec": spec})
+    apply, params, min_samples = load_vad_apply(path)
+    assert min_samples == 256
+    h = torch.zeros(2, 1, 64)
+    with pytest.raises(NotImplementedError, match="NonMaxSuppression"):
+        apply(params, torch.zeros(1, 640), h, h)
 
 
 def test_cuda_device_without_cuda_raises():
