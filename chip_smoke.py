@@ -122,7 +122,26 @@ Phases, each of which exits nonzero on failure:
       program as its VAD gate, timed in turns with the bare step (K1-3pass
       once per step each), streams 0-7 against the CPU engine within 1e-3
       (rows whose gate window holds a VAD score within 1e-5 of the
-      threshold left out), with ms and device operations per step.
+      threshold left out), with ms and device operations per step;
+16. the TFLite import:
+   a. golden: the committed graphs (tests/fixtures/torch_tflite/) through
+      ``io.loaders`` on the card against the JAX package's outputs on
+      ``testing.tflite_inputs()``: a bench-width dnn head, an rnn head, a
+      depthwise-CNN graph head pinned at batch 1 and its int8 twin in float
+      emulation within 1e-5, the int8 twin under ``quantized="exact"`` bit
+      for bit (the largest difference printed in output LSBs), the embedding
+      within 1e-4; ``testing.int8_programs()`` under ``"exact"`` on the card
+      bit-equal to the CPU; the ``Model`` with the four ``.tflite`` heads
+      against the JAX ``Model``'s committed scores, < 1e-3, and with the int8
+      head under ``"exact"`` within one output LSB + 1e-3;
+   b. the bench configuration at 'high', S=4096, with the int8 graph head
+      added, under ``quantized_execution="exact"`` and ``"dequant"``, timed
+      in turns with the bare step (bare, exact, dequant, dequant, exact,
+      bare), 8 warm-up and 50 timed frames each: exactly one K1-3pass launch
+      per step, scores finite in [0, 1], streams 0-7 against a
+      ``device="cpu"`` engine within 1e-3 (the int8 head's column within one
+      output LSB + 1e-3: the embeddings differ by float rounding before they
+      are quantized), with ms and device operations per step.
 
 The 1-pass bf16 variants of the four kernels run beside their fp32 ones.
 Phase 3 holds K1-1pass and K2-1pass against their plain versions within
@@ -692,8 +711,8 @@ def tiers(card: str) -> dict:
     return out
 
 
-def device_ops_per_step(step, n_steps: int = 3) -> tuple:
-    """(device operations, their summed ms, the five costliest by name as
+def device_ops_per_step(step, n_steps: int = 3, n_top: int = 5) -> tuple:
+    """(device operations, their summed ms, the ``n_top`` costliest by name as
     (name, count, ms)) of one call of ``step``: every kernel and copy the
     card ran for it, under torch.profiler. The profiler now and then drops
     some of a trace's events, never adds one, so ``n_steps`` calls are
@@ -720,7 +739,7 @@ def device_ops_per_step(step, n_steps: int = 3) -> tuple:
     for e in ops:
         n, ms = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (n + 1, ms + (e.time_range.end - e.time_range.start) / 1e3)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:5]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:n_top]
     return len(ops), sum(ms for _, ms in by_name.values()), [(name, n, ms) for name, (n, ms) in top]
 
 
@@ -1085,6 +1104,144 @@ def student_and_onnx(card: str) -> dict:
         print(f"  costliest device operations ({name}): "
               + "; ".join(f"{n} x {op[:70]} {t:.3f} ms" for op, n, t in top))
     return out
+
+
+def tflite_import(card: str) -> int:
+    """Phase 16, the TFLite import (16a goldens, 16b the bench step with the
+    int8 graph head at S=4096 in both quantized modes); returns K1-3pass's
+    launches in 16b's timed runs."""
+    import torch
+    from openwakeword_tpu_torch import Model, convert, registry, testing
+    from openwakeword_tpu_torch.io import loaders, tflite_graph
+    from openwakeword_tpu_torch.models import embedding, heads
+    from openwakeword_tpu_torch.ops import melspec_cuda
+    from openwakeword_tpu_torch.parallel.engine import MultiStreamEngine
+    dev = torch.device("cuda", 0)
+    launches = melspec_cuda.melspectrogram_frames.launches
+    lsb = 1.0 / 256.0                    # the int8 graph's output step (scale 1/256, zero point -128)
+    path = {k: os.path.join(testing.TFLITE_DIR, f) for k, f in testing.TFLITE_FILES.items()}
+
+    # 16a. the committed graphs against the JAX goldens
+    with np.load(testing.TFLITE_FIXTURE) as z:
+        fixture = {k: z[k] for k in z.files}
+    inputs = testing.tflite_inputs(int(fixture["seed"]))
+    if inputs["sha256"] != str(fixture["inputs_sha256"]):
+        fail("TFLite golden inputs do not regenerate bit-exactly with this numpy")
+    windows = torch.from_numpy(inputs["windows"]).to(dev)
+    for key, mode in testing.TFLITE_GOLDEN_HEADS:
+        kind, params, _ = loaders.load_model_file(path[key], quantized=mode)
+        head = convert.head_from_jax(params, dev)
+        meta = head.pop("__meta__")
+        got = heads.forward(head, windows, meta).cpu().numpy()
+        want = fixture[f"scores_{key}_{mode}"]
+        err = float(np.abs(got - want).max())
+        if mode == "exact":
+            print(f"tflite golden {testing.TFLITE_FILES[key]} ('exact', int8 weights "
+                  f"{sorted({str(v.dtype).replace('torch.', '') for v in head.values()})}): largest difference "
+                  f"from the JAX package {err / lsb:.0f} output LSBs over {got.shape} (bit-equal: "
+                  f"{bool(np.array_equal(got, want))})")
+            if not np.array_equal(got, want):
+                fail(f"{testing.TFLITE_FILES[key]} under 'exact' on the card is not bit-equal to the JAX golden")
+        else:
+            print(f"tflite golden {testing.TFLITE_FILES[key]} ({kind}, {meta['model_type']}, '{mode}'): max |diff| "
+                  f"vs the JAX package {err:.3e} over {got.shape}")
+            if not err < 1e-5:
+                fail(f"{testing.TFLITE_FILES[key]} on the card is {err} from the JAX golden (limit 1e-5)")
+    folded = embedding.ensure_folded(convert.embedding_from_jax(loaders.load_embedding_params(path["embedding"]),
+                                                                dev))
+    got = embedding.apply_folded(folded, torch.from_numpy(inputs["mels"]).to(dev)).cpu().numpy()
+    err = float(np.abs(got - fixture["embeddings"]).max())
+    print(f"tflite golden {testing.TFLITE_FILES['embedding']} (embedding): max |diff| vs the JAX package {err:.3e}")
+    if not err < 1e-4:
+        fail(f"the .tflite embedding on the card is {err} from the JAX golden (limit 1e-4)")
+    n_ops = 0
+    for name, model, feeds in testing.int8_programs():
+        prog = tflite_graph.TfliteProgram(model, quantized="exact")
+        outs = [prog.apply({k: torch.from_numpy(np.array(v)).to(d) for k, v in prog.params.items()},
+                           {k: torch.from_numpy(v).to(d) for k, v in feeds.items()})
+                for d in (dev, torch.device("cpu"))]
+        for k in outs[1]:
+            if not torch.equal(outs[0][k].cpu(), outs[1][k]):
+                fail(f"int8 program {name} under 'exact': the card is not bit-equal to the CPU")
+        n_ops += 1
+    print(f"tflite int8 programs under 'exact' ({n_ops} one-op graphs, the whole integer set): the card bit-equal "
+          "to the CPU")
+    model_dir = tempfile.mkdtemp()
+    model_heads = testing.tflite_model_heads(model_dir)
+    emb = convert.embedding_from_jax(testing.golden_inputs()["embedding"])
+    model = Model(wakeword_models=model_heads, device=dev, embedding_params=emb)
+    scores = testing.run_model_golden(model, testing.model_packets())
+    err = float(np.abs(scores - fixture["model_scores"]).max())
+    model = Model(wakeword_models=model_heads[3:], device=dev, embedding_params=emb, quantized_execution="exact")
+    exact = testing.run_model_golden(model, testing.model_packets())
+    err_exact = float(np.abs(exact - fixture["model_scores_exact"]).max())
+    print(f"tflite Model golden (dnn, rnn, graph and int8 graph heads from .tflite): max |dscore| vs the JAX Model "
+          f"{err:.3e} over {scores.shape}; the int8 head under 'exact' {err_exact:.3e} "
+          f"({err_exact / lsb:.2f} output LSBs, {float((exact == fixture['model_scores_exact']).mean()):.1%} "
+          f"bit-equal)")
+    if not err < SCORE_TOL:
+        fail(f"the Model with .tflite heads is {err} from the JAX golden (limit {SCORE_TOL})")
+    if not err_exact <= lsb + SCORE_TOL:
+        fail(f"the Model's exact int8 head is {err_exact} from the JAX golden (limit one LSB + {SCORE_TOL})")
+    del model
+
+    # 16b. the bench step with the int8 graph head, both modes, against the bare step
+    S, W, T = SCALE_STREAMS, 8, SCALE_FRAMES
+    frames = np.random.default_rng(160).integers(-2000, 2000, (W + T, S, 1280), dtype=np.int16)
+    int8_head = [model_heads[3]]
+    engines = {"bare": MultiStreamEngine(n_streams=S, device=dev),
+               "exact": MultiStreamEngine(wakeword_models=list(registry.MODELS) + int8_head, n_streams=S,
+                                          device=dev, quantized_execution="exact"),
+               "dequant": MultiStreamEngine(wakeword_models=list(registry.MODELS) + int8_head,
+                                            n_streams=S, device=dev, quantized_execution="dequant")}
+    if engines["exact"]._step_params["heads"]["cnn2d_int8"]["t4_conv.w"].dtype != torch.int8:
+        fail("the exact engine's int8 graph head does not hold int8 weights")
+    walls, first, total = {name: [] for name in engines}, {}, 0
+    for name in ("bare", "exact", "dequant", "dequant", "exact", "bare"):
+        engine = engines[name]
+        engine.reset()
+        warm = engine.predict_frames(frames[:W])
+        for k in launches:
+            launches[k] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scores = engine.predict_frames(frames[W:])
+        walls[name].append(time.perf_counter() - t0)
+        used = {k: v for k, v in launches.items() if v}
+        if used != {"direct_3pass": T}:
+            fail(f"tflite step '{name}': mel launches {used} in {T} steps, expected one direct_3pass per step")
+        total += T
+        first.setdefault(name, np.concatenate([warm, scores]))
+    for name, scores in first.items():
+        n_labels = 11 if name == "bare" else 12
+        if scores.shape != (W + T, S, n_labels) or not (np.isfinite(scores).all() and scores.min() >= 0.0
+                                                        and scores.max() <= 1.0):
+            fail(f"tflite step '{name}': scores are not finite values in [0, 1] of shape {(W + T, S, n_labels)}")
+    for name in ("exact", "dequant"):
+        cpu = MultiStreamEngine(wakeword_models=list(registry.MODELS) + int8_head, n_streams=8,
+                                device="cpu", quantized_execution=name).predict_frames(frames[:, :8])
+        diff = np.abs(first[name][:, :8] - cpu)
+        err, err_int8 = float(diff[..., :11].max()), float(diff[..., 11].max())
+        limit = lsb + SCORE_TOL if name == "exact" else SCORE_TOL
+        print(f"tflite step '{name}' vs the CPU engine on streams 0-7 over {W + T} frames: max |dscore| {err:.3e} "
+              f"on the bench heads, {err_int8:.3e} on the int8 graph head (limit {limit:.3e}; "
+              f"{float((diff[..., 11] == 0).mean()):.1%} of its scores bit-equal); the int8 head's scores span "
+              f"[{float(first[name][..., 11].min()):.4f}, {float(first[name][..., 11].max()):.4f}]")
+        if not (err < SCORE_TOL and err_int8 <= limit):
+            fail(f"tflite step '{name}' on the card vs the CPU engine: {err} / {err_int8} beyond {limit}")
+    if np.abs(first["exact"][..., 11] / lsb - np.round(first["exact"][..., 11] / lsb)).max() > 1e-3:
+        fail("the exact int8 head's scores left its output grid")
+    for name, engine in engines.items():
+        ms = 1e3 * min(walls[name]) / T
+        n_ops, busy, top = device_ops_per_step(lambda e=engine: e.predict(frames[-1]), n_top=10)
+        label = {"bare": "the bench heads", "exact": "+ the int8 graph head, 'exact'",
+                 "dequant": "+ the int8 graph head, 'dequant'"}[name]
+        print(f"tflite step {name} ('high', {label}) at S={S}: {ms:.3f} ms per step (runs "
+              f"{', '.join(f'{1e3 * w / T:.3f}' for w in walls[name])}), {S * 0.08 / (ms / 1e3):.0f} streams in "
+              f"real time, {n_ops} device operations per step ({busy:.3f} ms of them), on {card}")
+        print(f"  costliest device operations ({name}): "
+              + "; ".join(f"{n} x {op[:70]} {t:.3f} ms" for op, n, t in top))
+    return total
 
 
 def main():
@@ -1589,6 +1746,8 @@ def main():
     print(f"[{time.perf_counter() - t_start:.1f} s] phase 15")
     for k, n in student_and_onnx(card).items():
         mel_launches[k] += n
+    print(f"[{time.perf_counter() - t_start:.1f} s] phase 16")
+    mel_launches["direct_3pass"] += tflite_import(card)
 
     # no single PyTorch call computes any of these functions (a mel frontend or a
     # 20-conv step is several calls), so library_ms is null throughout

@@ -4,8 +4,10 @@ It runs ``openwakeword_tpu`` (the JAX package, kept as the reference) on an
 NVIDIA GPU: the multi-stream engine and its serving runtime
 (``parallel``), the single-stream ``Model`` / ``AudioFeatures`` API,
 their gating add-ons (noise suppression, the VAD and speaker verifiers),
-the student embedding and ``.onnx`` model files (``io.onnx_import``, run by
-the graph executor ``io.onnx_graph``). The mel frontend is hand-written
+the student embedding, and ``.onnx`` and ``.tflite`` model files
+(``io.onnx_import`` and ``io.tflite_import``, run by the graph executors
+``io.onnx_graph`` and ``io.tflite_graph``; int8 ``.tflite`` graphs in float
+emulation or LiteRT-exact integer arithmetic, ``ops.qmath``). The mel frontend is hand-written
 CUDA (``csrc/melspec.cu``; the bf16 variants of its direct DFT on the
 tensor cores, ``csrc/melspec_mma.cu``); the embeddings, heads, graphs,
 add-ons and gating are PyTorch ops. It imports neither jax nor

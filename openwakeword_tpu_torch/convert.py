@@ -30,10 +30,18 @@ def embedding_from_jax(params: Mapping, device="cpu") -> Dict:
     return _tree(params, device, leaf)
 
 
+def _head_leaf(k, v, device) -> torch.Tensor:
+    a = np.asarray(v)
+    if np.issubdtype(a.dtype, np.integer):
+        # an exact int8 graph head's weights: integer arithmetic, kept as stored
+        return torch.from_numpy(np.array(a, copy=True)).to(device)
+    return _tensor(a, device)
+
+
 def head_from_jax(params: Mapping, device="cpu") -> Dict:
-    """One head's params -> port tensors; '__meta__' is kept as a
-    plain dict of Python scalars."""
-    out = _tree(params, device, lambda k, v, dev: _tensor(v, dev))
+    """One head's params -> port tensors (float32, integer leaves in their
+    own dtype); '__meta__' is kept as a plain dict of Python scalars."""
+    out = _tree(params, device, _head_leaf)
     if "__meta__" in params:
         out["__meta__"] = {k: (v.item() if isinstance(v, np.generic) else v)
                            for k, v in dict(params["__meta__"]).items()}

@@ -52,8 +52,8 @@ class AudioFeatures():
         network (``models.embedding_student``). ``embedding_params`` takes
         the port's tensors (``convert.embedding_from_jax`` or
         ``convert.student_from_jax``), which decide the network; without
-        them the weights load from ``embedding_model_path`` (``.npz`` or
-        ``.onnx``) or the registry's checkpoint, else a numpy-seeded init
+        them the weights load from ``embedding_model_path`` (``.npz``,
+        ``.onnx`` or ``.tflite``) or the registry's checkpoint, else a numpy-seeded init
         (``io.loaders.resolve_embedding``). The faithful CNN always runs
         BN-folded; ``fold_embedding_batchnorm``, ``ncpu``,
         ``melspec_model_path`` and ``inference_framework`` are accepted for

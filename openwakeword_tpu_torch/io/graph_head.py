@@ -2,12 +2,15 @@
 ``openwakeword_tpu.io.graph_head``, copied: the port imports nothing of the
 JAX package).
 
-A compiled graph (``io.onnx_graph.OnnxProgram``: ``params``,
-``input_names``, ``output_names``, ``apply(params, {name: x})``) becomes a
-servable 'graph' head: the (batch, frames, 96) / (batch, frames*96) window
-contract comes from the declared input shape, n_classes from one run on
-zeros, and a graph that does not carry a batch of 2 through is marked
-``batch1_only`` and served one sample at a time (``models.heads``).
+A compiled graph (``io.onnx_graph.OnnxProgram`` or
+``io.tflite_graph.TfliteProgram``: ``params``, ``input_names``,
+``output_names``, ``apply(params, {name: x})``) becomes a servable 'graph'
+head: the (batch, frames, 96) / (batch, frames*96) window contract comes
+from the declared input shape, n_classes from one run on zeros, and a graph
+that does not carry a batch of 2 through (TFLite files routinely pin batch
+1; the LiteRT interpreter resizes inputs at run time) is marked
+``batch1_only`` and served per sample under ``torch.func.vmap``
+(``models.heads``).
 """
 
 from typing import Dict, Optional, Sequence, Tuple

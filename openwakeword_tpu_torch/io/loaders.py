@@ -5,8 +5,10 @@
 
 ``load_model_file`` reads a native ``.npz`` checkpoint or imports an
 ``.onnx`` artifact (``io.onnx_import``: heads, embeddings, the Silero VAD
-program). A checkpoint on disk is loaded as is. Without one, the published
-architecture gets a deterministic numpy-seeded init (heads: seed
+program) or a ``.tflite`` one (``io.tflite_import``: heads, embeddings,
+int8 graphs in float emulation or LiteRT-exact integer arithmetic). A
+checkpoint on disk is loaded as is. Without one, the published architecture
+gets a deterministic numpy-seeded init (heads: seed
 ``crc32(file stem)``, embeddings: seed 42, the JAX package's seeds). Those
 draws are NOT the JAX package's ``jax.random`` fallback weights, so scores of
 artifact-less engines differ between the two packages; parity runs hand
@@ -26,14 +28,14 @@ from openwakeword_tpu_torch.models import embedding as embedding_model
 from openwakeword_tpu_torch.models import embedding_student
 from openwakeword_tpu_torch.models import heads as heads_lib
 
-_ROADMAP_TFLITE = (".tflite import is not ported yet (ROADMAP.md, queue 1, slice E2: "
-                   "io/tflite_import.py and io/tflite_graph.py); convert to .npz or .onnx")
-
-
-def load_model_file(path: str) -> Tuple[str, Dict, Dict]:
+def load_model_file(path: str, quantized: str = "dequant") -> Tuple[str, Dict, Dict]:
     """Load a model file -> (kind, numpy params, meta): a native ``.npz``
-    checkpoint or an ``.onnx`` artifact. kind is 'embedding', 'head' or
-    'vad' (or the checkpoint's own kind)."""
+    checkpoint, an ``.onnx`` or a ``.tflite`` artifact. kind is 'embedding',
+    'head' or 'vad' (or the checkpoint's own kind). ``quantized`` selects how
+    int8-quantized .tflite graphs execute: 'dequant' (float emulation, the
+    default) or 'exact' (LiteRT integer-kernel score parity,
+    ``io.tflite_graph``). QDQ-quantized .onnx graphs always execute with
+    exact QuantizeLinear semantics."""
     ext = os.path.splitext(path)[1].lower()
     if ext == ".npz":
         return load_checkpoint(path)
@@ -41,15 +43,17 @@ def load_model_file(path: str) -> Tuple[str, Dict, Dict]:
         from openwakeword_tpu_torch.io.onnx_import import import_onnx_model
         return import_onnx_model(path)
     if ext == ".tflite":
-        raise NotImplementedError(f"{path}: {_ROADMAP_TFLITE}")
+        from openwakeword_tpu_torch.io.tflite_import import import_tflite_model
+        return import_tflite_model(path, quantized=quantized)
     raise ValueError(f"Unsupported model file extension '{ext}' for {path}")
 
 
-def load_head(path: str, name: str) -> Tuple[Dict, Dict]:
+def load_head(path: str, name: str, quantized: str = "dequant") -> Tuple[Dict, Dict]:
     """(numpy head params with '__meta__', file meta) in the checkpoint
-    layout; an imported graph head's meta carries its program."""
+    layout; an imported graph head's meta carries its program. ``quantized``
+    goes to ``load_model_file``."""
     if os.path.exists(path):
-        kind, params, meta = load_model_file(path)
+        kind, params, meta = load_model_file(path, quantized=quantized)
         if kind not in ("head", "unknown"):
             raise ValueError(f"Model file {path} is a '{kind}' checkpoint, expected a wakeword head")
         if "__meta__" not in params:
@@ -69,7 +73,7 @@ def load_head(path: str, name: str) -> Tuple[Dict, Dict]:
 
 def load_embedding_params(path: str = "", rng_seed: int = 42, embedding: str = "default") -> Dict:
     """Embedding params (numpy, checkpoint layout): the given checkpoint
-    (``.npz`` or ``.onnx``), the registry artifact of ``embedding``
+    (``.npz``, ``.onnx`` or ``.tflite``), the registry artifact of ``embedding``
     ('default' or 'student'), or a numpy-seeded init with a warning."""
     reg_key = "embedding_student" if embedding == "student" else "embedding"
     path = path or registry.FEATURE_MODELS[reg_key]["model_path"]

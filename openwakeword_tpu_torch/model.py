@@ -7,9 +7,9 @@ debounce filtering, 5-frame warm-up zeroing, the multiclass label mapping,
 noise suppression, speaker verifiers and the VAD gate, with every head of a
 call batched over its sub-frame windows in one device call. The audio
 frontend is ``features.AudioFeatures`` on the same device. Heads load from
-``.npz`` checkpoints or ``.onnx`` artifacts (``io.loaders``); exact int8
-execution and ``.tflite`` files raise ``NotImplementedError`` until their
-slice (E2) is ported.
+``.npz`` checkpoints or ``.onnx`` / ``.tflite`` artifacts (``io.loaders``);
+``quantized_execution`` picks how int8 ``.tflite`` graphs run: float
+emulation or LiteRT-exact integer arithmetic.
 
 For many streams at once use ``openwakeword_tpu_torch.parallel``.
 """
@@ -33,10 +33,6 @@ from openwakeword_tpu_torch.ops import bf16
 from openwakeword_tpu_torch.utils.args import re_arg
 
 
-def _not_ported(what: str, slice_: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, queue 1, {slice_})")
-
-
 class Model():
     """Wake-word engine: shared audio preprocessor + N classifier heads."""
 
@@ -55,9 +51,9 @@ class Model():
             **kwargs,
             ):
         """Args mirror the JAX package's constructor. ``wakeword_models``
-        entries are ``.npz`` head checkpoints, ``.onnx`` artifacts (the
-        dnn/mlp/rnn families, or any classifier graph as a 'graph' head) or
-        pretrained names; the other
+        entries are ``.npz`` head checkpoints, ``.onnx`` or ``.tflite``
+        artifacts (the dnn/mlp/rnn families, or any classifier graph as a
+        'graph' head) or pretrained names; the other
         keyword arguments (``device``, ``embedding_params``, ``rng_seed``, ...)
         go to ``AudioFeatures``, and the heads run on its device.
 
@@ -68,14 +64,14 @@ class Model():
         0 gates the scores with ``vad.VAD`` on the raw audio.
         ``custom_verifier_models`` maps model names to verifier pickles
         (``custom_verifier_model.load_verifier``), folded and applied on the
-        device.
+        device. ``quantized_execution`` selects how int8-quantized .tflite
+        heads run: 'dequant' (float emulation, the default) or 'exact'
+        (LiteRT integer-kernel score parity; the reference interpreter runs
+        int8 graphs natively, reference utils.py:112-161).
         """
         if noise_suppression_algorithm not in ("spectral", "mmse"):
             raise ValueError("noise_suppression_algorithm must be 'spectral' or 'mmse'; "
                              f"got {noise_suppression_algorithm!r}")
-        if quantized_execution == "exact":
-            raise _not_ported("exact int8 execution (quantized_execution='exact')",
-                              "slice E2: ops/qmath.py and io/tflite_graph.py")
 
         wakeword_models, wakeword_model_names = registry.resolve_wakeword_models(wakeword_models)
         self.preprocessor = AudioFeatures(**kwargs)
@@ -91,7 +87,7 @@ class Model():
         self.custom_verifier_threshold = custom_verifier_threshold
         head_frontends: Dict[str, str] = {}        # name -> the embedding a head was trained on
         for mdl_path, mdl_name in zip(wakeword_models, wakeword_model_names):
-            params, meta = loaders.load_head(mdl_path, mdl_name)
+            params, meta = loaders.load_head(mdl_path, mdl_name, quantized_execution)
             if meta.get("embedding"):
                 head_frontends[mdl_name] = meta["embedding"]
             head = convert.head_from_jax(params, device)

@@ -7,11 +7,12 @@
   * ``mlp``   -- Flatten -> Linear(W) -> ReLU -> Linear(W) -> ReLU -> Linear(classes)
   * ``rnn``   -- 2-layer bidirectional LSTM(64) -> Linear(classes) on the last
                  time step
-  * ``graph`` -- an imported classifier graph (``io.onnx_import``) run by
-                 ``io.onnx_graph``; its first output is the score, its
-                 params the graph's float initializers. Inference only; a
-                 graph with a pinned batch (``batch1_only``) runs one sample
-                 at a time.
+  * ``graph`` -- an imported classifier graph (``io.onnx_import``,
+                 ``io.tflite_import``) run by ``io.onnx_graph`` or
+                 ``io.tflite_graph``; its first output is the score, its
+                 params the graph's constants (an exact int8 graph's stay
+                 integer). Inference only; a graph with a pinned batch
+                 (``batch1_only``) runs per sample under ``torch.func.vmap``.
 
 Binary heads end in sigmoid; multiclass heads in ReLU'd logits (unless the
 meta says ``relu_logits=False``) and softmax. Params are dicts of tensors
@@ -107,9 +108,11 @@ def _product(z: torch.Tensor, w: torch.Tensor, precision, eq: str = None) -> tor
 def product_params(params: Dict, precision=None) -> Dict:
     """Head params (single or stacked) as the linears of ``precision`` read
     them, built once: each linear's weights float32, rounded to bf16 where
-    the linears are 1-pass (``bf16.weight``), every other leaf float32.
-    Leaves already in that form are kept, not copied."""
+    the linears are 1-pass (``bf16.weight``), every other float leaf
+    float32. Integer leaves (an exact int8 graph head's weights) stay as
+    they are, and so do leaves already in that form."""
     return {k: product_params(v, precision) if isinstance(v, dict)
+            else v if not v.is_floating_point()
             else bf16.weight(v, precision) if k == "w" else v.to(torch.float32)
             for k, v in params.items()}
 
@@ -169,8 +172,11 @@ def _forward_graph(params: Dict, x: torch.Tensor, meta: Dict, inference: bool) -
     h = x.reshape(x.shape[0], -1) if meta["input_rank"] == 2 else x
     prog, in_name, out_name = meta["program"], meta["input_name"], meta["output_name"]
     if meta.get("batch1_only"):
-        return torch.stack([prog.apply(params, {in_name: h[i:i + 1]})[out_name].to(torch.float32).reshape(-1)
-                            for i in range(h.shape[0])])
+        # a graph pinned at batch 1 (a fixed Reshape, common in .tflite files,
+        # which LiteRT resizes at run time) runs per sample under vmap, as the
+        # JAX package's does: one batched call of each op
+        return torch.func.vmap(lambda xi: prog.apply(params, {in_name: xi[None]})[out_name]
+                               .to(torch.float32).reshape(-1))(h)
     return prog.apply(params, {in_name: h})[out_name].to(torch.float32).reshape(x.shape[0], -1)
 
 

@@ -101,12 +101,13 @@ EMBEDDINGS = {
 }
 
 
-def _resolve_heads(wakeword_models: Sequence[str]) -> List[Tuple[str, Dict, Dict, Dict]]:
+def _resolve_heads(wakeword_models: Sequence[str],
+                   quantized_execution: str = "dequant") -> List[Tuple[str, Dict, Dict, Dict]]:
     """(name, numpy params, class_mapping, file_meta) per head."""
     resolved, names = registry.resolve_wakeword_models(list(wakeword_models))
     out = []
     for path, name in zip(resolved, names):
-        params, meta = loaders.load_head(path, name)
+        params, meta = loaders.load_head(path, name, quantized_execution)
         n_cls = int(params["__meta__"]["n_classes"])
         if meta.get("class_mapping"):
             mapping = dict(meta["class_mapping"])
@@ -180,6 +181,10 @@ class MultiStreamEngine:
     pickle path, a trained pipeline or a folded ``(w, b)`` pair), which
     replaces that model's scores at or above ``custom_verifier_threshold``
     with sigmoid(feature window @ w + b).
+
+    ``quantized_execution`` ('dequant' or 'exact') selects how int8
+    ``.tflite`` heads run, as in ``Model``; an exact graph head keeps its
+    integer weights at every tier.
     """
 
     def __init__(self,
@@ -202,6 +207,7 @@ class MultiStreamEngine:
                  incremental: bool = True,
                  realtime_guard: Optional[str] = None,
                  frame_budget_s: float = 0.08,
+                 quantized_execution: str = "dequant",
                  device="cuda"):
         gating.validate_gating_args(patience, threshold, debounce_time)
         tiers = config.check_precision(precision, embedding)
@@ -233,7 +239,7 @@ class MultiStreamEngine:
         self.noise_suppression_algorithm = noise_suppression_algorithm
 
         # ---- heads: labels and the execution plan (JAX engine :300-351) ----
-        heads = _resolve_heads(wakeword_models)
+        heads = _resolve_heads(wakeword_models, quantized_execution)
         self.model_names = [h[0] for h in heads]
         self._head_metas = []
         head_params = {}
@@ -360,7 +366,7 @@ class MultiStreamEngine:
                   if m["model_type"] == "graph" and m.get("batch1_only")]
         if pinned and self.n_streams > 1:
             logging.warning(
-                "Graph head(s) %s have pinned batch-1 shapes and run one stream at a time; "
+                "Graph head(s) %s have pinned batch-1 shapes and serve per-sample under vmap; "
                 "verify the configured %d streams are real-time on this device with "
                 "measure_realtime(), or construct with realtime_guard='warn'|'error'.",
                 pinned, self.n_streams)
@@ -388,8 +394,9 @@ class MultiStreamEngine:
         # of the 1-pass stages (and convs) rounded to bf16, so a step rounds
         # only its activations; the params themselves seed the feature ring.
         # An rnn head reads its params as stored (1-pass on bf16 weights only),
-        # a graph head its params widened to float32 (``heads.product_params``)
-        # and the VAD its weights widened to float32.
+        # a graph head its float params widened to float32 and its integer
+        # ones as stored (``heads.product_params``), and the VAD its weights
+        # widened to float32.
         types = {key: meta["model_type"] for _, key, meta, _ in self._exec_plan}
         self._step_params = {
             "embedding": self._emb.product_params(self.params["embedding"], self._stage_modes["cnn"]),

@@ -28,12 +28,17 @@ bench heads on the student embedding (``student_inputs``: seeded student
 weights, STUDENT_STREAMS streams of STUDENT_FRAMES frames). The ONNX goldens
 (``tests/fixtures/torch_onnx/``) hold ``.onnx`` fixtures built by
 ``tests/fixture_builders.py`` and the JAX package's outputs on the seeded
-inputs of ``onnx_inputs``.
+inputs of ``onnx_inputs``. The TFLite goldens (``tests/fixtures/torch_tflite/``)
+hold ``.tflite`` fixtures written by the JAX package's exporter and
+``tests/fixture_builders.py``, among them an int8 graph, and the JAX
+package's outputs on the seeded inputs of ``tflite_inputs``, the int8 graph
+in both ``quantized`` modes.
 """
 
 import contextlib
 import hashlib
 import os
+import shutil
 from typing import Dict, List
 
 import numpy as np
@@ -396,6 +401,143 @@ def onnx_inputs(seed: int = ONNX_SEED) -> Dict:
     windows = (rng.random((ONNX_BATCH, 16, 96)) * 4.0 - 2.0).astype(np.float32)
     audio = ((rng.random((SILERO_CALLS, ONNX_BATCH, 640)) * 2.0 - 1.0) * 0.3).astype(np.float32)
     return {"windows": windows, "audio": audio}
+
+
+TFLITE_DIR = os.path.join(_FIXTURES, "torch_tflite")
+TFLITE_FIXTURE = os.path.join(TFLITE_DIR, "golden.npz")
+TFLITE_SEED = 20265
+TFLITE_BATCH = 4
+# the committed graphs: bench-width dnn and rnn heads, a depthwise-CNN graph
+# head pinned at batch 1 (microWakeWord-style, not a train.py family), its
+# int8 twin, and the speech-embedding CNN
+TFLITE_FILES = {"head": "head_dnn.tflite", "rnn": "head_rnn.tflite", "graph": "graph_cnn2d.tflite",
+                "int8": "graph_cnn2d_int8.tflite", "embedding": "embedding.tflite"}
+
+
+def tflite_inputs(seed: int = TFLITE_SEED) -> Dict:
+    """Seeded inputs of the TFLite goldens: (TFLITE_BATCH, 16, 96)
+    embedding windows for the heads (some beyond the int8 graph's input
+    range, so its QUANTIZE saturates), (TFLITE_BATCH, 76, 32) mel windows for
+    the embedding, and the sha256 of both."""
+    rng = np.random.default_rng(seed)
+    windows = rng.normal(0.0, 1.5, (TFLITE_BATCH, 16, 96)).astype(np.float32)
+    mels = (rng.random((TFLITE_BATCH, 76, 32)) * 3.0 - 1.0).astype(np.float32)
+    digest = hashlib.sha256(windows.tobytes() + mels.tobytes()).hexdigest()
+    return {"windows": windows, "mels": mels, "sha256": digest}
+
+
+# the golden heads: (file key, quantized mode) of the head outputs stored,
+# and (file key, model name) of the golden Model's heads
+TFLITE_GOLDEN_HEADS = (("head", "dequant"), ("rnn", "dequant"), ("graph", "dequant"), ("int8", "dequant"),
+                       ("int8", "exact"))
+TFLITE_MODEL_HEADS = (("head", "alexa_tflite"), ("rnn", "rnn_tflite"), ("graph", "cnn2d_graph"),
+                      ("int8", "cnn2d_int8"))
+
+
+def tflite_model_heads(directory: str) -> List[str]:
+    """Copies of the committed TFLite graphs under their golden ``Model``
+    names, in ``directory``; the int8 graph last."""
+    out = []
+    for key, name in TFLITE_MODEL_HEADS:
+        out.append(os.path.join(directory, f"{name}.tflite"))
+        shutil.copy(os.path.join(TFLITE_DIR, TFLITE_FILES[key]), out[-1])
+    return out
+
+
+class _Options:
+    """Stands in for a flatbuffer options table: {field id: value}."""
+
+    def __init__(self, fields: Dict):
+        self._f = fields
+
+    def scalar(self, field, fmt, default):
+        return self._f.get(field, default)
+
+
+def _tensor(name, shape, dtype, scale=None, zp=0, data=None, dim=0):
+    quant = None
+    if scale is not None:
+        scales = np.atleast_1d(np.asarray(scale, np.float32))
+        quant = {"scale": [float(v) for v in scales], "zero_point": [int(zp)] * scales.size, "dim": dim,
+                 "details_type": 0}
+    return {"name": name, "shape": list(shape), "dtype": dtype, "data": data, "is_variable": False,
+            "quant": quant}
+
+
+def int8_programs(seed: int = TFLITE_SEED) -> List:
+    """One-operator int8 graphs for ``quantized="exact"`` as parsed models,
+    with seeded int8 inputs: [(name, model, {input name: array})]. They cover
+    the integer set (FULLY_CONNECTED with accumulators beyond 2^24, CONV_2D
+    with dilation, DEPTHWISE_CONV_2D with a depth multiplier and stride,
+    both pools with SAME and VALID padding, MEAN on both of its paths, ADD /
+    SUB / MUL with broadcasting, the LOGISTIC / TANH tables, int8 -> uint8
+    requantization, PAD, CONCATENATION) with per-channel weights and fused
+    activations."""
+    rng = np.random.default_rng(seed)
+
+    def i8(*shape):
+        return rng.integers(-128, 128, shape).astype(np.int8)
+
+    def one(name, opcode, tensors, n_in, options=None, extra_inputs=()):
+        outs = [len(tensors) - 1]
+        ins = list(range(n_in)) + list(extra_inputs)
+        model = {"tensors": tensors, "operators": [{"opcode": opcode, "inputs": ins, "outputs": outs,
+                                                    "options": _Options(options or {})}],
+                 "inputs": list(range(n_in)), "outputs": outs}
+        feeds = {tensors[i]["name"]: i8(*tensors[i]["shape"]) for i in range(n_in)}
+        return name, model, feeds
+
+    out = []
+    # FULLY_CONNECTED: uint8 weights (zp 128) against inputs at zp -128, row 0
+    # and channel 0 at the extremes: |acc| = 1024 * 255 * 127 > 2^24
+    w = rng.integers(0, 256, (8, 1024)).astype(np.uint8)
+    w[0] = 255
+    name, model, feeds = one("fully_connected", 9, [
+        _tensor("x", (3, 1024), 9, 0.02, -128),
+        _tensor("w", (8, 1024), 3, 0.01, 128, data=w),
+        _tensor("b", (8,), 2, 0.0002, 0, data=rng.integers(-5000, 5000, 8).astype(np.int32)),
+        _tensor("y", (3, 8), 9, 66.0, 3)], 1, {0: 1}, extra_inputs=(1, 2))
+    feeds["x"][0] = 127
+    out.append((name, model, feeds))
+    out.append(one("conv_2d", 3, [
+        _tensor("x", (2, 9, 11, 3), 9, 0.05, 5),
+        _tensor("w", (6, 3, 3, 3), 9, rng.uniform(0.002, 0.02, 6), 0, data=i8(6, 3, 3, 3)),
+        _tensor("b", (6,), 2, 1e-4, 0, data=rng.integers(-3000, 3000, 6).astype(np.int32)),
+        _tensor("y", (2, 9, 11, 6), 9, 0.1, -4)], 1, {0: 0, 1: 1, 2: 1, 3: 3, 4: 1, 5: 2}, extra_inputs=(1, 2)))
+    out.append(one("depthwise_conv_2d", 4, [
+        _tensor("x", (2, 9, 11, 4), 9, 0.05, -2),
+        _tensor("w", (1, 3, 3, 8), 9, rng.uniform(0.005, 0.03, 8), 0, data=i8(1, 3, 3, 8), dim=3),
+        _tensor("b", (8,), 2, 1e-4, 0, data=rng.integers(-3000, 3000, 8).astype(np.int32)),
+        _tensor("y", (2, 5, 6, 8), 9, 0.08, 1)], 1, {0: 0, 1: 2, 2: 2, 3: 2, 4: 1}, extra_inputs=(1, 2)))
+    out.append(one("average_pool_2d", 1, [
+        _tensor("x", (2, 9, 11, 4), 9, 0.05, 3), _tensor("y", (2, 5, 6, 4), 9, 0.05, 3)],
+        1, {0: 0, 1: 2, 2: 2, 3: 3, 4: 3}))
+    out.append(one("max_pool_2d", 17, [
+        _tensor("x", (2, 9, 11, 4), 9, 0.05, 3), _tensor("y", (2, 4, 5, 4), 9, 0.05, 3)],
+        1, {0: 1, 1: 2, 2: 2, 3: 2, 4: 2, 5: 1}))
+    axes = np.asarray([1, 2], np.int32)
+    out.append(one("mean_same_scale", 40, [
+        _tensor("x", (2, 9, 11, 4), 9, 0.05, 3), _tensor("axes", (2,), 2, data=axes),
+        _tensor("y", (2, 4), 9, 0.05, 3)], 1, {0: 0}, extra_inputs=(1,)))
+    out.append(one("mean_rescaled", 40, [
+        _tensor("x", (2, 9, 11, 4), 9, 0.05, 3), _tensor("axes", (2,), 2, data=axes),
+        _tensor("y", (2, 1, 1, 4), 9, 0.01, -7)], 1, {0: 1}, extra_inputs=(1,)))
+    for name, code in (("add", 0), ("sub", 41), ("mul", 18)):
+        out.append(one(name, code, [
+            _tensor("a", (2, 5, 7), 9, 0.07, 3), _tensor("b", (1, 5, 7), 9, 0.11, -5),
+            _tensor("y", (2, 5, 7), 9, 0.2 if code != 18 else 0.5, 1)], 2, {0: 1 if code == 0 else 0}))
+    for name, code, scale, zp in (("logistic", 14, 1.0 / 256.0, -128), ("tanh", 28, 1.0 / 128.0, 0)):
+        out.append(one(name, code, [_tensor("x", (3, 50), 9, 0.06, 4), _tensor("y", (3, 50), 9, scale, zp)], 1))
+    out.append(one("requantize_uint8", 114, [
+        _tensor("x", (3, 50), 9, 0.06, 4), _tensor("y", (3, 50), 3, 0.09, 120)], 1))
+    out.append(one("pad", 34, [
+        _tensor("x", (2, 5, 7), 9, 0.06, 4), _tensor("p", (3, 2), 2, data=np.asarray([[0, 0], [1, 2], [3, 0]],
+                                                                                     np.int32)),
+        _tensor("y", (2, 8, 10), 9, 0.06, 4)], 1, extra_inputs=(1,)))
+    out.append(one("concatenation", 2, [
+        _tensor("a", (2, 5), 9, 0.06, 4), _tensor("b", (2, 3), 9, 0.06, 4), _tensor("y", (2, 8), 9, 0.06, 4)],
+        2, {0: 1}))
+    return out
 
 
 def run_silero(apply, params, audio: np.ndarray, to_array, from_array):

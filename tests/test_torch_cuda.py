@@ -687,3 +687,41 @@ def test_onnx_fixtures_on_card_match_cpu(cuda):
             for dev in (cuda, torch.device("cpu"))]
     for a, b in zip(*runs):
         np.testing.assert_allclose(a, b, atol=1e-5, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# the TFLite import on the card
+
+
+def test_tflite_exact_int8_on_card_bit_equal_to_cpu(cuda):
+    """Exact int8 execution on the card: ``testing.int8_programs``' one-op
+    graphs (the whole integer set, a FULLY_CONNECTED accumulator past 2^24)
+    on the same int8 inputs, and the committed int8 graph head on 64 windows
+    (per sample under vmap), bit-equal to the CPU; the float graphs of the
+    fixture within 1e-5."""
+    import os
+    from openwakeword_tpu_torch import testing
+    from openwakeword_tpu_torch.io import loaders, tflite_graph
+    from openwakeword_tpu_torch.models import heads
+    for name, model, feeds in testing.int8_programs():
+        prog = tflite_graph.TfliteProgram(model, quantized="exact")
+        outs = []
+        for dev in (cuda, torch.device("cpu")):
+            params = {k: torch.from_numpy(np.array(v)).to(dev) for k, v in prog.params.items()}
+            got = prog.apply(params, {k: torch.from_numpy(v).to(dev) for k, v in feeds.items()})
+            outs.append({k: v.cpu() for k, v in got.items()})
+        for k in outs[1]:
+            assert outs[0][k].dtype == outs[1][k].dtype and torch.equal(outs[0][k], outs[1][k]), (name, k)
+    windows = np.random.default_rng(24).normal(0, 1.5, (64, 16, 96)).astype(np.float32)
+    for key, mode in testing.TFLITE_GOLDEN_HEADS:
+        _, params, _ = loaders.load_model_file(os.path.join(testing.TFLITE_DIR, testing.TFLITE_FILES[key]),
+                                               quantized=mode)
+        outs = []
+        for dev in (cuda, torch.device("cpu")):
+            head = convert.head_from_jax(params, dev)
+            meta = head.pop("__meta__")
+            outs.append(heads.forward(head, torch.from_numpy(windows).to(dev), meta).cpu().numpy())
+        if mode == "exact":
+            np.testing.assert_array_equal(outs[0], outs[1], err_msg=key)
+        else:
+            np.testing.assert_allclose(outs[0], outs[1], atol=1e-5, rtol=0, err_msg=f"{key} {mode}")

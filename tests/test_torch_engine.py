@@ -184,7 +184,8 @@ def test_cuda_device_without_cuda_raises(weights):
 
 def test_import_leaves_jax_out(tmp_path):
     """Importing the port, every module of it, loading a verifier pickled by
-    the JAX package, importing the committed ``.onnx`` fixtures and building
+    the JAX package, importing the committed ``.onnx`` and ``.tflite``
+    fixtures (the int8 graph under both ``quantized`` modes) and building
     the student embedding imports no jax, jaxlib or openwakeword_tpu."""
     import pickle
     from openwakeword_tpu.custom_verifier_model import train_verifier_model
@@ -203,11 +204,18 @@ def test_import_leaves_jax_out(tmp_path):
             "openwakeword_tpu_torch.models.lstm, openwakeword_tpu_torch.custom_verifier_model, "
             "openwakeword_tpu_torch.models.embedding_student, openwakeword_tpu_torch.models.silero, "
             "openwakeword_tpu_torch.io.onnx_proto, openwakeword_tpu_torch.io.onnx_graph, "
-            "openwakeword_tpu_torch.io.onnx_import, openwakeword_tpu_torch.io.graph_head; "
+            "openwakeword_tpu_torch.io.onnx_import, openwakeword_tpu_torch.io.graph_head, "
+            "openwakeword_tpu_torch.io.tflite_import, openwakeword_tpu_torch.io.tflite_graph, "
+            "openwakeword_tpu_torch.ops.qmath; "
             "from openwakeword_tpu_torch.io.loaders import load_model_file; "
             "kinds = [load_model_file(f'tests/fixtures/torch_onnx/{f}')[0] for f in "
             "('head_dnn.onnx', 'graph_cnn.onnx', 'graph_qdq.onnx', 'silero_vad.onnx')]; "
             "assert kinds == ['head', 'head', 'head', 'vad'], kinds; "
+            "kinds = [load_model_file(f'tests/fixtures/torch_tflite/{f}', quantized=q)[0] for f, q in "
+            "(('head_dnn.tflite', 'dequant'), ('head_rnn.tflite', 'dequant'), ('graph_cnn2d.tflite', 'dequant'), "
+            "('graph_cnn2d_int8.tflite', 'dequant'), ('graph_cnn2d_int8.tflite', 'exact'), "
+            "('embedding.tflite', 'dequant'))]; "
+            "assert kinds == ['head'] * 5 + ['embedding'], kinds; "
             "from openwakeword_tpu_torch.features import AudioFeatures; "
             "assert AudioFeatures(embedding='student', device='cpu').embedding == 'student'; "
             "from openwakeword_tpu_torch import Model, MultiStreamEngine, VAD, VAD_MODELS, MODELS, "

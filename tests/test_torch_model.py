@@ -216,23 +216,6 @@ def test_deprecated_model_paths_argument(golden):
     assert list(m.models) == ["alexa"]
 
 
-@pytest.mark.parametrize("kwargs", [
-    dict(quantized_execution="exact"),
-    dict(wakeword_models=["head.tflite"]),
-])
-def test_unported_options_raise(golden, kwargs, tmp_path):
-    """Exact int8 execution and .tflite heads raise, naming their slice
-    (E2); the student embedding, once in this list, runs since slice D
-    (tests/test_torch_student.py)."""
-    _, _, paths = golden
-    kw = {"wakeword_models": paths[:1], **kwargs}
-    if kw["wakeword_models"] == ["head.tflite"]:
-        (tmp_path / "head.tflite").write_bytes(b"")
-        kw["wakeword_models"] = [str(tmp_path / "head.tflite")]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1, slice E2"):
-        Model(device="cpu", **kw)
-
-
 def test_cuda_device_without_cuda_raises(golden):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")

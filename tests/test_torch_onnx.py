@@ -458,17 +458,6 @@ def test_engine_with_graph_heads_and_silero_vad_matches_jax(graphs, onnx_heads, 
     assert (got != ungated).any()                    # the gate closed somewhere
 
 
-def test_tflite_and_exact_name_slice_e2(tmp_path):
-    path = str(tmp_path / "head.tflite")
-    open(path, "wb").close()
-    with pytest.raises(NotImplementedError, match="slice E2"):
-        loaders.load_model_file(path)
-    with pytest.raises(NotImplementedError, match="slice E2"):
-        Model(wakeword_models=[path], device="cpu")
-    with pytest.raises(NotImplementedError, match="slice E2"):
-        Model(quantized_execution="exact", device="cpu")
-
-
 def test_audio_features_loads_an_onnx_embedding(graphs):
     """``AudioFeatures(embedding_model_path=x.onnx)`` imports the CNN and
     embeds as the JAX package's does."""
