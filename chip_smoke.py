@@ -141,7 +141,33 @@ Phases, each of which exits nonzero on failure:
       per step, scores finite in [0, 1], streams 0-7 against a
       ``device="cpu"`` engine within 1e-3 (the int8 head's column within one
       output LSB + 1e-3: the embeddings differ by float rounding before they
-      are quantized), with ms and device operations per step.
+      are quantized), with ms and device operations per step;
+17. training (the slice from WAV clips to a trained and evaluated head), at
+   full width (``examples/custom_model.yml``: 2 s clips, augmentation batch
+   128, a ``dnn`` head of width 128 on (16, 96) windows):
+   a. augmentation: each op of ``ops.augment`` on the card against the port
+      on the CPU on the same drawn parameters (16 clips; max |diff| <= 1e-5
+      of the peak, pitch shift relative RMS <= 1e-3), then ``data.augment_clips``
+      over 128 synthetic utterances with background and RIR files at the
+      default probabilities, twice on the card and once on the CPU (the
+      draws come from host generators, so the runs agree within relative RMS
+      1e-3); prints clips/s;
+   b. ``compute_features_from_generator`` on the card over
+      ``testing.train_inputs()``' clips with the golden embedding weights
+      against the JAX package's features (tests/fixtures/torch_train_golden.npz),
+      max |diff| <= 1e-4; then over the augmented clips, timed;
+   c. ``HeadTrainer`` on the card from the golden's JAX init over its 40
+      batches: the update gate and survivor counts equal to JAX's step for
+      step, losses within 1e-4 relative, held-out predictions within 1e-4;
+      then 1000 ``train_model`` steps at batch 1024 with ``feed_chunk`` 1
+      and 32 (the two heads' predictions within 1e-4, held-out accuracy
+      above 0.9); prints steps/s;
+   d. ``eval.evaluate_model`` with the trained ``.npz`` head over 16
+      synthetic 10 s WAVs (8 negative, 8 positive) through the engine at
+      'high': K1-3pass (and no other mel variant) on every engine step;
+      prints the real-time factor;
+   e. the same files scored with ``use_pallas_melspec=False``: no mel kernel
+      launches, scores within 1e-3 of the kernel path's.
 
 The 1-pass bf16 variants of the four kernels run beside their fp32 ones.
 Phase 3 holds K1-1pass and K2-1pass against their plain versions within
@@ -226,6 +252,19 @@ TIERS = ("fast", "bf16", "mixed")   # phase 13 runs each after 'highest' and 'hi
 FP32_FLOPS = 67e12
 BF16_FLOPS = 989e12
 HBM_BYTES_PER_S = 3.35e12
+# phase 17, training (examples/custom_model.yml: augmentation_batch_size 128, 2 s clips, dnn width 128)
+TRAIN_AUG_CLIPS = 128
+AUG_CHECK_ROWS = 16        # rows of the per-op card-vs-CPU check
+AUG_PEAK_TOL = 1e-5        # max |diff| over the peak, as the CPU tests hold the ops to JAX
+PITCH_RMS_TOL = 1e-3       # relative RMS: the vocoder's phase sums (~1e5 rad) amplify FFT and atan2 ulps
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_PRED_TOL = 1e-4
+TRAIN_SCALE_STEPS = 1000
+TRAIN_SCALE_BATCH = 1024
+TRAIN_POOL = 32            # distinct batches, cycled
+TRAIN_PROFILE_STEPS = 200
+EVAL_FILES = 16
+EVAL_SECONDS = 10
 
 
 def fail(msg: str):
@@ -1244,6 +1283,234 @@ def tflite_import(card: str) -> int:
     return total
 
 
+def training(card: str) -> int:
+    """Phase 17, the training slice on the card (17a augmentation, 17b the
+    feature pre-compute, 17c the head trainer, 17d evaluation, 17e the plain
+    mel path); returns K1-3pass's launches in 17d's evaluation."""
+    import itertools
+    import torch
+    from openwakeword_tpu_torch import convert, data, testing
+    from openwakeword_tpu_torch import eval as evaluation
+    from openwakeword_tpu_torch.features import compute_features_from_generator
+    from openwakeword_tpu_torch.ops import augment as A
+    from openwakeword_tpu_torch.ops import melspec_cuda
+    from openwakeword_tpu_torch.training import trainer as T
+    dev, cpu = torch.device("cuda", 0), torch.device("cpu")
+    launches = melspec_cuda.melspectrogram_frames.launches
+    work = tempfile.mkdtemp()
+    rng = np.random.default_rng(170)
+    total = testing.TRAIN_CLIP_SAMPLES
+
+    def wav(path, samples):
+        data.write_audio(path, np.clip(np.round(samples), -32768, 32767).astype(np.int16))
+        return path
+
+    # 17a. augment_clips at full width on the card; each op against the port on the CPU
+    for sub in ("clips", "bg", "rir", "eval"):
+        os.makedirs(os.path.join(work, sub))
+    clips = []
+    for i in range(TRAIN_AUG_CLIPS):
+        n = int(16000 * (0.8 + 1.2 * rng.random()))            # 0.8-2 s utterances
+        clips.append(wav(os.path.join(work, "clips", f"{i}.wav"),
+                         testing.vowel(n, rng) * (3000 + 9000 * rng.random()) + (rng.random(n) * 2 - 1) * 200))
+    bgs = [wav(os.path.join(work, "bg", f"{i}.wav"), (rng.random(16000 * 5) * 2 - 1) * 4000) for i in range(4)]
+    rirs = []
+    for i, lag in enumerate((400, 1100)):
+        rir = np.zeros(4000)
+        rir[3 + i] = 20000.0
+        rir[lag:] = (rng.random(4000 - lag) * 2 - 1) * 8000.0 * np.exp(-np.arange(4000 - lag) / 500.0)
+        rirs.append(wav(os.path.join(work, "rir", f"{i}.wav"), rir))
+    x = torch.from_numpy(np.stack([data.create_fixed_size_clip(data.read_audio(p), total,
+                                                               rng=np.random.default_rng(i))
+                                   for i, p in enumerate(clips[:AUG_CHECK_ROWS])]))
+    gen = torch.Generator().manual_seed(171)
+    b = x.shape[0]
+    params = {"gain": A.draw_gain(gen, b), "tanh": A.draw_tanh_distortion(gen, b), "eq": A.draw_seven_band_eq(gen, b),
+              "stop": A.draw_band_stop(gen, b), "semis": A.draw_pitch_shift(gen),
+              "spec": A.draw_colored_noise(gen, x.shape),
+              "decay": A.uniform(gen, (b,), -1.0, 2.0), "snr": A.draw_snr(gen, b, 10, 30),
+              "mix_snr": A.uniform(gen, (b,), -10, 15), "rir": data.read_audio(rirs[0])}
+    noise = torch.from_numpy(np.random.default_rng(172).uniform(-0.1, 0.1, x.shape).astype(np.float32))
+    ops = {"gain": lambda v, p: A.apply_gain(v, p["gain"]),
+           "tanh_distortion": lambda v, p: A.apply_tanh_distortion(v, p["tanh"]),
+           "seven_band_eq": lambda v, p: A.apply_seven_band_eq(v, p["eq"]),
+           "band_stop": lambda v, p: A.apply_band_stop(v, *p["stop"]),
+           "pitch_shift": lambda v, p: A.apply_pitch_shift(v, p["semis"]),
+           "colored_noise": lambda v, p: A.apply_colored_noise(p["spec"].to(v.device), total, p["decay"]),
+           "add_noise_at_snr": lambda v, p: A.apply_noise_at_snr(v, noise.to(v.device), p["snr"]),
+           "mix_at_snr": lambda v, p: A.mix_at_snr(noise.to(v.device), v, p["mix_snr"]),
+           "reverberate": lambda v, p: A.reverberate(v, p["rir"])}
+    report = []
+    for name, op in ops.items():
+        want = op(x, params).numpy()
+        got = op(x.to(dev), params).cpu().numpy()
+        if name == "pitch_shift":
+            err = float(np.sqrt(np.mean((got.astype(np.float64) - want) ** 2) / np.mean(want.astype(np.float64) ** 2)))
+            report.append(f"{name} {err:.2e} (relative RMS)")
+            limit = PITCH_RMS_TOL
+        else:
+            err = float(np.abs(got - want).max() / np.abs(want).max())
+            report.append(f"{name} {err:.2e}")
+            limit = AUG_PEAK_TOL
+        if not err <= limit:
+            fail(f"augmentation op {name} on the card is {err} from the port on the CPU (limit {limit})")
+    print(f"augment ops, card vs the port on the CPU over {tuple(x.shape)} (max |diff| over the peak): "
+          + ", ".join(report))
+    kw = dict(total_length=total, batch_size=TRAIN_AUG_CLIPS, background_clip_paths=bgs, RIR_paths=rirs, seed=173)
+    walls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        augmented = np.concatenate(list(data.augment_clips(clips, device=dev, **kw)))
+        walls.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    on_cpu = np.concatenate(list(data.augment_clips(clips, device="cpu", **kw)))
+    cpu_wall = time.perf_counter() - t0
+    diff = augmented.astype(np.float64) - on_cpu
+    rms = float(np.sqrt(np.mean(diff ** 2) / np.mean(on_cpu.astype(np.float64) ** 2)))
+    print(f"augment_clips ({TRAIN_AUG_CLIPS} clips of {total} samples, every op at its default probability, "
+          f"{len(bgs)} background and {len(rirs)} RIR files): {TRAIN_AUG_CLIPS / min(walls):.1f} clips/s on the card "
+          f"(runs {', '.join(f'{w:.3f}' for w in walls)} s; the port on the CPU "
+          f"{TRAIN_AUG_CLIPS / cpu_wall:.1f} "
+          f"clips/s), on {card}; card vs CPU: relative RMS {rms:.2e}, "
+          f"{float((diff == 0).mean()):.1%} of the samples equal")
+    if augmented.shape != (TRAIN_AUG_CLIPS, total) or augmented.dtype != np.int16 or not rms <= PITCH_RMS_TOL:
+        fail(f"augment_clips on the card: shape {augmented.shape}, {augmented.dtype}, {rms} from the CPU")
+
+    # 17b. the feature pre-compute against the JAX golden
+    golden, inputs = testing.load_train_golden(), testing.train_inputs(testing.TRAIN_SEED)
+    if inputs["sha256"] != str(golden["inputs_sha256"]):
+        fail("training golden inputs do not regenerate bit-exactly with this numpy")
+    emb = convert.embedding_from_jax(testing.golden_inputs()["embedding"])
+    out = os.path.join(work, "features.npy")
+    compute_features_from_generator(iter([inputs["clips"][:10], inputs["clips"][10:]]),
+                                    n_total=testing.TRAIN_CLIPS, clip_duration=total, output_file=out,
+                                    device=dev, embedding_params=emb)
+    err = float(np.abs(np.load(out) - golden["features"]).max())
+    t0 = time.perf_counter()
+    compute_features_from_generator(iter([augmented]), n_total=TRAIN_AUG_CLIPS, clip_duration=total,
+                                    output_file=os.path.join(work, "augmented.npy"), device=dev, embedding_params=emb)
+    feat_s = time.perf_counter() - t0
+    print(f"features of the golden clips on the card vs the JAX package: max |diff| {err:.3e} over "
+          f"{golden['features'].shape} (limit {CNN_TOL}); the {TRAIN_AUG_CLIPS} augmented clips in {feat_s:.3f} s, "
+          f"{TRAIN_AUG_CLIPS / feat_s:.1f} clips/s")
+    if not err <= CNN_TOL:
+        fail(f"compute_features_from_generator on the card is {err} from the JAX golden")
+
+    # 17c. the trainer: the golden's 40 steps, then 1000 steps at full width
+    stats, step = [], T._train_step
+
+    def recording(*args, **kwargs):
+        r = step(*args, **kwargs)
+        stats.append(r[3])
+        return r
+    trainer = T.HeadTrainer(layer_dim=testing.TRAIN_WIDTH, device=dev)
+    trainer.params = convert.head_from_jax(golden["init"], dev)
+    T._train_step = recording
+    try:
+        trainer.train_model(iter(inputs["batches"]), feed_chunk=8, **testing.train_schedule())
+    finally:
+        T._train_step = step
+    updated = np.array([bool(s["updated"]) for s in stats])
+    survivors = np.array([int(s["n_survivors"]) for s in stats])
+    loss = np.array([float(s["loss"]) for s in stats])
+    loss_err = float(np.max(np.abs(loss - golden["loss"]) / np.abs(golden["loss"])))
+    pred_err = float(np.abs(trainer.forward(inputs["held_out"]) - golden["held_out_pred"]).max())
+    print(f"trainer golden ({testing.TRAIN_STEPS} steps, dnn width {testing.TRAIN_WIDTH}, batch "
+          f"{testing.TRAIN_BATCH}): updates {int(updated.sum())} as JAX {np.array_equal(updated, golden['updated'])}, "
+          f"survivors as JAX {np.array_equal(survivors, golden['n_survivors'])}, loss within {loss_err:.2e} "
+          f"relative, held-out predictions within {pred_err:.2e}")
+    if not (np.array_equal(updated, golden["updated"]) and np.array_equal(survivors, golden["n_survivors"])
+            and loss_err <= TRAIN_LOSS_RTOL and pred_err <= TRAIN_PRED_TOL):
+        fail("the trainer on the card does not reproduce the JAX trainer's 40 steps")
+    pool = [testing.train_batch(rng, TRAIN_SCALE_BATCH) for _ in range(TRAIN_POOL)]
+    held_out, held_y = testing.train_batch(rng, TRAIN_SCALE_BATCH)
+    preds = {}
+    for chunk in (1, 32):
+        t = T.HeadTrainer(layer_dim=testing.TRAIN_WIDTH, seed=0, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        t.train_model(itertools.islice(itertools.cycle(pool), TRAIN_SCALE_STEPS), max_steps=TRAIN_SCALE_STEPS,
+                      warmup_steps=TRAIN_SCALE_STEPS // 10, hold_steps=TRAIN_SCALE_STEPS // 3, lr=1e-3,
+                      feed_chunk=chunk)
+        wall = time.perf_counter() - t0
+        preds[chunk] = t.forward(held_out)
+        acc = t.accuracy(preds[chunk], held_y)
+        print(f"train_model: {TRAIN_SCALE_STEPS} steps at batch {TRAIN_SCALE_BATCH} (dnn width "
+              f"{testing.TRAIN_WIDTH}, (16, 96) windows), feed_chunk {chunk}: {wall:.3f} s, "
+              f"{TRAIN_SCALE_STEPS / wall:.1f} steps/s, {len(t.history['loss'])} updates, last loss "
+              f"{t.history['loss'][-1]:.4f}, held-out accuracy {acc:.3f}, on {card}")
+        if not (np.isfinite(t.history["loss"]).all() and acc > 0.9):
+            fail(f"train_model at feed_chunk {chunk} did not learn (accuracy {acc})")
+    chunk_err = float(np.abs(preds[1] - preds[32]).max())
+    print(f"train_model feed_chunk 1 vs 32: max |dpred| {chunk_err:.3e}")
+    # where a step's time goes: the step alone on batches already on the card
+    layout = T._Layout(t.params)
+    state = [layout.pack(t.params, dev), {"count": torch.zeros((), dtype=torch.int32, device=dev),
+                                          "mu": layout.pack(t.opt_state["mu"], dev),
+                                          "nu": layout.pack(t.opt_state["nu"], dev)},
+             {"n_acc": torch.zeros((), dtype=torch.int32, device=dev),
+              "acc_steps": torch.ones((), dtype=torch.int32, device=dev)}]
+    resident = [(torch.from_numpy(bx).to(dev), torch.from_numpy(by.astype(np.float32)).to(dev)) for bx, by in pool[:4]]
+    lr, neg_w = torch.tensor(1e-3, device=dev), torch.tensor(1.0, device=dev)
+
+    def one_step(i=0):
+        state[:] = T._train_step(*state, *resident[i % len(resident)], neg_w, lr, t.meta, layout)[:3]
+    for i in range(20):
+        one_step(i)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(TRAIN_PROFILE_STEPS):
+        one_step(i)
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_ops, busy, top = device_ops_per_step(one_step, n_top=4)
+    print(f"train step alone (batch {TRAIN_SCALE_BATCH} on the card): {1e3 * wall / TRAIN_PROFILE_STEPS:.3f} ms per "
+          f"step, {1e3 * host / TRAIN_PROFILE_STEPS:.3f} ms of it to dispatch; {n_ops} device operations per step "
+          f"({busy:.3f} ms of them); costliest: " + "; ".join(f"{n} x {op[:50]} {ms:.3f} ms" for op, n, ms in top))
+    if not chunk_err <= TRAIN_PRED_TOL:
+        fail(f"feed_chunk 1 and 32 trained different heads ({chunk_err})")
+    head = os.path.join(work, "trained.npz")
+    t.save_model(head)
+
+    # 17d. evaluation with the trained head through the engine (K1-3pass)
+    neg = [wav(os.path.join(work, "eval", f"neg{i}.wav"), (rng.random(EVAL_SECONDS * 16000) * 2 - 1) * 2000)
+           for i in range(EVAL_FILES // 2)]
+    pos = [wav(os.path.join(work, "eval", f"pos{i}.wav"), testing.vowel(EVAL_SECONDS * 16000, rng) * 12000)
+           for i in range(EVAL_FILES // 2)]
+    for k in launches:
+        launches[k] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = evaluation.evaluate_model(head, neg, pos, threshold=0.5, device=dev, embedding_params=emb)
+    wall = time.perf_counter() - t0
+    used = {k: v for k, v in launches.items() if v}
+    n_eval = used.get("direct_3pass", 0)
+    frames = EVAL_SECONDS * 16000 // 1280
+    print(f"evaluate_model ({len(neg)} negative and {len(pos)} positive files of {EVAL_SECONDS} s, the trained head, "
+          f"'high'): {wall:.3f} s, real-time factor {EVAL_FILES * EVAL_SECONDS / wall:.1f}, FA/h "
+          f"{result['far_per_hour']:.2f}, FRR {result['frr']:.3f}, mel launches {used}, on {card}")
+    if set(used) != {"direct_3pass"} or n_eval < 2 * frames:
+        fail(f"evaluation made mel launches {used}, expected K1-3pass (direct_3pass) on every engine step")
+    if not (result["n_positive_clips"] == len(pos) and np.isfinite(result["curve"]["far_per_hour"]).all()):
+        fail("evaluate_model's report is incomplete")
+
+    # 17e. the engine with use_pallas_melspec=False: the plain mel, no kernel
+    kernel_scores, _ = evaluation.score_files_multi(neg + pos, [head], padding=1, device=dev, embedding_params=emb)
+    for k in launches:
+        launches[k] = 0
+    plain_scores, _ = evaluation.score_files_multi(neg + pos, [head], padding=1, device=dev, embedding_params=emb,
+                                                   use_pallas_melspec=False)
+    used = {k: v for k, v in launches.items() if v}
+    err = max(float(np.abs(plain_scores[p] - kernel_scores[p]).max()) for p in neg + pos)
+    print(f"use_pallas_melspec=False: max |dscore| vs the kernel path {err:.3e} over {len(neg + pos)} files "
+          f"(limit {SCORE_TOL}), mel launches {used}")
+    if used or not err <= SCORE_TOL:
+        fail(f"use_pallas_melspec=False launched {used} or moved the scores by {err}")
+    return n_eval
+
+
 def main():
     t_start = time.perf_counter()
     import torch
@@ -1748,6 +2015,8 @@ def main():
         mel_launches[k] += n
     print(f"[{time.perf_counter() - t_start:.1f} s] phase 16")
     mel_launches["direct_3pass"] += tflite_import(card)
+    print(f"[{time.perf_counter() - t_start:.1f} s] phase 17")
+    mel_launches["direct_3pass"] += training(card)
 
     # no single PyTorch call computes any of these functions (a mel frontend or a
     # 20-conv step is several calls), so library_ms is null throughout

@@ -7,7 +7,9 @@ their gating add-ons (noise suppression, the VAD and speaker verifiers),
 the student embedding, and ``.onnx`` and ``.tflite`` model files
 (``io.onnx_import`` and ``io.tflite_import``, run by the graph executors
 ``io.onnx_graph`` and ``io.tflite_graph``; int8 ``.tflite`` graphs in float
-emulation or LiteRT-exact integer arithmetic, ``ops.qmath``). The mel frontend is hand-written
+emulation or LiteRT-exact integer arithmetic, ``ops.qmath``), and training
+a head from WAV clips with its evaluation (``data``, ``ops.augment``,
+``training.trainer``, ``train_cli``, ``eval``). The mel frontend is hand-written
 CUDA (``csrc/melspec.cu``; the bf16 variants of its direct DFT on the
 tensor cores, ``csrc/melspec_mma.cu``); the embeddings, heads, graphs,
 add-ons and gating are PyTorch ops. It imports neither jax nor

@@ -60,6 +60,30 @@ def vad_from_jax(params: Mapping, device="cpu") -> Dict:
     return _tree(params, device, lambda k, v, dev: _tensor(v, dev))
 
 
+def trainer_from_jax(params: Mapping, opt_state, device="cpu") -> Tuple[Dict, Dict]:
+    """A JAX ``HeadTrainer``'s params and optimizer state -> the port
+    trainer's (``training.trainer.HeadTrainer.params`` and ``.opt_state``),
+    so both trainers start from the same point.
+
+    The JAX trainer's optimizer is ``optax.chain(optax.scale_by_adam(),
+    optax.scale(-1.0))``. Its state is a tuple with one entry per link of
+    the chain: the first a ``ScaleByAdamState`` namedtuple of ``count``
+    (int32 scalar, the updates applied so far), ``mu`` and ``nu`` (the first
+    and second moments, trees shaped as the params without ``"__meta__"``),
+    the second ``scale``'s empty state. The fields are read by attribute (or
+    key), so optax need not be importable. Returns (the head's params as
+    ``head_from_jax`` gives them, {"count": int32 tensor, "mu": tree, "nu":
+    tree} of float32 tensors), all on ``device``."""
+    adam = opt_state[0] if isinstance(opt_state, (tuple, list)) else opt_state
+
+    def field(name):
+        return adam[name] if isinstance(adam, Mapping) else getattr(adam, name)
+
+    moments = {name: _tree(field(name), device, lambda k, v, dev: _tensor(v, dev)) for name in ("mu", "nu")}
+    count = torch.tensor(int(np.asarray(field("count"))), dtype=torch.int32, device=device)
+    return head_from_jax(params, device), {"count": count, **moments}
+
+
 def to_device(tree, device):
     """A nested dict of tensors, moved to ``device``."""
     if isinstance(tree, dict):

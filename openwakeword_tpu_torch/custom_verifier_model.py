@@ -5,8 +5,8 @@ A verifier is a scikit-learn pipeline, flatten -> StandardScaler ->
 LogisticRegression, pickled by the JAX package's or the upstream package's
 ``train_custom_verifier``. ``fold_verifier`` folds it into one affine form,
 score = sigmoid(x_flat @ w + b), which the ``Model`` and the engine apply
-on their device. Training (``train_custom_verifier``) waits for the training
-slice (ROADMAP.md, queue 1, slice F).
+on their device. Training (``train_custom_verifier``) waits for the second
+half of the training slice (ROADMAP.md, queue 1, slice F2).
 
 Such a pickle names the trainer's ``flatten_features`` by its module:
 ``openwakeword_tpu.custom_verifier_model`` or

@@ -32,6 +32,45 @@ from openwakeword_tpu_torch.streaming import ChunkAccumulator
 _EMBED = {"default": embedding_model.apply_folded, "student": embedding_student.apply}
 
 
+def compute_features_from_generator(generator, n_total: int, clip_duration: int,
+                                    output_file: str, device="cuda",
+                                    ncpu: int = 1, embedding: str = "default",
+                                    embedding_params=None,
+                                    embedding_model_path: str = ""):
+    """Stream a generator of (batch, samples) int16 audio through the batch
+    embedding path (``AudioFeatures.embed_clips`` on ``device``) into an
+    on-disk memmapped .npy, then trim trailing empty rows (reference
+    utils.py:542-601 contract).
+
+    ``embedding='student'`` computes features with the student network
+    instead of the faithful CNN, for heads a student-mode engine will serve
+    (features from the two frontends are not interchangeable).
+    ``embedding_params`` takes the port's tensors, as ``AudioFeatures``."""
+    from numpy.lib.format import open_memmap
+    from openwakeword_tpu_torch.data import trim_mmap
+
+    F = AudioFeatures(device=device, embedding=embedding, embedding_params=embedding_params,
+                      embedding_model_path=embedding_model_path)
+    rows, cols = F.get_embedding_shape(clip_duration / F.sr)
+    out = open_memmap(output_file, mode='w+', dtype=np.float32,
+                      shape=(n_total, rows, cols))
+    written = 0
+    for batch in generator:
+        if written == 0 and batch.shape[0] > n_total:
+            raise ValueError(
+                f"n_total ({n_total}) must cover at least one generator "
+                f"batch ({batch.shape[0]} clips)")
+        feats = F.embed_clips(batch, batch_size=batch.shape[0], ncpu=ncpu)
+        take = min(feats.shape[0], n_total - written)
+        out[written:written + take] = feats[:take]
+        written += take
+        out.flush()
+        if written >= n_total:
+            break
+    del out
+    trim_mmap(output_file)
+
+
 class AudioFeatures():
     """Streaming/batch computation of mel-spectrograms and speech embeddings."""
 

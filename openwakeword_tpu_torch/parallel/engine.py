@@ -185,6 +185,14 @@ class MultiStreamEngine:
     ``quantized_execution`` ('dequant' or 'exact') selects how int8
     ``.tflite`` heads run, as in ``Model``; an exact graph head keeps its
     integer weights at every tier.
+
+    ``use_pallas_melspec`` keeps the JAX engine's name for the choice of
+    mel frontend: None (the default) or True runs the mel kernel of the
+    tier (``ops.melspec_cuda.melspectrogram_frames``); False runs the plain
+    PyTorch mel (``ops.melspec``) in the tier's arithmetic, the counterpart
+    of the JAX engine's XLA mel. ``scan_unroll`` is stored and has no
+    effect: the port runs its frames in a Python loop, with no ``lax.scan``
+    to unroll.
     """
 
     def __init__(self,
@@ -208,6 +216,8 @@ class MultiStreamEngine:
                  realtime_guard: Optional[str] = None,
                  frame_budget_s: float = 0.08,
                  quantized_execution: str = "dequant",
+                 use_pallas_melspec: Optional[bool] = None,
+                 scan_unroll: int = 2,
                  device="cuda"):
         gating.validate_gating_args(patience, threshold, debounce_time)
         tiers = config.check_precision(precision, embedding)
@@ -221,6 +231,10 @@ class MultiStreamEngine:
         if mel_dft not in melspec_cuda.DFTS:
             raise ValueError(f"mel_dft must be 'direct' or 'factored'; got {mel_dft!r}")
         self.mel_dft = mel_dft
+        self.use_pallas_melspec = use_pallas_melspec is None or bool(use_pallas_melspec)
+        self._mel_frames = (melspec_cuda.melspectrogram_frames if self.use_pallas_melspec
+                            else melspec_cuda.melspectrogram_frames_plain)
+        self.scan_unroll = int(scan_unroll)
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("MultiStreamEngine(device='cuda') needs a CUDA device; "
@@ -574,8 +588,7 @@ class MultiStreamEngine:
         if self.enable_noise_suppression:
             ns_state, chunk = ns_torch.process_chunk(st["ns"], chunk, self.noise_suppression_algorithm)
         window = torch.cat([st["pcm_tail"], chunk], dim=-1)                        # (S, 1760)
-        mel_raw = melspec_cuda.melspectrogram_frames(window, self.mel_dft,
-                                                     config.kernel_arith(modes["mel"]))  # (S, 8, 32) dB
+        mel_raw = self._mel_frames(window, self.mel_dft, config.kernel_arith(modes["mel"]))  # (S, 8, 32) dB
 
         # A stream's first frame has no PCM look-back: frames 0..2 come from
         # the zero tail, so they are left out of the top_db peak and of the

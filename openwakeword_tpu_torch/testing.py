@@ -33,6 +33,12 @@ hold ``.tflite`` fixtures written by the JAX package's exporter and
 ``tests/fixture_builders.py``, among them an int8 graph, and the JAX
 package's outputs on the seeded inputs of ``tflite_inputs``, the int8 graph
 in both ``quantized`` modes.
+
+The training golden (``tests/fixtures/torch_train_golden.npz``) holds the
+JAX package's features of ``train_inputs``' clips on the golden embedding
+weights, a JAX ``HeadTrainer``'s init at full width (``dnn``, width 128,
+(16, 96) windows) with its step-by-step stats over ``train_inputs``'
+batches, and its predictions on the held-out windows after them.
 """
 
 import contextlib
@@ -43,7 +49,7 @@ from typing import Dict, List
 
 import numpy as np
 
-from openwakeword_tpu_torch import registry
+from openwakeword_tpu_torch import config, registry
 from openwakeword_tpu_torch.io.checkpoints import save_checkpoint
 from openwakeword_tpu_torch.models import embedding as embedding_model
 from openwakeword_tpu_torch.models import heads as heads_lib
@@ -551,3 +557,63 @@ def run_silero(apply, params, audio: np.ndarray, to_array, from_array):
         s, h, c = apply(params, from_array(x), h, c)
         scores.append(to_array(s))
     return np.stack(scores), to_array(h), to_array(c)
+
+
+TRAIN_FIXTURE = os.path.join(_FIXTURES, "torch_train_golden.npz")
+TRAIN_SEED = 20266
+TRAIN_CLIPS = 16
+TRAIN_CLIP_SAMPLES = 32000          # examples/custom_model.yml's 2 s total_length
+TRAIN_STEPS = 40
+TRAIN_BATCH = 96                    # below the 128-survivor gate: updates every other step
+TRAIN_WIDTH = 128                   # examples/custom_model.yml's layer_size
+TRAIN_LR = 1e-3
+
+
+def train_batch(rng: np.random.Generator, batch: int, sep: float = 0.3):
+    """One (x, y) batch of (batch, 16, 96) float32 feature windows whose
+    positives sit ``sep`` above the negatives."""
+    y = (rng.random(batch) < 0.5).astype(np.int64)
+    x = ((rng.random((batch, 16, config.EMB_DIM)) * 2.0 - 1.0) * 1.7 + y[:, None, None] * sep).astype(np.float32)
+    return x, y
+
+
+def train_inputs(seed: int = TRAIN_SEED) -> Dict:
+    """Seeded inputs of the training golden: TRAIN_CLIPS int16 clips of
+    TRAIN_CLIP_SAMPLES (vowels over noise), TRAIN_STEPS (x, y) batches of
+    TRAIN_BATCH windows and one held-out batch of windows."""
+    rng = np.random.default_rng(seed)
+    clips = np.stack([np.round(vowel(TRAIN_CLIP_SAMPLES, rng) * (2000.0 + 12000.0 * rng.random())
+                               + (rng.random(TRAIN_CLIP_SAMPLES) * 2.0 - 1.0) * 300.0)
+                      for _ in range(TRAIN_CLIPS)]).astype(np.int16)
+    batches = [train_batch(rng, TRAIN_BATCH) for _ in range(TRAIN_STEPS)]
+    held_out = train_batch(rng, TRAIN_BATCH)[0]
+    h = hashlib.sha256(clips.tobytes())
+    for x, y in batches:
+        h.update(x.tobytes())
+        h.update(y.tobytes())
+    h.update(held_out.tobytes())
+    return {"clips": clips, "batches": batches, "held_out": held_out, "sha256": h.hexdigest()}
+
+
+def train_schedule(n_steps: int = TRAIN_STEPS) -> Dict:
+    """The train_model arguments of the training golden's run."""
+    return dict(max_steps=n_steps, warmup_steps=n_steps // 8, hold_steps=n_steps // 8, lr=TRAIN_LR,
+                negative_weight_schedule=list(np.linspace(1.0, 5.0, n_steps)))
+
+
+def load_train_golden(path: str = TRAIN_FIXTURE) -> Dict:
+    """The training golden: its arrays, with the JAX trainer's init params
+    rebuilt as a head tree (checkpoint layout, '__meta__' included)."""
+    with np.load(path) as z:
+        data = {k: z[k] for k in z.files}
+    init: Dict = {}
+    for key in [k for k in data if k.startswith("init/")]:
+        *parents, leaf = key.split("/")[1:]
+        node = init
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = data.pop(key)
+    init["__meta__"] = {"model_type": "dnn", "input_frames": 16, "n_classes": 1, "layer_dim": TRAIN_WIDTH,
+                        "n_blocks": 1}
+    data["init"] = init
+    return data

@@ -1,21 +1,23 @@
 """Utility namespace of the PyTorch port, after the JAX package's
-``openwakeword_tpu.utils``: ``AudioFeatures``, ``bulk_predict`` and
-``re_arg``. ``compute_features_from_generator`` waits for the training
-slice (ROADMAP.md, queue 1, slice F), and the download helpers have no
-counterpart (the port runs no network).
+``openwakeword_tpu.utils``: ``AudioFeatures``, ``bulk_predict``,
+``compute_features_from_generator`` and ``re_arg``. The download helpers
+have no counterpart (the port runs no network).
 
 The names resolve on first use: the modules that define them import this
 package's ``cuda_build`` and ``native_lib``, so importing them here would
 be circular.
 """
 
-__all__ = ["AudioFeatures", "bulk_predict", "re_arg"]
+__all__ = ["AudioFeatures", "bulk_predict", "compute_features_from_generator", "re_arg"]
 
 
 def __getattr__(name):
     if name == "AudioFeatures":
         from openwakeword_tpu_torch.features import AudioFeatures
         return AudioFeatures
+    if name == "compute_features_from_generator":
+        from openwakeword_tpu_torch.features import compute_features_from_generator
+        return compute_features_from_generator
     if name == "bulk_predict":
         from openwakeword_tpu_torch.parallel.bulk import bulk_predict
         return bulk_predict

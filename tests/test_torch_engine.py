@@ -268,3 +268,50 @@ def test_rnn_head_keeps_its_own_precision(rnn_weights, precision):
     meta = [m for n, m, _ in te._head_metas if n == "rnn_head"][0]
     want = heads.forward(rnn, te.state["feat_ring"][:, -16:].float(), meta).numpy()
     np.testing.assert_array_equal(scores[:, -1], want[:, 0])
+
+
+def test_plain_mel_path_matches_jax_xla_mel(weights, monkeypatch):
+    """``use_pallas_melspec=False`` runs the plain PyTorch mel, as the JAX
+    engine's ``False`` runs its XLA mel; at 'highest' both are float32, so
+    the scores agree within 1e-5. ``scan_unroll`` is accepted and stored.
+    The mel kernel's wrapper is never called on that path."""
+    from openwakeword_tpu_torch.ops import melspec_cuda
+    calls = []
+    monkeypatch.setattr(melspec_cuda, "melspectrogram_frames", lambda *a, **k: calls.append(a))
+    je, te = _engines(weights, use_pallas_melspec=False, scan_unroll=3)
+    assert te.use_pallas_melspec is False and te.scan_unroll == 3
+    pcm = _pcm(7, 10, S, 1280)
+    want, got = je.predict_frames(pcm), te.predict_frames(pcm)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    assert not calls
+
+
+@pytest.mark.parametrize("flag", [None, True])
+def test_default_mel_path_runs_the_kernel_wrapper(weights, flag):
+    """None (the default) and True run the mel kernel of the tier through
+    its wrapper, which on a CPU tensor is the plain version."""
+    paths, emb = weights
+    from openwakeword_tpu_torch.ops import melspec_cuda
+    te = MultiStreamEngine(wakeword_models=paths, n_streams=S, device="cpu", use_pallas_melspec=flag,
+                           embedding_params=convert.embedding_from_jax(emb))
+    assert te.use_pallas_melspec is True and te.scan_unroll == 2
+    assert te._mel_frames is melspec_cuda.melspectrogram_frames
+
+
+def test_server_and_bulk_take_the_mel_options(weights, tmp_path):
+    """``StreamServer`` and ``bulk_predict`` forward both options to the engine."""
+    from openwakeword_tpu_torch.data import write_audio
+    from openwakeword_tpu_torch.parallel import StreamServer, bulk_predict
+    paths, emb = weights
+    params = convert.embedding_from_jax(emb)
+    srv = StreamServer(wakeword_models=paths, capacity=2, device="cpu", embedding_params=params,
+                       use_pallas_melspec=False, scan_unroll=1)
+    assert srv.engine.use_pallas_melspec is False and srv.engine.scan_unroll == 1
+    wav = str(tmp_path / "clip.wav")
+    write_audio(wav, _pcm(8, 6000))
+    kw = dict(device="cpu", embedding_params=params, precision="highest", padding=0)
+    plain = bulk_predict([wav], paths, use_pallas_melspec=False, scan_unroll=1, **kw)[wav]
+    kernel = bulk_predict([wav], paths, **kw)[wav]
+    assert len(plain) == len(kernel) > 0
+    for a, b in zip(plain, kernel):
+        assert max(abs(a[k] - b[k]) for k in a) < 1e-5
