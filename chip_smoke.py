@@ -167,7 +167,31 @@ Phases, each of which exits nonzero on failure:
       'high': K1-3pass (and no other mel variant) on every engine step;
       prints the real-time factor;
    e. the same files scored with ``use_pallas_melspec=False``: no mel kernel
-      launches, scores within 1e-3 of the kernel path's.
+      launches, scores within 1e-3 of the kernel path's;
+18. slice F2 (the exporters, distillation, VAD training, verifier mining):
+   a. every artifact of ``testing.export_params()`` exported from card
+      tensors on this host, which has no ``onnx`` and no ``flatbuffers``
+      package: the twelve ``.onnx`` files must hash as the JAX exporter's
+      (tests/fixtures/torch_export_sha256.json); the seven heads, the
+      embedding and the mel frontend as ``.tflite`` must read back to their
+      source arrays; each export timed; then the bench configuration at
+      'high', S=4096, 10 frames, with the ``.npz``, the ``.onnx`` and the
+      ``.tflite`` heads: scores within 1e-6 of the ``.npz`` run, one K1-3pass
+      launch per step;
+   b. distillation at batch 256 against the golden CNN teacher: 3 steps on
+      the card and on the CPU from the same init (losses within 1e-4
+      relative), then 60 steps (cut from 3000) with ``measure_drift`` over
+      8 x 256 windows (steps/s, the drift report, the loss must fall) and
+      ``measure_served_score_drift`` with the six bench heads over 20 s of
+      noise (K1 launches only);
+   c. VAD training at the JAX package's defaults (batch 64, 20-frame
+      sequences, 2048 sequences, 600 steps) on 16 synthetic vowels: 3 steps
+      on the card and the CPU (losses within 1e-4 relative), steps/s, the
+      loss must fall, ``evaluate_vad`` FAR / FRR at 0.5;
+   d. verifier mining (``get_reference_clip_features``) through the
+      ``Model`` on the card against the CPU, windows within 1e-4, K1
+      launches only; the scikit-learn fit is tested on the CPU (tier-1) where
+      this host lacks scikit-learn, which ``train_verifier_model`` names.
 
 The 1-pass bf16 variants of the four kernels run beside their fp32 ones.
 Phase 3 holds K1-1pass and K2-1pass against their plain versions within
@@ -265,6 +289,16 @@ TRAIN_POOL = 32            # distinct batches, cycled
 TRAIN_PROFILE_STEPS = 200
 EVAL_FILES = 16
 EVAL_SECONDS = 10
+# phase 18, slice F2 (the exporters, distillation, VAD training, verifier mining)
+EXPORT_FRAMES = 10
+EXPORT_SCORE_TOL = 1e-6
+DISTILL_BATCH = 256        # training/distill.py's default
+DISTILL_STEPS = 60         # cut from its 3000 to ~30 s on this host
+DISTILL_DRIFT_BATCHES = 8
+CHECK_STEPS = 3            # steps run on the card and on the CPU from the same start
+CHECK_LOSS_RTOL = 1e-4
+VAD_CLIPS = 16
+VAD_STEPS = 600            # training/vad.py's default (batch 64, 20 frames, 2048 sequences)
 
 
 def fail(msg: str):
@@ -1511,6 +1545,246 @@ def training(card: str) -> int:
     return n_eval
 
 
+def _run_recorded(module, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` with ``module._train_step`` wrapped: returns
+    (its result, [(time, loss)] of each step, read as the step ends)."""
+    step, stamped = module._train_step, []
+
+    def recording(*a):
+        loss = step(*a)
+        stamped.append((time.perf_counter(), float(loss)))
+        return loss
+    module._train_step = recording
+    try:
+        return fn(*args, **kwargs), stamped
+    finally:
+        module._train_step = step
+
+
+def _steps_per_s(stamped) -> float:
+    """Steps per second between the first and the last reading."""
+    return (len(stamped) - 1) / (stamped[-1][0] - stamped[0][0])
+
+
+def _relative_gap(got, want) -> float:
+    return float(np.max(np.abs(np.asarray(got) - np.asarray(want)) / np.abs(np.asarray(want))))
+
+
+def _assert_tree_equal(what: str, got, want) -> None:
+    for k, v in want.items():
+        if k == "__meta__":
+            continue
+        if isinstance(v, dict):
+            _assert_tree_equal(f"{what}/{k}", got[k], v)
+        elif not np.array_equal(np.asarray(got[k]), np.asarray(v)):
+            fail(f"{what}/{k} does not read back to the source array")
+
+
+def f2(card: str) -> dict:
+    """Phase 18, slice F2 on the card (18a the exporters, 18b distillation,
+    18c VAD training, 18d verifier mining); returns the mel kernels'
+    launches in it."""
+    import torch
+    from openwakeword_tpu_torch import Model, convert, custom_verifier_model, registry, testing
+    from openwakeword_tpu_torch.io import onnx_export, tflite_export, tflite_graph, tflite_import
+    from openwakeword_tpu_torch.models import embedding, embedding_student, vad_net
+    from openwakeword_tpu_torch.ops import melspec, melspec_cuda
+    from openwakeword_tpu_torch.parallel.engine import MultiStreamEngine
+    from openwakeword_tpu_torch.training import distill
+    from openwakeword_tpu_torch.training import vad as vad_training
+    dev, cpu = torch.device("cuda", 0), torch.device("cpu")
+    launches = melspec_cuda.melspectrogram_frames.launches
+    work = tempfile.mkdtemp()
+    total: dict = {}
+
+    def take_launches() -> dict:
+        used = {k: v for k, v in launches.items() if v}
+        for k, v in used.items():
+            total[k] = total.get(k, 0) + v
+            launches[k] = 0
+        return used
+
+    # 18a. every artifact exported on this host (no onnx, no flatbuffers package)
+    params = testing.export_params()
+    port = testing.port_export_params(params, dev)
+    export_s = {}
+
+    def timed(fn):
+        def run(*args, **kwargs):
+            path = next(a for a in args if isinstance(a, str))
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            export_s[os.path.basename(path)] = time.perf_counter() - t0
+            return out
+        return run
+
+    class TimedOnnx:
+        def __getattr__(self, name):
+            return timed(getattr(onnx_export, name))
+    os.makedirs(os.path.join(work, "onnx"))
+    onnx_paths = testing.write_onnx_artifacts(TimedOnnx(), port, os.path.join(work, "onnx"))
+    with open(testing.EXPORT_FIXTURE) as f:
+        want_hashes = json.load(f)
+    got_hashes = {name: testing.sha256_file(path) for name, path in onnx_paths.items()}
+    wrong = sorted(n for n in want_hashes if got_hashes.get(n) != want_hashes[n])
+    print(f"ONNX export of {len(onnx_paths)} artifacts from card tensors: "
+          + ", ".join(f"{os.path.basename(p)} {1e3 * export_s[os.path.basename(p)]:.1f} ms"
+                      for p in onnx_paths.values()))
+    if wrong or set(got_hashes) != set(want_hashes):
+        fail(f"ONNX files differ from the JAX exporter's (sha256 of {wrong})")
+    print(f"ONNX sha256: all {len(want_hashes)} equal to the JAX exporter's ({testing.EXPORT_FIXTURE})")
+    tfl_paths = {name: os.path.join(work, f"{name}.tflite") for name in port["heads"]}
+    for name, p in port["heads"].items():
+        timed(tflite_export.export_head_tflite)(p, tfl_paths[name])
+    tfl_paths["embedding"] = os.path.join(work, "embedding_model.tflite")
+    timed(tflite_export.export_embedding_tflite)(port["embedding"], tfl_paths["embedding"])
+    tfl_paths["melspectrogram"] = os.path.join(work, "melspectrogram.tflite")
+    timed(tflite_export.export_melspectrogram_tflite)(tfl_paths["melspectrogram"])
+    print("TFLite export: " + ", ".join(f"{os.path.basename(p)} {1e3 * export_s[os.path.basename(p)]:.1f} ms"
+                                        for p in tfl_paths.values()))
+    for name in port["heads"]:
+        kind, got, _ = tflite_import.import_tflite_model(tfl_paths[name])
+        if kind != "head":
+            fail(f"{name}.tflite reads back as a {kind!r}")
+        _assert_tree_equal(f"{name}.tflite", got, params["heads"][name])
+    folded = {k: {f: (np.transpose(a.numpy(), (2, 3, 1, 0)) if a.ndim == 4 else a.numpy()) for f, a in g.items()}
+              for k, g in embedding.ensure_folded(convert.embedding_from_jax(params["embedding"])).items()}
+    _assert_tree_equal("embedding_model.tflite", tflite_import.import_embedding_tflite(tfl_paths["embedding"]), folded)
+    consts = tflite_graph.TfliteProgram(tflite_import.load_tflite(tfl_paths["melspectrogram"])).params
+    for suffix, want in (("dft_basis", np.ascontiguousarray(melspec.stft_power_basis().T)[:, None, :, None]),
+                         ("mel_basis", melspec.mel_filterbank().T)):
+        got = next(v for k, v in consts.items() if k.endswith(suffix))
+        if not np.array_equal(np.asarray(got), np.asarray(want, np.float32)):
+            fail(f"melspectrogram.tflite's {suffix} does not read back to the source array")
+    print(f"TFLite read-back: {len(tfl_paths)} files equal to their source arrays")
+    # the bench configuration at 'high' with the exported heads in place of the .npz ones
+    bench = list(registry.MODELS)
+    os.makedirs(os.path.join(work, "npz"))
+    npz = testing.write_head_checkpoints({n: params["heads"][n] for n in bench}, os.path.join(work, "npz"))
+    emb = convert.embedding_from_jax(params["embedding"])
+    frames = np.random.default_rng(18).integers(-2000, 2000, (EXPORT_FRAMES, SCALE_STREAMS, 1280), dtype=np.int16)
+    scores, n_3pass = {}, 0
+    for fmt, files in (("npz", npz), ("onnx", [onnx_paths[n] for n in bench]),
+                       ("tflite", [tfl_paths[n] for n in bench])):
+        engine = MultiStreamEngine(wakeword_models=files, n_streams=SCALE_STREAMS, device=dev, embedding_params=emb)
+        take_launches()
+        scores[fmt] = engine.predict_frames(frames)
+        used = take_launches()
+        if used != {"direct_3pass": EXPORT_FRAMES}:
+            fail(f"the engine with .{fmt} heads made mel launches {used}, expected {EXPORT_FRAMES} of direct_3pass")
+        n_3pass += used["direct_3pass"]
+        del engine
+    err = {fmt: float(np.abs(scores[fmt] - scores["npz"]).max()) for fmt in ("onnx", "tflite")}
+    print(f"bench configuration at 'high', S={SCALE_STREAMS}, {EXPORT_FRAMES} frames: max |dscore| vs the .npz heads "
+          f".onnx {err['onnx']:.3e}, .tflite {err['tflite']:.3e} (limit {EXPORT_SCORE_TOL}); "
+          f"{n_3pass} K1-3pass launches")
+    if not (max(err.values()) <= EXPORT_SCORE_TOL and np.isfinite(scores["npz"]).all()):
+        fail(f"exported heads score off their .npz heads by {err}")
+    del scores, frames
+
+    # 18b. distillation at full width: batch 256, the default CNN teacher on seeded weights
+    teacher = emb
+    init = embedding_student.init_params(np.random.default_rng(0))
+    losses = {}
+    for name, where in (("card", dev), ("cpu", cpu)):
+        _, stamped = _run_recorded(distill, distill.distill, teacher, steps=CHECK_STEPS, batch_size=DISTILL_BATCH,
+                                   eval_batches=1, log_every=0, init_params=init, device=where)
+        losses[name] = [v for _, v in stamped]
+    gap = _relative_gap(losses["card"], losses["cpu"])
+    print(f"distill, {CHECK_STEPS} steps at batch {DISTILL_BATCH}, card vs CPU: losses {losses['card']} vs "
+          f"{losses['cpu']}, max relative gap {gap:.3e} (limit {CHECK_LOSS_RTOL})")
+    if not gap <= CHECK_LOSS_RTOL:
+        fail(f"distillation on the card left the CPU's losses by {gap}")
+    take_launches()
+    t0 = time.perf_counter()
+    (student, report), stamped = _run_recorded(distill, distill.distill, teacher, steps=DISTILL_STEPS,
+                                               batch_size=DISTILL_BATCH, eval_batches=DISTILL_DRIFT_BATCHES,
+                                               log_every=0, init_params=init, device=dev)
+    wall = time.perf_counter() - t0
+    print(f"distill: {DISTILL_STEPS} steps (cut from 3000 to fit ~30 s) at batch {DISTILL_BATCH} in {wall:.2f} s "
+          f"with measure_drift ({DISTILL_DRIFT_BATCHES} x {DISTILL_BATCH}), {_steps_per_s(stamped):.2f} steps/s, "
+          f"loss {stamped[0][1]:.4f} -> {stamped[-1][1]:.4f}; drift: mean cosine {report['mean_cosine']:.4f}, "
+          f"relative rms {report['relative_rms_err']:.4f}, max |err| {report['max_abs_err']:.4f}, on {card}")
+    if take_launches():
+        fail("distillation launched a mel kernel (its mel is the plain fp32 frontend)")
+    if not (np.isfinite([v for _, v in stamped]).all() and stamped[-1][1] < stamped[0][1]):
+        fail("distillation did not lower its loss")
+    t0 = time.perf_counter()
+    drift = distill.measure_served_score_drift(student, teacher_params=teacher, wakeword_models=npz,
+                                               noise_seconds=20.0, seed=3, device=dev)
+    wall = time.perf_counter() - t0
+    used = take_launches()
+    print(f"served-score drift, six bench heads over 20 s of noise: max |dscore| {drift['max_abs_dscore']}, "
+          f"{drift['total_activation_flips']} flips in {drift['total_frames']} frames, {wall:.2f} s, "
+          f"mel launches {used}")
+    if set(used) != {"direct"} or drift["total_frames"] < 6 * 240:
+        fail(f"the served-score drift made mel launches {used} over {drift['total_frames']} frames, expected K1")
+
+    # 18c. VAD training at the JAX package's defaults on synthetic speech
+    rng = np.random.default_rng(181)
+    clips = [testing.vowel(int(16000 * (0.8 + 1.2 * rng.random())), rng) * (0.2 + 0.6 * rng.random())
+             for _ in range(VAD_CLIPS)]
+    init = vad_net.init_params(np.random.default_rng(0))
+    losses = {}
+    for name, where in (("card", dev), ("cpu", cpu)):
+        _, stamped = _run_recorded(vad_training, vad_training.train_vad, clips, steps=CHECK_STEPS, init_params=init,
+                                   device=where)
+        losses[name] = [v for _, v in stamped]
+    gap = _relative_gap(losses["card"], losses["cpu"])
+    print(f"train_vad, {CHECK_STEPS} steps, card vs CPU: losses {losses['card']} vs {losses['cpu']}, max relative "
+          f"gap {gap:.3e} (limit {CHECK_LOSS_RTOL})")
+    if not gap <= CHECK_LOSS_RTOL:
+        fail(f"VAD training on the card left the CPU's losses by {gap}")
+    t0 = time.perf_counter()
+    vad_params, stamped = _run_recorded(vad_training, vad_training.train_vad, clips, steps=VAD_STEPS,
+                                        init_params=init, device=dev)
+    wall = time.perf_counter() - t0
+    first, last = (np.mean([v for _, v in stamped[i]]) for i in (slice(0, 50), slice(-50, None)))
+    result = vad_training.evaluate_vad(vad_params, clips, thresholds=[0.5], device=dev)
+    print(f"train_vad: {VAD_STEPS} steps (batch 64, 20 frames, 2048 sequences) in {wall:.2f} s, "
+          f"{_steps_per_s(stamped):.1f} steps/s, mean loss of the first / last 50 steps {first:.4f} / {last:.4f}; "
+          f"evaluate_vad at 0.5: FAR {result['far'][0]:.4f}, FRR {result['frr'][0]:.4f} "
+          f"({result['n_nonspeech_frames']} / {result['n_speech_frames']} frames), on {card}")
+    if not (last < first and np.isfinite(result["far"]).all() and np.isfinite(result["frr"]).all()):
+        fail("VAD training did not lower its loss or evaluate_vad is not finite")
+
+    # 18d. verifier mining through the Model on the card against the CPU
+    pcm = np.round(testing.vowel(16000 * 3, rng) * 9000 + (rng.random(16000 * 3) * 2 - 1) * 800).astype(np.int16)
+    windows = {}
+    for name, where in (("card", dev), ("cpu", cpu)):
+        model = Model(wakeword_models=npz[:2], device=where, embedding_params=emb)
+        take_launches()
+        np.random.seed(18)
+        t0 = time.perf_counter()
+        windows[name] = custom_verifier_model.get_reference_clip_features(pcm, model, "alexa", threshold=0.0, N=3)
+        wall = time.perf_counter() - t0
+        used = take_launches()
+        print(f"verifier mining on the {name}: {windows[name].shape} windows from 3 s x 3 passes in "
+              f"{wall:.2f} s, mel launches {used}")
+        if name == "card" and set(used) != {"direct"}:
+            fail(f"mining on the card made mel launches {used}, expected K1 (direct)")
+    err = float(np.abs(windows["card"] - windows["cpu"]).max()) if windows["card"].shape == windows["cpu"].shape \
+        else float("inf")
+    print(f"verifier windows, card vs CPU: max |diff| {err:.3e} (limit {CNN_TOL})")
+    if not err <= CNN_TOL:
+        fail(f"mined windows on the card differ from the CPU's by {err}")
+    try:
+        import sklearn  # noqa: F401
+        w, b = custom_verifier_model.fold_verifier(custom_verifier_model.train_verifier_model(
+            np.concatenate([windows["card"], windows["cpu"] + 1.0]), np.repeat([1, 0], len(windows["cpu"]))))
+        print(f"verifier fit on this host: {w.shape} folded weights")
+    except ImportError:
+        try:
+            custom_verifier_model.train_verifier_model(windows["card"], np.ones(len(windows["card"])))
+            fail("train_verifier_model ran without scikit-learn")
+        except ImportError as e:
+            if "scikit-learn" not in str(e):
+                fail(f"train_verifier_model's ImportError does not name scikit-learn: {e}")
+        print("verifier fit: this host has no scikit-learn (train_verifier_model raises naming it); the fit is "
+              "scikit-learn's on the host and is tested on the CPU (tests/test_torch_verifier.py)")
+    return total
+
+
 def main():
     t_start = time.perf_counter()
     import torch
@@ -2017,6 +2291,9 @@ def main():
     mel_launches["direct_3pass"] += tflite_import(card)
     print(f"[{time.perf_counter() - t_start:.1f} s] phase 17")
     mel_launches["direct_3pass"] += training(card)
+    print(f"[{time.perf_counter() - t_start:.1f} s] phase 18")
+    for k, n in f2(card).items():
+        mel_launches[k] = mel_launches.get(k, 0) + n
 
     # no single PyTorch call computes any of these functions (a mel frontend or a
     # 20-conv step is several calls), so library_ms is null throughout

@@ -1,11 +1,13 @@
-"""Reader of the ONNX protobuf format, numpy only (the parser half of
-``openwakeword_tpu.io.onnx_proto``, copied: the port imports nothing of the
-JAX package).
+"""Reader and writer of the ONNX protobuf format, numpy only (a copy of
+``openwakeword_tpu.io.onnx_proto``: the port imports nothing of the JAX
+package).
 
 No ``onnx`` or ``onnxruntime`` package is needed: this module decodes the
 protobuf wire format directly for the ONNX message subset the importers
 read (``load_onnx`` -> ``{"graph": ..., "opset": ...}`` with nodes,
-initializers as numpy arrays, value infos and nested ``If`` graphs).
+initializers as numpy arrays, value infos and nested ``If`` graphs), and
+encodes the subset the exporters write (``encode_*``). The encoding is
+deterministic: the same nodes, names and arrays give the same bytes.
 
 Wire format: each field is a (tag = field_number << 3 | wire_type, payload)
 pair; wire types used here are 0 (varint), 1 (64-bit), 2 (length-delimited),
@@ -30,6 +32,17 @@ def _read_varint(buf: memoryview, pos: int):
         if not b & 0x80:
             return result, pos
         shift += 7
+
+
+def _write_varint(out: bytearray, value: int):
+    while True:
+        b = value & 0x7F
+        value >>= 7
+        if value:
+            out.append(b | 0x80)
+        else:
+            out.append(b)
+            return
 
 
 def parse_message(data) -> Dict[int, List[Any]]:
@@ -221,3 +234,137 @@ def load_onnx(path: str) -> Dict:
         if 2 in oi:
             opset = max(opset, oi[2][0])
     return {"graph": decode_graph(f[7][0]), "opset": opset}
+
+
+# --- ONNX message encoding ---------------------------------------------------
+
+
+def _tag(out: bytearray, field: int, wire: int):
+    _write_varint(out, (field << 3) | wire)
+
+
+def _put_bytes(out: bytearray, field: int, data: bytes):
+    _tag(out, field, 2)
+    _write_varint(out, len(data))
+    out.extend(data)
+
+
+def _put_str(out: bytearray, field: int, s: str):
+    _put_bytes(out, field, s.encode())
+
+
+def _put_varint(out: bytearray, field: int, v: int):
+    _tag(out, field, 0)
+    _write_varint(out, v & ((1 << 64) - 1) if v < 0 else v)
+
+
+def encode_tensor(name: str, arr: np.ndarray) -> bytes:
+    out = bytearray()
+    arr = np.asarray(arr)
+    code = {np.dtype(np.float32): TP_FLOAT, np.dtype(np.int64): TP_INT64,
+            np.dtype(np.int32): TP_INT32, np.dtype(np.float64): TP_DOUBLE,
+            np.dtype(np.bool_): TP_BOOL, np.dtype(np.uint8): TP_UINT8,
+            np.dtype(np.int8): TP_INT8}[arr.dtype]
+    for d in arr.shape:
+        _put_varint(out, 1, d)
+    _put_varint(out, 2, code)
+    _put_str(out, 8, name)
+    _put_bytes(out, 9, arr.tobytes())
+    return bytes(out)
+
+
+def encode_attribute(name: str, value) -> bytes:
+    out = bytearray()
+    _put_str(out, 1, name)
+    if isinstance(value, float):
+        _tag(out, 2, 5)
+        out.extend(struct.pack("<f", value))
+        _put_varint(out, 20, 1)   # type FLOAT
+    elif isinstance(value, int):
+        _put_varint(out, 3, value)
+        _put_varint(out, 20, 2)   # type INT
+    elif isinstance(value, (list, tuple)) and all(isinstance(v, int) for v in value):
+        for v in value:
+            _put_varint(out, 8, v)
+        _put_varint(out, 20, 7)   # type INTS
+    elif isinstance(value, (list, tuple)) and all(isinstance(v, (str, bytes)) for v in value):
+        for v in value:
+            _put_bytes(out, 9, v.encode() if isinstance(v, str) else v)
+        _put_varint(out, 20, 8)   # type STRINGS (e.g. LSTM activations)
+    elif isinstance(value, np.ndarray):
+        _put_bytes(out, 5, encode_tensor(name + "_value", value))
+        _put_varint(out, 20, 4)   # type TENSOR
+    elif isinstance(value, str):
+        _put_bytes(out, 4, value.encode())
+        _put_varint(out, 20, 3)   # type STRING
+    else:
+        raise ValueError(f"Unsupported attribute value for '{name}': {value!r}")
+    return bytes(out)
+
+
+def encode_node(op_type: str, inputs: List[str], outputs: List[str],
+                name: str = "", **attrs) -> bytes:
+    out = bytearray()
+    for i in inputs:
+        _put_str(out, 1, i)
+    for o in outputs:
+        _put_str(out, 2, o)
+    if name:
+        _put_str(out, 3, name)
+    _put_str(out, 4, op_type)
+    for k, v in attrs.items():
+        _put_bytes(out, 5, encode_attribute(k, v))
+    return bytes(out)
+
+
+def encode_value_info(name: str, shape, elem_type: int = TP_FLOAT) -> bytes:
+    dims = bytearray()
+    for d in shape:
+        dim = bytearray()
+        if isinstance(d, str):
+            _put_str(dim, 2, d)
+        else:
+            _put_varint(dim, 1, int(d))
+        _put_bytes(dims, 1, bytes(dim))
+    ttype = bytearray()
+    _put_varint(ttype, 1, elem_type)
+    _put_bytes(ttype, 2, bytes(dims))
+    tp = bytearray()
+    _put_bytes(tp, 1, bytes(ttype))
+    out = bytearray()
+    _put_str(out, 1, name)
+    _put_bytes(out, 2, bytes(tp))
+    return bytes(out)
+
+
+def encode_graph(nodes: List[bytes], initializers: List[bytes],
+                 inputs: List[bytes], outputs: List[bytes],
+                 graph_name: str = "openwakeword_tpu") -> bytes:
+    graph = bytearray()
+    for n in nodes:
+        _put_bytes(graph, 1, n)
+    _put_str(graph, 2, graph_name)
+    for t in initializers:
+        _put_bytes(graph, 5, t)
+    for vi in inputs:
+        _put_bytes(graph, 11, vi)
+    for vi in outputs:
+        _put_bytes(graph, 12, vi)
+    return bytes(graph)
+
+
+def encode_model(nodes: List[bytes], initializers: List[bytes],
+                 inputs: List[bytes], outputs: List[bytes],
+                 graph_name: str = "openwakeword_tpu", opset: int = 13,
+                 producer: str = "openwakeword_tpu") -> bytes:
+    """A ModelProto (IR version 8, one opset import). The graph and producer
+    names stay the JAX package's, so both packages write the same bytes."""
+    opset_imp = bytearray()
+    _put_varint(opset_imp, 2, opset)
+
+    model = bytearray()
+    _put_varint(model, 1, 8)           # ir_version
+    _put_str(model, 2, producer)       # producer_name
+    _put_bytes(model, 7, encode_graph(nodes, initializers, inputs, outputs, graph_name))
+    _put_bytes(model, 8, bytes(opset_imp))
+    return bytes(model)

@@ -39,6 +39,13 @@ JAX package's features of ``train_inputs``' clips on the golden embedding
 weights, a JAX ``HeadTrainer``'s init at full width (``dnn``, width 128,
 (16, 96) windows) with its step-by-step stats over ``train_inputs``'
 batches, and its predictions on the held-out windows after them.
+
+The export fixture (``tests/fixtures/torch_export_sha256.json``) holds the
+sha256 of each ONNX artifact the JAX package's exporter writes from
+``export_params`` (``write_onnx_artifacts``): the six bench heads, an
+``rnn`` head, the embedding, the mel frontend in both ``apply_transform``
+modes and the VAD network at two frame lengths. The port's exporter must
+write the same bytes.
 """
 
 import contextlib
@@ -617,3 +624,50 @@ def load_train_golden(path: str = TRAIN_FIXTURE) -> Dict:
                         "n_blocks": 1}
     data["init"] = init
     return data
+
+
+EXPORT_FIXTURE = os.path.join(_FIXTURES, "torch_export_sha256.json")
+EXPORT_SEED = 20267
+EXPORT_VAD_FRAMES = (480, 640)
+
+
+def export_params(seed: int = EXPORT_SEED) -> Dict:
+    """Numpy params (checkpoint layout) of the exported artifacts: the golden
+    heads and embedding plus a seeded ``rnn`` head and VAD network."""
+    from openwakeword_tpu_torch.models import vad_net
+    inputs = golden_inputs()
+    rng = np.random.default_rng(seed)
+    return {"heads": {**inputs["heads"], "rnn": heads_lib.init_params(rng, "rnn")},
+            "embedding": inputs["embedding"], "vad": vad_net.init_params(rng)}
+
+
+def port_export_params(params: Dict, device="cpu") -> Dict:
+    """``export_params`` output as the port's tensors on ``device``."""
+    from openwakeword_tpu_torch import convert
+    return {"heads": {n: convert.head_from_jax(p, device) for n, p in params["heads"].items()},
+            "embedding": convert.embedding_from_jax(params["embedding"], device),
+            "vad": convert.vad_from_jax(params["vad"], device)}
+
+
+def write_onnx_artifacts(exporter, params: Dict, directory: str) -> Dict[str, str]:
+    """Every ONNX artifact written by ``exporter`` (either package's
+    ``io.onnx_export``) from ``params`` in that package's layout; returns
+    {artifact name: path}."""
+    paths = {name: os.path.join(directory, f"{name}.onnx") for name in params["heads"]}
+    for name, p in params["heads"].items():
+        exporter.export_head_onnx(p, paths[name])
+    paths["embedding"] = os.path.join(directory, "embedding_model.onnx")
+    exporter.export_embedding_onnx(params["embedding"], paths["embedding"])
+    for transform in (False, True):
+        name = "melspectrogram_transformed" if transform else "melspectrogram"
+        paths[name] = os.path.join(directory, f"{name}.onnx")
+        exporter.export_melspectrogram_onnx(paths[name], apply_transform=transform)
+    for frames in EXPORT_VAD_FRAMES:
+        paths[f"vad_{frames}"] = os.path.join(directory, f"vad_{frames}.onnx")
+        exporter.export_vad_onnx(params["vad"], paths[f"vad_{frames}"], frame_samples=frames)
+    return paths
+
+
+def sha256_file(path: str) -> str:
+    with open(path, "rb") as f:
+        return hashlib.sha256(f.read()).hexdigest()

@@ -3,23 +3,24 @@
 
 Mirrors the reference's ``python train.py --training_config cfg.yml`` flow
 (reference train.py:596-910): synthetic TTS clip generation (through the
-external piper-sample-generator), augmentation -> feature memmaps, and the
-auto-trained classifier head, written as a native ``.npz``. Every stage is
+external piper-sample-generator), student distillation, augmentation ->
+feature memmaps, the auto-trained classifier head, written as a native
+``.npz``, and its export as ``.onnx`` and ``.tflite``. Every stage is
 resumable: clip generation skips when >= 95% of the target count exists;
-features are only recomputed with --overwrite.
+distillation skips when the student checkpoint exists and features are only
+recomputed with --overwrite.
 
-The config key ``device`` (default "cuda") places the augmentation, the
-feature pre-compute and the trainer; "cuda" raises without CUDA. The
-exporters (--export_onnx, --convert_to_tflite) and --distill_student wait
-for slice F2 of the port and are refused before any stage runs.
+The config key ``device`` (default "cuda") places distillation, the
+augmentation, the feature pre-compute and the trainer; "cuda" raises
+without CUDA.
 
 Usage:
     python -m openwakeword_tpu_torch.train_cli --training_config my_model.yml \\
-        --augment_clips --train_model
+        --augment_clips --train_model --export_onnx
 
 The stages are also functions (``prepare``, ``generate_clips``,
-``augment_stage``, ``train_stage``) that take the config as a dict, for
-hosts without pyyaml.
+``distill_stage``, ``augment_stage``, ``train_stage``, ``export_stage``)
+that take the config as a dict, for hosts without pyyaml.
 """
 
 import argparse
@@ -36,10 +37,6 @@ import numpy as np
 from openwakeword_tpu_torch.data import augment_clips, generate_adversarial_texts, mmap_batch_generator
 from openwakeword_tpu_torch.features import compute_features_from_generator
 from openwakeword_tpu_torch.training.trainer import HeadTrainer
-
-F2_STAGES = {"export_onnx": "--export_onnx", "convert_to_tflite": "--convert_to_tflite",
-             "distill_student": "--distill_student"}
-
 
 def _load_config(path):
     import yaml
@@ -61,14 +58,6 @@ def _generate_clip_set(generate_samples, texts, n_target, output_dir, batch_size
         length_scales=list(length_scales), output_dir=output_dir,
         auto_reduce_batch_size=True,
         file_names=[uuid.uuid4().hex + ".wav" for _ in range(n_target)])
-
-
-def refuse_f2(stages) -> None:
-    """Raise before any stage runs when one waits for slice F2."""
-    asked = [flag for name, flag in F2_STAGES.items() if name in stages]
-    if asked:
-        raise NotImplementedError(f"{', '.join(asked)} wait for slice F2 of the port (the ONNX/TFLite exporters "
-                                  "and student distillation); the port writes the trained head as a native .npz")
 
 
 def prepare(config: dict) -> dict:
@@ -109,6 +98,28 @@ def prepare(config: dict) -> dict:
     paths["student"] = (config.get("student_checkpoint_path")
                         or registry.FEATURE_MODELS["embedding_student"]["model_path"])
     return paths
+
+
+def distill_stage(config: dict, paths: dict, overwrite: bool = False) -> None:
+    """Distill the student embedding against the installed teacher into
+    ``paths["student"]`` (config key ``student_checkpoint_path``, else the
+    registry's path), with the generated positive clips mixed into its
+    data; skipped when that checkpoint exists unless ``overwrite``."""
+    student_path = paths["student"]
+    if os.path.exists(student_path) and not overwrite:
+        logging.warning("Student checkpoint already exists at %s; skipping "
+                        "distillation (use --overwrite to redo)", student_path)
+        return
+    from openwakeword_tpu_torch.training.distill import distill_default_student
+    # the deployment's own speech in the distillation data
+    speech_wavs = [str(i) for i in Path(paths["positive_train"]).glob("*.wav")][:256]
+    _, report = distill_default_student(
+        student_path, speech_wavs=speech_wavs or None,
+        steps=int(config.get("distill_steps", 3000)),
+        batch_size=int(config.get("distill_batch_size", 256)),
+        seed=paths["seed"] if paths["seed"] is not None else 0,
+        device=config["device"])
+    logging.info("Student distilled (drift report: %s)", report)
 
 
 def auto_size(config: dict, paths: dict) -> None:
@@ -290,6 +301,23 @@ def train_stage(config: dict, paths: dict) -> str:
     return out
 
 
+def export_stage(config: dict, onnx: bool = True, tflite: bool = False) -> None:
+    """Write the trained ``<output_dir>/<model_name>.npz`` head as
+    ``.onnx`` and / or ``.tflite`` beside it, its output named after the
+    model."""
+    from openwakeword_tpu_torch.io.checkpoints import load_checkpoint
+    base = os.path.join(config["output_dir"], config["model_name"])
+    _, params, _ = load_checkpoint(base + ".npz")
+    if onnx:
+        from openwakeword_tpu_torch.io.onnx_export import export_head_onnx
+        export_head_onnx(params, base + ".onnx", output_name=config["model_name"])
+    if tflite:
+        # every trainable family exports (dnn/mlp FC chains, rnn through
+        # UNIDIRECTIONAL_SEQUENCE_LSTM), as the reference converts any head
+        from openwakeword_tpu_torch.io.tflite_export import export_head_tflite
+        export_head_tflite(params, base + ".tflite", output_name=config["model_name"])
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--training_config", type=str, required=True,
@@ -301,25 +329,30 @@ def main(argv=None):
     parser.add_argument("--overwrite", action="store_true",
                         help="Recompute features even if they exist")
     parser.add_argument("--distill_student", action="store_true",
-                        help="Distill the student embedding (waits for slice F2 of the port)")
+                        help="Distill the student embedding against the installed teacher and "
+                             "save it to the student checkpoint path (skipped if it exists "
+                             "unless --overwrite)")
     parser.add_argument("--train_model", action="store_true",
                         help="Train the classifier head (auto-train schedule)")
     parser.add_argument("--export_onnx", action="store_true",
-                        help="Also export the trained model as ONNX (waits for slice F2 of the port)")
+                        help="Also export the trained model as ONNX")
     parser.add_argument("--convert_to_tflite", action="store_true",
-                        help="Also export the trained model as TFLite (waits for slice F2 of the port)")
+                        help="Also export the trained model as TFLite")
     args = parser.parse_args(argv)
-    refuse_f2([name for name in F2_STAGES if getattr(args, name)])
 
     config = _load_config(args.training_config)
     paths = prepare(config)
     if args.generate_clips:
         generate_clips(config, paths)
+    if args.distill_student:
+        distill_stage(config, paths, overwrite=args.overwrite)
     auto_size(config, paths)
     if args.augment_clips:
         augment_stage(config, paths, overwrite=args.overwrite)
     if args.train_model:
         train_stage(config, paths)
+        if args.export_onnx or args.convert_to_tflite:
+            export_stage(config, onnx=args.export_onnx, tflite=args.convert_to_tflite)
 
 
 if __name__ == "__main__":

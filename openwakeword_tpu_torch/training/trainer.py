@@ -649,15 +649,21 @@ class HeadTrainer:
         self.best_val_recall = state["best_val_recall"]
 
     def export_model(self, model, model_name: str, output_dir: str):
-        """Write the head as a native checkpoint. The ONNX half waits for the
-        exporters (slice F2), so only the ``.npz`` is written."""
+        """Write the head as a native ``.npz`` checkpoint and an ``.onnx``
+        file (``io.onnx_export``); a head family the exporter lacks gets the
+        ``.npz`` only, with a warning."""
         self.save_model(os.path.join(output_dir, model_name + ".npz"), model=model)
-        logging.warning("ONNX export unavailable; native checkpoint saved only.")
+        try:
+            from openwakeword_tpu_torch.io.onnx_export import export_head_onnx
+            export_head_onnx(self._checkpoint_tree(model), os.path.join(output_dir, model_name + ".onnx"))
+        except NotImplementedError:
+            logging.warning("ONNX export unavailable; native checkpoint saved only.")
 
     def export_to_onnx(self, output_path: str, class_mapping: str = ""):
-        """ONNX export waits for the exporters (ROADMAP.md, queue 1, slice F2)."""
-        raise NotImplementedError("HeadTrainer.export_to_onnx waits for slice F2 (the ONNX/TFLite exporters) "
-                                  "of the port; save_model writes the native .npz")
+        """Write this head as a standalone ``.onnx`` file; ``class_mapping``
+        names the graph's output tensor, as in the reference."""
+        from openwakeword_tpu_torch.io.onnx_export import export_head_onnx
+        export_head_onnx(self._checkpoint_tree(None), output_path, output_name=class_mapping)
 
     def lr_warmup_cosine_decay(self, global_step, warmup_steps=0, hold=0,
                                total_steps=0, start_lr=0.0, target_lr=1e-3):

@@ -1,6 +1,8 @@
 """Static checks on the PyTorch port's sources: they parse, keep to the
-repo's 120-column limit, import neither jax nor the JAX package, and import
-triton only inside functions, so every module imports where triton is absent."""
+repo's 120-column limit, import neither jax nor the JAX package (nor the
+``onnx`` and ``flatbuffers`` packages, which the card host lacks: the port
+reads and writes both formats itself), and import triton only inside
+functions, so every module imports where triton is absent."""
 
 import ast
 import os
@@ -30,6 +32,7 @@ def test_port_source_static(path):
     assert not long_lines, f"lines over {MAX_LINE} chars: {long_lines}"
     for module, node in _imported_modules(tree):
         root = module.split(".")[0]
-        assert root not in ("jax", "jaxlib", "openwakeword_tpu"), f"line {node.lineno} imports {module}"
+        assert root not in ("jax", "jaxlib", "openwakeword_tpu", "onnx", "flatbuffers"), \
+            f"line {node.lineno} imports {module}"
         if root == "triton":
             assert node not in tree.body, f"line {node.lineno}: triton imported at module level"

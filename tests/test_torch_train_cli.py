@@ -144,13 +144,35 @@ def test_augment_and_train(training_setup, caplog):
 
 
 @pytest.mark.parametrize("flag", ["--export_onnx", "--convert_to_tflite", "--distill_student"])
-def test_f2_stages_fail_before_any_stage(training_setup, flag):
+def test_f2_stages_fail_before_any_stage(training_setup, flag, caplog):
+    """The stages the port once refused now run: the exports write the
+    trained head beside its ``.npz`` (the same scores in ``Model``), and
+    ``--distill_student`` writes the student checkpoint at
+    ``student_checkpoint_path`` and skips it on a second run."""
+    from openwakeword_tpu_torch import Model
+    from openwakeword_tpu_torch.io.loaders import load_model_file
     from openwakeword_tpu_torch.train_cli import main
     cfg_path, cfg = training_setup
-    before = sorted(os.listdir(os.path.join(cfg["output_dir"], "tiny_model")))
-    with pytest.raises(NotImplementedError, match="F2"):
-        main(["--training_config", cfg_path, "--augment_clips", "--train_model", flag])
-    assert sorted(os.listdir(os.path.join(cfg["output_dir"], "tiny_model"))) == before
+    if flag == "--distill_student":
+        student = os.path.join(cfg["output_dir"], "student.npz")
+        cfg.update(student_checkpoint_path=student, distill_steps=2, distill_batch_size=8)
+        with open(cfg_path, "w") as f:
+            yaml.safe_dump(cfg, f)
+        main(["--training_config", cfg_path, flag])
+        kind, params, meta = load_model_file(student)
+        assert kind == "embedding_student" and meta["distilled"] and "served_score_drift" in meta["drift"]
+        with caplog.at_level(logging.WARNING):
+            main(["--training_config", cfg_path, flag])
+        assert any("Student checkpoint already exists" in r.message for r in caplog.records)
+        return
+    main(["--training_config", cfg_path, "--augment_clips", "--train_model", flag])
+    base = os.path.join(cfg["output_dir"], "tiny_model")
+    ext = ".onnx" if flag == "--export_onnx" else ".tflite"
+    assert os.path.exists(base + ext) and not os.path.exists(base + (".tflite" if ext == ".onnx" else ".onnx"))
+    pcm = np.random.default_rng(0).integers(-1000, 1000, 1280 * 6).astype(np.int16)
+    want = [p["tiny_model"] for p in Model(wakeword_models=[base + ".npz"], device="cpu").predict_clip(pcm)]
+    got = [p["tiny_model"] for p in Model(wakeword_models=[base + ext], device="cpu").predict_clip(pcm)]
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
 
 
 def test_generate_clips_needs_the_external_generator(training_setup):

@@ -191,26 +191,32 @@ def test_average_select_predict_and_state(tmp_path):
 
 
 def test_checkpoints_and_refusals(tmp_path, caplog):
-    """The saved ``.npz`` loads in the JAX package with the same scores;
-    the exporters wait for slice F2 and data parallelism for slice G."""
+    """The saved ``.npz`` loads in the JAX package with the same scores; the
+    exports (``export_model``'s ``.onnx``, ``export_to_onnx``,
+    ``train.convert_onnx_to_tflite``) load in the JAX package with the same
+    scores too; data parallelism waits for slice G."""
     from openwakeword_tpu.io.loaders import load_model_file
     from openwakeword_tpu.models import heads as jax_heads
     t = TT.HeadTrainer(layer_dim=16, seed=4, device="cpu")
     x = _batches(12, 1, 8)[0][0]
     with caplog.at_level(logging.WARNING):
         t.export_model(None, "head", str(tmp_path))
-    assert any("ONNX export unavailable" in r.message for r in caplog.records)
-    kind, params, _ = load_model_file(str(tmp_path / "head.npz"))
-    assert kind == "head"
-    np.testing.assert_allclose(np.asarray(jax_heads.apply(params, jnp.asarray(x))), t.forward(x), atol=1e-6)
+    assert not any("ONNX export unavailable" in r.message for r in caplog.records)
+    for name in ("head.npz", "head.onnx"):
+        kind, params, _ = load_model_file(str(tmp_path / name))
+        assert kind == "head"
+        np.testing.assert_allclose(np.asarray(jax_heads.apply(params, jnp.asarray(x))), t.forward(x), atol=1e-6)
     t.save_model(str(tmp_path / "tagged.npz"), meta={"embedding": "student"})
     assert load_model_file(str(tmp_path / "tagged.npz"))[2]["embedding"] == "student"
     assert os.path.exists(str(tmp_path / "tagged.npz"))
-    with pytest.raises(NotImplementedError, match="F2"):
-        t.export_to_onnx(str(tmp_path / "head.onnx"))
+    t.export_to_onnx(str(tmp_path / "named.onnx"), class_mapping="wake")
+    from openwakeword_tpu.io import onnx_proto
+    assert onnx_proto.load_onnx(str(tmp_path / "named.onnx"))["graph"]["outputs"][0]["name"] == "wake"
     with pytest.raises(NotImplementedError, match="slice G"):
         TT.HeadTrainer(mesh=object(), device="cpu")
     from openwakeword_tpu_torch import train
     assert train.Model is TT.HeadTrainer and train.lr_warmup_cosine_decay is TT.lr_warmup_cosine_decay
-    with pytest.raises(NotImplementedError, match="F2"):
-        train.convert_onnx_to_tflite("a.onnx", "b.tflite")
+    train.convert_onnx_to_tflite(str(tmp_path / "head.onnx"), str(tmp_path / "head.tflite"))
+    kind, params, _ = load_model_file(str(tmp_path / "head.tflite"))
+    assert kind == "head"
+    np.testing.assert_allclose(np.asarray(jax_heads.apply(params, jnp.asarray(x))), t.forward(x), atol=1e-6)

@@ -173,3 +173,114 @@ def test_engine_with_pickled_verifier_matches_jax(golden, pipeline_path):
     cols = [te.labels.index("alexa"), te.labels.index("hey_jarvis")]
     changed = got != base
     assert changed[..., cols].any() and not changed[..., [i for i in range(11) if i not in cols]].any()
+
+
+# -- training (slice F2): mining, fitting, pickles ----------------------------
+
+def _reference_clips(tmp_path, n=3):
+    """Seeded int16 clips (vowels over noise) written as WAVs."""
+    from openwakeword_tpu_torch import data
+    rng = np.random.default_rng(31)
+    paths = []
+    for i in range(n):
+        samples = 16000 * 2 + 4000 * i
+        pcm = testing.vowel(samples, rng) * 9000 + (rng.random(samples) * 2 - 1) * 800
+        paths.append(str(tmp_path / f"ref{i}.wav"))
+        data.write_audio(paths[-1], np.round(pcm).astype(np.int16))
+    return paths
+
+
+def _models(golden, **kw):
+    inputs, paths = golden
+    jm = JaxModel(wakeword_models=paths[:2], embedding_params=jax.tree.map(jnp.asarray, inputs["embedding"]), **kw)
+    tm = Model(wakeword_models=paths[:2], device="cpu",
+               embedding_params=convert.embedding_from_jax(inputs["embedding"]), **kw)
+    return jm, tm
+
+
+@pytest.mark.parametrize("threshold, n_passes", [(0.0, 3), (0.0, 1), (0.2, 2)])
+def test_mined_windows_equal_jax(golden, tmp_path, threshold, n_passes):
+    """The same clip, numpy seed and threshold: the same windows within 1e-5
+    of their peak (the embeddings reach ~6 and the two packages' CNNs sum
+    in other orders: ~2e-5 apart in absolute terms)."""
+    clip = _reference_clips(tmp_path, 1)[0]
+    jm, tm = _models(golden)
+    np.random.seed(11)
+    want = jax_cvm.get_reference_clip_features(clip, jm, "alexa", threshold=threshold, N=n_passes)
+    np.random.seed(11)
+    got = custom_verifier_model.get_reference_clip_features(clip, tm, "alexa", threshold=threshold, N=n_passes)
+    assert got.shape == want.shape and got.dtype == np.float32
+    assert got.shape[0] > 0
+    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL * np.abs(want).max())
+
+
+def test_fit_folds_as_jax(golden):
+    """The port's fit on the JAX package's windows is the JAX fit."""
+    x, y = _features(np.random.default_rng(19), 50)
+    port = custom_verifier_model.train_verifier_model(x, y)
+    w, b = custom_verifier_model.fold_verifier(port)
+    jw, jb = jax_cvm.fold_verifier(jax_cvm.train_verifier_model(x, y))
+    np.testing.assert_array_equal(w, jw)
+    assert b == jb
+
+
+def _mine_all(module, monkeypatch):
+    """Mine every frame (threshold 0): the random heads' scores need not
+    reach the positives' 0.5."""
+    orig = module.get_reference_clip_features
+    monkeypatch.setattr(module, "get_reference_clip_features",
+                        lambda clip, m, name, threshold=0.5, N=3, **kw: orig(clip, m, name, threshold=0.0, N=N, **kw))
+
+
+def test_train_custom_verifier_matches_jax(golden, tmp_path, monkeypatch):
+    """End to end in both packages: the folded verifiers agree, and each
+    package's pickle loads in the other's ``Model`` with the same scores."""
+    inputs, paths = golden
+    clips = _reference_clips(tmp_path)
+    _mine_all(jax_cvm, monkeypatch)
+    _mine_all(custom_verifier_model, monkeypatch)
+    port_path, jax_path = str(tmp_path / "port.pkl"), str(tmp_path / "jax.pkl")
+    np.random.seed(12)
+    jax_cvm.train_custom_verifier(clips[:2], clips[2:], jax_path, paths[0],
+                                  embedding_params=jax.tree.map(jnp.asarray, inputs["embedding"]))
+    np.random.seed(12)
+    from openwakeword_tpu_torch import train_custom_verifier
+    train_custom_verifier(clips[:2], clips[2:], port_path, paths[0], device="cpu",
+                          embedding_params=convert.embedding_from_jax(inputs["embedding"]))
+    with open(jax_path, "rb") as f:
+        jw, jb = jax_cvm.fold_verifier(pickle.load(f))
+    with open(port_path, "rb") as f:
+        port_pipe = pickle.load(f)           # a plain load: the JAX package's names
+    w, b = custom_verifier_model.fold_verifier(port_pipe)
+    scale = np.abs(jw).max()
+    np.testing.assert_allclose(w, jw, rtol=0, atol=1e-3 * scale)
+    assert abs(b - jb) <= 1e-3 * max(1.0, abs(jb))
+    kw = dict(custom_verifier_threshold=0.0)
+    for path in (port_path, jax_path):
+        jm, tm = _models(golden, custom_verifier_models={"alexa": path}, **kw)
+        packets = testing.model_packets()[:24]
+        np.testing.assert_allclose(testing.run_model_golden(tm, packets), testing.run_model_golden(jm, packets),
+                                   rtol=0, atol=ATOL)
+
+
+def test_port_pickle_loads_without_torch(tmp_path):
+    """A port-written pickle names the JAX package's module: a plain
+    ``pickle.load`` in a fresh interpreter loads it without torch."""
+    x, y = _features(np.random.default_rng(20), 40)
+    pipe = custom_verifier_model.train_verifier_model(x, y)
+    path = str(tmp_path / "verifier.pkl")
+    custom_verifier_model.save_verifier(pipe, path)
+    with open(path, "rb") as f:
+        assert b"openwakeword_tpu.custom_verifier_model" in f.read()
+    code = ("import pickle, sys, numpy as np; "
+            f"p = pickle.load(open({path!r}, 'rb')); "
+            "x = np.random.default_rng(0).standard_normal((3, 16, 96)).astype(np.float32); "
+            "assert p.predict_proba(x).shape == (3, 2); "
+            "assert p.named_steps['functiontransformer'].func.__module__ == 'openwakeword_tpu.custom_verifier_model'; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in ('torch', 'openwakeword_tpu_torch')]; "
+            "assert not bad, bad")
+    env = {**os.environ, "JAX_PLATFORMS": "cpu"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    np.testing.assert_array_equal(custom_verifier_model.load_verifier(path).predict_proba(x), pipe.predict_proba(x))
