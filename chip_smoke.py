@@ -191,7 +191,31 @@ Phases, each of which exits nonzero on failure:
    d. verifier mining (``get_reference_clip_features``) through the
       ``Model`` on the card against the CPU, windows within 1e-4, K1
       launches only; the scikit-learn fit is tested on the CPU (tier-1) where
-      this host lacks scikit-learn, which ``train_verifier_model`` names.
+      this host lacks scikit-learn, which ``train_verifier_model`` names;
+19. slice G (stream sharding over a ``parallel.mesh.Mesh``, data-parallel
+   training) on a 4-entry mesh: cuda:0..3 when the host has four cards,
+   else 4 x cuda:0 (the shards share one card; printed):
+   a. the bench configuration at 'high', S=4096 (1024 per shard), 10
+      frames through ``predict`` and 10 through ``predict_frames``: scores
+      within 1e-5 of the unsharded engine on the same weights, finite in
+      [0, 1]; K1-3pass launches 4 per step (once per shard) and no other
+      variant; every state leaf of each shard holds 1024 rows on its entry's
+      device; ``save_state`` from the mesh, ``load_state`` into the
+      unsharded engine, one more step: within 1e-5; then the step ms of
+      both engines, timed in turns;
+   b. two ``StreamServer(capacity=4096)``, on the mesh and not, 50 ticks of
+      ``push_block`` with 1% churn, the first 25 through ``step()``, the
+      rest through ``step_async()``: scores within 1e-5, equal valid masks
+      and activations (scores within 1e-5 of the threshold left out), 4
+      K1-3pass launches per tick on the mesh; ms per tick of both;
+   c. ``HeadTrainer`` on a 2-entry mesh against one device, batch 1024,
+      40 steps: params within 5e-5, the update gate and survivor counts
+      equal; steps/s of both, the better of two runs in turns;
+   d. ``parallel.multichip.dryrun_multichip(4, "cuda")``: one
+      data-parallel step, the sharded step with the VAD gate, the packet
+      path, the structural shard check, scores within 1e-5 of the
+      unsharded engine, and the weak-scaling walls (the efficiency asserted
+      only with one card per entry).
 
 The 1-pass bf16 variants of the four kernels run beside their fp32 ones.
 Phase 3 holds K1-1pass and K2-1pass against their plain versions within
@@ -299,6 +323,16 @@ CHECK_STEPS = 3            # steps run on the card and on the CPU from the same 
 CHECK_LOSS_RTOL = 1e-4
 VAD_CLIPS = 16
 VAD_STEPS = 600            # training/vad.py's default (batch 64, 20 frames, 2048 sequences)
+# phase 19, slice G (stream sharding, data-parallel training)
+MESH_ENTRIES = 4
+SHARD_FRAMES = 10
+SHARD_TOL = 1e-5           # streams are independent: a shard scores each row as the whole engine does
+SHARD_TICKS = 50
+SHARD_THRESHOLD = 0.66     # random heads score noise up to ~0.68: a few activations per tick
+DP_ENTRIES = 2
+DP_BATCH = 1024
+DP_STEPS = 40
+DP_PARAM_TOL = 5e-5        # the JAX mesh trainer test's tolerance (tests/test_trainer.py)
 
 
 def fail(msg: str):
@@ -1785,6 +1819,174 @@ def f2(card: str) -> dict:
     return total
 
 
+def slice_g(card: str) -> int:
+    """Phase 19, slice G on the card (19a the sharded engine, 19b the
+    sharded server, 19c data-parallel training, 19d the multi-device dry
+    run); returns K1-3pass's launches on the sharded main path (19a's and
+    19b's mesh runs)."""
+    import torch
+    from openwakeword_tpu_torch import testing
+    from openwakeword_tpu_torch.ops import melspec_cuda
+    from openwakeword_tpu_torch.parallel import Mesh, MultiStreamEngine, StreamServer
+    from openwakeword_tpu_torch.parallel.multichip import dryrun_multichip, mesh_devices
+    from openwakeword_tpu_torch.training import trainer as T
+    launches = melspec_cuda.melspectrogram_frames.launches
+    devs = mesh_devices(MESH_ENTRIES, "cuda")
+    distinct = len(set(devs)) == MESH_ENTRIES
+    print(f"slice G: a {MESH_ENTRIES}-entry mesh on {', '.join(str(d) for d in devs)} "
+          f"({'one card per entry' if distinct else 'repeated entries: the shards share one card'}; "
+          f"{torch.cuda.device_count()} card(s)), on {card}")
+    mesh = Mesh(devs)
+    S, F = SCALE_STREAMS, SHARD_FRAMES
+    rng = np.random.default_rng(19)
+    total = 0
+
+    def take(what: str, expect: int) -> int:
+        used = {k: v for k, v in launches.items() if v}
+        if used != {"direct_3pass": expect}:
+            fail(f"{what} made mel launches {used}, expected {expect} of direct_3pass "
+                 f"({MESH_ENTRIES} per sharded step)")
+        return expect
+
+    # 19a. the bench configuration, sharded against unsharded on the same weights
+    t_phase = time.perf_counter()
+    pcm = rng.integers(-2000, 2000, (2 * F + 1, S, 1280), dtype=np.int16)
+    sharded = MultiStreamEngine(n_streams=S, mesh=mesh)
+    whole = MultiStreamEngine(n_streams=S, device=devs[0])
+    for k in launches:
+        launches[k] = 0
+    got = np.concatenate([np.stack([sharded.predict(pcm[t]) for t in range(F)]),
+                          sharded.predict_frames(pcm[F:2 * F])])
+    total += take("the sharded engine (predict, predict_frames)", MESH_ENTRIES * 2 * F)
+    want = np.concatenate([np.stack([whole.predict(pcm[t]) for t in range(F)]), whole.predict_frames(pcm[F:2 * F])])
+    err = float(np.abs(got - want).max())
+    if got.shape != (2 * F, S, 11) or not (np.isfinite(got).all() and got.min() >= 0.0 and got.max() <= 1.0):
+        fail(f"sharded scores are not finite values in [0, 1] of shape {(2 * F, S, 11)}: {got.shape}")
+    n_leaves = 0
+    for k, st in enumerate(sharded.shard_states):
+        stack = [st]
+        while stack:
+            for leaf in stack.pop().values():
+                if isinstance(leaf, dict):
+                    stack.append(leaf)
+                elif leaf.shape[0] != S // MESH_ENTRIES or leaf.device != devs[k]:
+                    fail(f"shard {k} holds a state leaf of shape {tuple(leaf.shape)} on {leaf.device}")
+                else:
+                    n_leaves += 1
+    snapshot = os.path.join(tempfile.mkdtemp(), "sharded.npz")
+    sharded.save_state(snapshot)
+    whole.load_state(snapshot)
+    for k in launches:
+        launches[k] = 0
+    after = sharded.predict(pcm[2 * F])
+    total += take("the sharded step after the snapshot", MESH_ENTRIES)
+    load_err = float(np.abs(after - whole.predict(pcm[2 * F])).max())
+    print(f"19a sharded engine, S={S} ({S // MESH_ENTRIES} per shard), {F} frames through predict and {F} through "
+          f"predict_frames: max |dscore| vs the unsharded engine {err:.3e} (limit {SHARD_TOL}); "
+          f"{MESH_ENTRIES} K1-3pass launches per step; every shard's {n_leaves // MESH_ENTRIES} state leaves hold "
+          f"{S // MESH_ENTRIES} rows on its entry's device; save_state -> unsharded load_state -> one step: "
+          f"max |dscore| {load_err:.3e}")
+    if not (err <= SHARD_TOL and load_err <= SHARD_TOL):
+        fail(f"the sharded engine disagrees with the unsharded one: {err}, after the snapshot {load_err}")
+    steady = pcm[:F]
+    walls = {}
+    for name, eng in (("unsharded", whole), ("sharded", sharded), ("sharded", sharded), ("unsharded", whole)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.predict_frames(steady)
+        walls[name] = min(walls.get(name, float("inf")), (time.perf_counter() - t0) / F)
+    print(f"19a step at S={S}, predict_frames over {F} frames, better of two turns: unsharded "
+          f"{walls['unsharded'] * 1e3:.3f} ms, sharded over {MESH_ENTRIES} entries {walls['sharded'] * 1e3:.3f} ms "
+          f"({walls['sharded'] / walls['unsharded']:.2f}x), on {card}")
+    del sharded, whole
+
+    # 19b. two 4096-slot servers, sharded and not, with 1% churn: step() then step_async()
+    ticks = rng.integers(-2000, 2000, (SHARD_TICKS, S, 1280), dtype=np.int16)
+    churn = [rng.choice(S, S // 100, replace=False) for _ in range(SHARD_TICKS)]
+    sids = np.arange(S)
+    recorded, tick_ms = {}, {}
+    for name, where in (("unsharded", dict(device=devs[0])), ("sharded", dict(mesh=mesh))):
+        srv = StreamServer(capacity=S, threshold=SHARD_THRESHOLD, warm_compile=True, **where)
+        for _ in range(S):
+            srv.add_stream()
+        for k in launches:
+            launches[k] = 0
+        with testing.recording(srv) as rec:
+            for half, tick in (("step", srv.step), ("step_async", srv.step_async)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                span = range(0, SHARD_TICKS // 2) if half == "step" else range(SHARD_TICKS // 2, SHARD_TICKS)
+                for t in span:
+                    for sid in churn[t]:
+                        srv.remove_stream(int(sid))
+                        srv.add_stream()
+                    srv.push_block(sids, ticks[t])
+                    tick()
+                srv.drain()
+                tick_ms[name, half] = (time.perf_counter() - t0) / len(span) * 1e3
+        n_launched = launches["direct_3pass"]
+        if name == "sharded":
+            total += take("the sharded server", MESH_ENTRIES * SHARD_TICKS)
+        elif n_launched != SHARD_TICKS:
+            fail(f"the unsharded server made {n_launched} K1-3pass launches in {SHARD_TICKS} ticks")
+        recorded[name] = (np.stack([rec[f][0] for f in sorted(rec)]), np.stack([rec[f][1] for f in sorted(rec)]))
+        del srv
+    (sa, va), (sb, vb) = recorded["sharded"], recorded["unsharded"]
+    srv_err = float(np.abs(sa - sb).max())
+    clear = np.abs(sb - SHARD_THRESHOLD) > SHARD_TOL
+
+    def activations(scores, valid):
+        return np.argwhere((scores >= SHARD_THRESHOLD) & valid[:, :, None] & clear)
+    acts_a, acts_b = activations(sa, va), activations(sb, vb)
+    print(f"19b servers (capacity {S}, {SHARD_TICKS} ticks with 1% churn, step() then step_async()): sharded vs "
+          f"unsharded max |dscore| {srv_err:.3e} over {sa.shape}, valid masks equal {np.array_equal(va, vb)}, "
+          f"activations {len(acts_a)} vs {len(acts_b)}, equal {np.array_equal(acts_a, acts_b)}")
+    for half in ("step", "step_async"):
+        print(f"19b ms per tick ({half}, with churn): unsharded {tick_ms['unsharded', half]:.3f}, sharded over "
+              f"{MESH_ENTRIES} entries {tick_ms['sharded', half]:.3f}, on {card}")
+    if not (srv_err <= SHARD_TOL and np.array_equal(va, vb) and np.array_equal(acts_a, acts_b)):
+        fail("the sharded server disagrees with the unsharded one")
+    del recorded, ticks
+
+    # 19c. data-parallel head training on a 2-entry mesh against one device
+    batches = [testing.train_batch(rng, DP_BATCH) for _ in range(DP_STEPS)]
+    runs, rates = {}, {}
+    where_of = {"one device": dict(device=devs[0]), "mesh": dict(mesh=Mesh(devs[:DP_ENTRIES], ("data",)))}
+    for name in ("one device", "mesh", "mesh", "one device"):           # in turns: the first run warms up
+        stats, step = [], T._train_step
+
+        def recording(*args, **kwargs):
+            r = step(*args, **kwargs)
+            stats.append(r[3])
+            return r
+        trainer = T.HeadTrainer(layer_dim=testing.TRAIN_WIDTH, seed=0, **where_of[name])
+        T._train_step = recording
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.train_model(iter(batches), max_steps=DP_STEPS, warmup_steps=4, hold_steps=4, lr=1e-3)
+            wall = time.perf_counter() - t0
+        finally:
+            T._train_step = step
+        runs[name] = (T._flatten(trainer.params), np.array([bool(s["updated"]) for s in stats]),
+                      np.array([int(s["n_survivors"]) for s in stats]))
+        rates[name] = max(rates.get(name, 0.0), DP_STEPS / wall)
+    (p1, u1, n1), (pm, um, nm) = runs["one device"], runs["mesh"]
+    r1, rm = rates["one device"], rates["mesh"]
+    dp_err = max(float(np.abs(pm[k] - p1[k]).max()) for k in p1)
+    print(f"19c HeadTrainer on a {DP_ENTRIES}-entry mesh vs one device, batch {DP_BATCH}, {DP_STEPS} steps: params "
+          f"max |diff| {dp_err:.3e} (limit {DP_PARAM_TOL}), updates {int(um.sum())} / {int(u1.sum())}, gate equal "
+          f"{np.array_equal(um, u1)}, survivors equal {np.array_equal(nm, n1)}; {rm:.1f} vs {r1:.1f} steps/s "
+          f"(better of two runs in turns), on {card}")
+    if not (dp_err <= DP_PARAM_TOL and np.array_equal(um, u1) and np.array_equal(nm, n1)):
+        fail("data-parallel training disagrees with one device")
+
+    # 19d. the multi-device dry run
+    dryrun_multichip(MESH_ENTRIES, "cuda")
+    print(f"slice G phase took {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
 def main():
     t_start = time.perf_counter()
     import torch
@@ -2294,6 +2496,8 @@ def main():
     print(f"[{time.perf_counter() - t_start:.1f} s] phase 18")
     for k, n in f2(card).items():
         mel_launches[k] = mel_launches.get(k, 0) + n
+    print(f"[{time.perf_counter() - t_start:.1f} s] phase 19")
+    mel_launches["direct_3pass"] += slice_g(card)
 
     # no single PyTorch call computes any of these functions (a mel frontend or a
     # 20-conv step is several calls), so library_ms is null throughout

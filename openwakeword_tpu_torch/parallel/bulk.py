@@ -5,8 +5,9 @@ the replacement for the reference's multiprocessing ``bulk_predict``
 Instead of forking ``ncpu`` OS processes each owning a private engine, clips
 are zero-padded to a common length and scored as one multi-stream batch by
 the engine's ``predict_clips`` / ``predict_frames``. ``ncpu`` is accepted for
-API compatibility and ignored. Engine options (``device``, ``mel_dft``,
-``embedding_params``, ...) pass through ``**kwargs``.
+API compatibility and ignored. Engine options (``device``, ``mesh``,
+``mel_dft``, ``embedding_params``, ...) pass through ``**kwargs``; with a
+mesh the batch is rounded up to a multiple of its size.
 """
 
 import wave
@@ -153,6 +154,10 @@ def _make_engine(file_paths, wakeword_models, batch_size, kwargs):
     from openwakeword_tpu_torch.utils.args import accepted_kwargs
 
     n_streams = min(batch_size, max(1, len(file_paths)))
+    mesh = kwargs.get("mesh")
+    if mesh is not None:
+        # a mesh splits the streams evenly; the padding streams score silence
+        n_streams = -(-n_streams // mesh.size) * mesh.size
     engine_init = accepted_kwargs(MultiStreamEngine.__init__)
     engine = MultiStreamEngine(
         wakeword_models=list(wakeword_models), n_streams=n_streams,

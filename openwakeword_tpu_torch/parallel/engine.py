@@ -43,6 +43,14 @@ The single-step entry points copy their input to the card from pinned host
 memory without blocking; with ``sync=False`` the scores come back as a
 ``HostScores`` whose copy to the host is already enqueued, so a serving
 loop can ingest the next tick while the card computes this one.
+
+With ``mesh=`` (``parallel.mesh.Mesh``) the streams are split into the
+mesh's equal row ranges, one shard per entry (the JAX engine's stream
+sharding): each shard's state lives on its entry's device, the params once
+per distinct device, and one host loop issues every shard's step before any
+fetch, so shards on distinct cards overlap. Streams are independent, so no
+shard reads another's rows; each shard primes when one of its own streams
+starts.
 """
 
 import logging
@@ -64,6 +72,7 @@ from openwakeword_tpu_torch.ops import bf16
 from openwakeword_tpu_torch.ops import melspec as melspec_ops
 from openwakeword_tpu_torch.ops import melspec_cuda
 from openwakeword_tpu_torch.ops import ns_torch
+from openwakeword_tpu_torch.parallel.mesh import Mesh, fetch_sharded, put_sharded, to_device
 
 MEL_RING = config.EMB_WINDOW_FRAMES          # 76 frames
 VAD_RING = 7                                 # enough for the [-7:-4] gate window
@@ -126,40 +135,95 @@ def _cast_weights_bf16(tree: Dict) -> Dict:
             for k, v in tree.items()}
 
 
-class HostScores:
-    """Scores of a dispatched step on their way to the host.
+def _tree_map(fn, *trees):
+    """``fn`` over the leaves of same-shaped nested dicts."""
+    return {k: _tree_map(fn, *(t[k] for t in trees)) if isinstance(v, dict) else fn(*(t[k] for t in trees))
+            for k, v in trees[0].items()}
 
-    On a CUDA device the scores are copied into pinned host memory with a
-    non-blocking copy and an event is recorded right after it, on the
-    current stream; ``numpy()`` waits on that event alone, not on steps
-    enqueued later (a ``.cpu()`` from another thread would wait for all of
-    them). On the CPU the scores are already there.
+
+def _host(arr) -> np.ndarray:
+    """A host array as the engine feeds it: int16, int64 and bool as they
+    are (PCM is cast on the device), other dtypes as float32."""
+    arr = np.asarray(arr)
+    if arr.dtype not in (np.int16, np.int64, np.bool_):
+        arr = arr.astype(np.float32, copy=False)
+    return arr
+
+
+def _check_layout(layout: Mesh):
+    """Raise unless this process owns an entry of ``layout`` and every
+    owned CUDA entry has a card (no CPU fallback)."""
+    if not layout.owned:
+        raise ValueError(f"this process owns no entry of {layout}")
+    for dev in {layout.devices[i] for i in layout.owned}:
+        if dev.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(f"MultiStreamEngine(device='{dev}') needs a CUDA device; "
+                               "pass device='cpu' to run the plain PyTorch path")
+
+
+class _Replica(NamedTuple):
+    """What a step reads on one device: the params as its products read
+    them and the gating vectors."""
+    step_params: Dict
+    patience: torch.Tensor
+    threshold: torch.Tensor
+    recycle: torch.Tensor
+    verifier_mask: Optional[torch.Tensor]
+
+
+class HostScores:
+    """Scores of a dispatched step on their way to the host: one tensor, or
+    one per shard with the rows each holds of ``n_rows``.
+
+    A shard on a CUDA device is copied into its rows of one pinned host
+    buffer with a non-blocking copy, and an event is recorded right after it
+    on that device's current stream; ``numpy()`` waits on those events alone,
+    not on steps enqueued later (a ``.cpu()`` from another thread would wait
+    for all of them). A CPU shard is copied at once; a lone CPU tensor is
+    already there. Rows of no shard (another process's) read zero.
     """
 
-    def __init__(self, scores: torch.Tensor):
-        self._event = None
-        if scores.device.type == "cuda":
-            host = torch.empty(scores.shape, dtype=scores.dtype, pin_memory=True)
-            host.copy_(scores, non_blocking=True)
-            self._event = torch.cuda.Event()
-            self._event.record()
-            scores = host
-        self._host = scores
+    def __init__(self, scores, rows: Optional[Sequence[slice]] = None, n_rows: Optional[int] = None):
+        shards = [scores] if isinstance(scores, torch.Tensor) else list(scores)
+        if rows is None:
+            rows, n_rows = [slice(0, shards[0].shape[0])], shards[0].shape[0]
+        self._events = []
+        if len(shards) == 1 and shards[0].device.type == "cpu" and shards[0].shape[0] == n_rows:
+            self._host = shards[0]
+            return
+        whole = sum(r.stop - r.start for r in rows) == n_rows
+        self._host = (torch.empty if whole else torch.zeros)(
+            (n_rows,) + tuple(shards[0].shape[1:]), dtype=shards[0].dtype,
+            pin_memory=any(t.device.type == "cuda" for t in shards))
+        for t, r in zip(shards, rows):
+            if t.device.type != "cuda":
+                self._host[r].copy_(t)
+                continue
+            with torch.cuda.device(t.device):
+                self._host[r].copy_(t, non_blocking=True)
+                event = torch.cuda.Event()
+                event.record()
+                self._events.append(event)
 
     def numpy(self) -> np.ndarray:
-        if self._event is not None:
-            self._event.synchronize()
+        for event in self._events:
+            event.synchronize()
         return self._host.numpy()
 
 
 class MultiStreamEngine:
     """Scores ``n_streams`` independent 16 kHz streams, one 80 ms frame per
-    step, on one device.
+    step, on one device or sharded over a ``mesh``.
 
     ``device`` defaults to "cuda" and there is no CPU fallback: a CUDA device
     without CUDA raises. ``device="cpu"`` runs every stage with plain
-    PyTorch ops (the tests' path). ``embedding_params`` takes the port's
-    tensors (``convert.embedding_from_jax``, BN-folded or not, or
+    PyTorch ops (the tests' path). ``mesh`` (``parallel.mesh.Mesh``, whose
+    size must divide ``n_streams``) takes the place of ``device``: the engine
+    steps the shards of the entries this process owns, its params built on
+    the first one's device (``self.device``) and copied to the others
+    (``shard``); a CUDA entry without a card raises too.
+    ``embedding_params`` takes the port's tensors
+    (``convert.embedding_from_jax``, BN-folded or not, or
     ``convert.student_from_jax``); ``embedding`` ('default' or 'student')
     picks the network when no params are given (``io.loaders.resolve_embedding``). The engine
     turns TF32 off for cuDNN convolutions and cuBLAS matmuls
@@ -209,6 +273,7 @@ class MultiStreamEngine:
                  embedding_params: Optional[Dict] = None,
                  embedding: str = "default",
                  vad_params: Optional[Dict] = None,
+                 mesh: Optional[Mesh] = None,
                  rng_seed: int = 0,
                  precision: str = "high",
                  mel_dft: str = "direct",
@@ -218,7 +283,7 @@ class MultiStreamEngine:
                  quantized_execution: str = "dequant",
                  use_pallas_melspec: Optional[bool] = None,
                  scan_unroll: int = 2,
-                 device="cuda"):
+                 device=None):
         gating.validate_gating_args(patience, threshold, debounce_time)
         tiers = config.check_precision(precision, embedding)
         # 'bf16' or the float32 storage tier ('high' for dicts and 'mixed',
@@ -235,10 +300,13 @@ class MultiStreamEngine:
         self._mel_frames = (melspec_cuda.melspectrogram_frames if self.use_pallas_melspec
                             else melspec_cuda.melspectrogram_frames_plain)
         self.scan_unroll = int(scan_unroll)
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("MultiStreamEngine(device='cuda') needs a CUDA device; "
-                               "pass device='cpu' to run the plain PyTorch path")
+        if mesh is not None and device is not None:
+            raise ValueError("pass either a mesh or a device: the mesh names the devices")
+        self.mesh = mesh
+        layout = mesh if mesh is not None else Mesh([device or "cuda"])
+        _check_layout(layout)
+        # params are built here, on the first owned entry's device
+        self.device = layout.devices[layout.owned[0]]
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
         self.n_streams = int(n_streams)
@@ -329,14 +397,12 @@ class MultiStreamEngine:
                                  "entry for them; the patience filter needs a per-model threshold")
         self._use_patience = bool(patience)
         self._use_debounce = debounce_time > 0
-        self._patience_vec = torch.from_numpy(patience_vec).to(self.device)
-        self._threshold_vec = torch.from_numpy(threshold_vec).to(self.device)
-        self._recycle_mask = torch.from_numpy(recycle).to(self.device)
 
         # ---- folded verifiers (JAX engine :389-437): one (L, F*96) product ----
         self.custom_verifier_threshold = float(custom_verifier_threshold)
         provided = {k: v for k, v in (custom_verifier_models or {}).items() if v}   # falsy: no verifier
         self._use_verifiers = bool(provided)
+        ver_mask = None
         if self._use_verifiers:
             unmatched = sorted(set(provided) - set(self.model_names))
             if unmatched:
@@ -364,7 +430,6 @@ class MultiStreamEngine:
                 ver_w[start:end, (F - fh) * config.EMB_DIM:] = w
                 ver_b[start:end] = b
                 ver_mask[start:end] = True
-            self._verifier_mask = torch.from_numpy(ver_mask).to(self.device)
 
         # ---- embedding (JAX engine :441-474) ----
         self.embedding, emb_params = loaders.resolve_embedding(embedding, embedding_params, self.device)
@@ -423,10 +488,16 @@ class MultiStreamEngine:
             self._step_params["verifier"] = {"w_t": self.params["verifier"]["w"].to(torch.float32).t().contiguous(),
                                              "b": self.params["verifier"]["b"]}
 
-        # one noise clip seeds every stream's feature ring, at every reset
+        # one noise clip seeds every stream's feature ring, at every reset; it
+        # and every fresh state are built on self.device and copied to the
+        # shards, so a shard's rows are exactly the unsharded engine's
         self._rng_seed = rng_seed
         self._seed_rings: Dict[int, torch.Tensor] = {}
-        self._fresh_row: Optional[Dict] = None
+        self._fresh_rows: Dict[torch.device, Dict] = {}
+        self._replicas = {self.device: _Replica(
+            self._step_params, *(None if v is None else torch.from_numpy(v).to(self.device)
+                                 for v in (patience_vec, threshold_vec, recycle, ver_mask)))}
+        self._lay_out(layout)
         self.reset()
 
         # ---- serving-capacity guardrail (JAX engine :526-558) ----
@@ -497,51 +568,109 @@ class MultiStreamEngine:
             state["ns"] = ns_torch.init_state(S, self.noise_suppression_algorithm, dev)
         return state
 
+    # -- layout: one shard per owned mesh entry ------------------------------
+
+    def _lay_out(self, layout: Mesh):
+        """Each owned shard's rows and device, and the params on each of
+        their devices (copied from ``self.device``'s, once per device)."""
+        spans = layout.rows(self.n_streams)
+        self._layout = layout
+        self._shard_rows = [spans[i] for i in layout.owned]
+        self._shard_devices = [layout.devices[i] for i in layout.owned]
+        #: the distinct devices of the owned shards
+        self.devices = list(dict.fromkeys(self._shard_devices))
+        home = self._replicas[self.device]
+        for dev in self.devices:
+            if dev not in self._replicas:
+                self._replicas[dev] = _Replica(*(None if v is None else convert.to_device(v, dev) for v in home))
+
+    def _split(self, tree: Dict) -> List[Dict]:
+        """A state tree in the global layout (tensors on any device, or on
+        the host) -> one tree per owned shard, on its device; only owned
+        rows are read."""
+        parts = _tree_map(lambda x: put_sharded(x, self._layout), tree)
+        return [_tree_map(lambda p: p[i], parts) for i in self._layout.owned]
+
+    def _gather(self, shards: Sequence, axis: int = 0) -> np.ndarray:
+        """Per-shard tensors -> one global host array (other processes'
+        rows zero)."""
+        entries = [None] * self._layout.size
+        for i, t in zip(self._layout.owned, shards):
+            entries[i] = t
+        return fetch_sharded(entries, self._layout, axis)
+
+    @property
+    def state(self) -> Dict:
+        """The per-stream state in the global layout. Unsharded, the state
+        itself; on a mesh, a copy gathered on ``self.device`` (write
+        ``engine.state = tree`` to lay a changed tree out again). Each
+        shard's own tree is in ``shard_states``."""
+        if self._layout.size == 1:
+            return self.shard_states[0]
+        if len(self.shard_states) != self._layout.size:
+            raise ValueError("this process holds only part of the mesh's state; read shard_states")
+        return _tree_map(lambda *xs: torch.cat([x.to(self.device) for x in xs]), *self.shard_states)
+
+    @state.setter
+    def state(self, tree: Dict):
+        self.shard_states = self._split(tree)
+
+    def shard(self, mesh: Mesh):
+        """Lay the current state out over a 1-D stream mesh (one shard per
+        entry this process owns) and copy the params to its devices; the
+        host mirror of ``frames_seen`` is global and stays as it is."""
+        _check_layout(mesh)
+        state = self.state
+        self._lay_out(mesh)
+        self.mesh = mesh
+        self.state = state
+
     def reset(self):
         self.state = self.init_state(self.n_streams)
         self._frames_seen_host = np.zeros(self.n_streams, dtype=np.int64)
 
     def reset_stream(self, sid: int):
-        """Give stream ``sid`` a fresh state row, in place, and zero its host
-        mirror of ``frames_seen`` so that its next valid step re-primes (a
-        re-leased server slot must not read the previous lease's caches)."""
-        if self._fresh_row is None:
-            self._fresh_row = self.init_state(1)
-
-        def put(full, fresh):
-            for k, v in full.items():
-                if isinstance(v, dict):
-                    put(v, fresh[k])
-                else:
-                    v[sid] = fresh[k][0]
-        put(self.state, self._fresh_row)
+        """Give stream ``sid`` a fresh state row, in place on the shard that
+        owns it, and zero its host mirror of ``frames_seen`` so that its next
+        valid step re-primes (a re-leased server slot must not read the
+        previous lease's caches). A row of another process's shard has no
+        state here."""
+        if not 0 <= sid < self.n_streams:
+            raise IndexError(f"stream id {sid} out of range for {self.n_streams} streams")
         self._frames_seen_host[sid] = 0
+        for k, rows in enumerate(self._shard_rows):
+            if rows.start <= sid < rows.stop:
+                dev = self._shard_devices[k]
+                if dev not in self._fresh_rows:
+                    self._fresh_rows[dev] = convert.to_device(self.init_state(1), dev)
+                _tree_map(lambda full, fresh: full.__setitem__(sid - rows.start, fresh[0]),
+                          self.shard_states[k], self._fresh_rows[dev])
 
     def save_state(self, path: str):
         """Snapshot all per-stream state to an ``.npz`` (serving failover /
-        migration), in the JAX engine's layout: nested keys joined by '/',
-        a bf16 leaf as float32 under its key prefixed 'bf16:'. Params are
-        not saved; they are reproducible from the model files."""
+        migration), in the JAX engine's global layout whatever the mesh:
+        nested keys joined by '/', a bf16 leaf as float32 under its key
+        prefixed 'bf16:'. Params are not saved; they are reproducible from
+        the model files."""
         flat = {}
 
         def record(prefix, tree):
             for k, v in tree.items():
                 if isinstance(v, dict):
                     record(f"{prefix}{k}/", v)
-                elif v.dtype == torch.bfloat16:
-                    flat[f"bf16:{prefix}{k}"] = v.float().cpu().numpy()
                 else:
-                    flat[f"{prefix}{k}"] = v.cpu().numpy()
-        record("", self.state)
+                    tag = "bf16:" if v[0].dtype == torch.bfloat16 else ""
+                    flat[f"{tag}{prefix}{k}"] = self._gather(v)
+        record("", _tree_map(lambda *xs: xs, *self.shard_states))
         with open(path, "wb") as f:
             np.savez(f, **flat)
 
     def load_state(self, path: str):
         """Restore a ``save_state`` snapshot (the stream count and the state
-        layout must match; this package's or the JAX engine's) and rebuild
-        the host mirror of ``frames_seen`` from it: one device read per
-        load, none per step. A leaf is read from its key or its 'bf16:' key
-        and takes the engine's dtype for it."""
+        layout must match; this package's or the JAX engine's, from any mesh
+        or none) and rebuild the host mirror of ``frames_seen`` from it. A
+        leaf is read from its key or its 'bf16:' key and takes the engine's
+        dtype for it."""
         with np.load(path) as z:
             flat = {k: z[k] for k in z.files}
 
@@ -555,19 +684,21 @@ class MultiStreamEngine:
                 arr = flat.get(f"bf16:{key}", flat.get(key))
                 if arr is None:
                     raise ValueError(f"state leaf '{key}' missing from {path}")
-                if arr.shape != tuple(v.shape):
-                    raise ValueError(f"state leaf '{key}' shape {arr.shape} != engine shape {tuple(v.shape)}")
-                out[k] = torch.from_numpy(np.ascontiguousarray(arr)).to(device=self.device, dtype=v.dtype)
+                shape = (self.n_streams,) + tuple(v.shape[1:])
+                if arr.shape != shape:
+                    raise ValueError(f"state leaf '{key}' shape {arr.shape} != engine shape {shape}")
+                out[k] = torch.from_numpy(np.ascontiguousarray(arr)).to(v.dtype)
             return out
-        self.state = rebuild("", self.state)
-        self._frames_seen_host = self.state["frames_seen"].cpu().numpy().astype(np.int64)
+        tree = rebuild("", self.shard_states[0])
+        self.state = tree
+        self._frames_seen_host = tree["frames_seen"].numpy().astype(np.int64)
 
     # ------------------------------------------------------------------
 
-    def _prime(self, mel_ring: torch.Tensor) -> Tuple[Dict, torch.Tensor]:
+    def _prime(self, folded: Dict, mel_ring: torch.Tensor) -> Tuple[Dict, torch.Tensor]:
         """Caches and embeddings of every stream from its 76-row mel ring, in
         blocks of PRIME_BLOCK_STREAMS streams to bound the stem's temporaries."""
-        folded, mode = self._step_params["embedding"], self._stage_modes["cnn"]
+        mode = self._stage_modes["cnn"]
         init_caches = self._emb.init_caches
         blk = int(config.PRIME_BLOCK_STREAMS)
         if mel_ring.shape[0] <= blk:
@@ -577,11 +708,11 @@ class MultiStreamEngine:
         caches = {k: torch.cat([c[k] for c, _ in parts]) for k in parts[0][0]}
         return caches, torch.cat([e for _, e in parts])
 
-    def _step(self, chunk: torch.Tensor, prime: bool,
-              valid: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Advance every stream by one (S, 1280) chunk; ``valid`` (S,) bool
-        makes it the masked step. Updates ``self.state``; returns (S, L)."""
-        st = self.state
+    def _step(self, st: Dict, chunk: torch.Tensor, prime: bool, rep: _Replica,
+              valid: Optional[torch.Tensor] = None) -> Tuple[Dict, torch.Tensor]:
+        """Advance the streams of state ``st`` by one (S, 1280) chunk with the
+        params and vectors of ``rep`` (on their device); ``valid`` (S,) bool
+        makes it the masked step. Returns (new state, (S, L) scores)."""
         F = self.max_head_frames
         modes = self._stage_modes
         raw_chunk = chunk = chunk.to(torch.float32)
@@ -596,7 +727,7 @@ class MultiStreamEngine:
         is_first = st["frames_seen"] == 0
         if config.MEL_TOP_DB is not None:
             first_valid = torch.where(is_first, 3, 0)
-            frame_valid = torch.arange(8, device=self.device)[None, :] >= first_valid[:, None]
+            frame_valid = torch.arange(8, device=chunk.device)[None, :] >= first_valid[:, None]
             peak = torch.where(frame_valid[:, :, None], mel_raw,
                                torch.full_like(mel_raw, -float("inf"))).amax(dim=(-2, -1), keepdim=True)
             mel_raw = torch.maximum(mel_raw, peak - config.MEL_TOP_DB)
@@ -607,12 +738,12 @@ class MultiStreamEngine:
 
         conv_caches = None
         if not self.incremental:
-            emb = self._emb.apply(self._step_params["embedding"], mel_ring, modes["cnn"])  # (S, 96)
+            emb = self._emb.apply(rep.step_params["embedding"], mel_ring, modes["cnn"])  # (S, 96)
         else:
             if prime:
-                conv_caches, emb = self._prime(mel_ring)
+                conv_caches, emb = self._prime(rep.step_params["embedding"], mel_ring)
             else:
-                conv_caches, emb = self._emb.step(self._step_params["embedding"], st["conv_caches"], mel,
+                conv_caches, emb = self._emb.step(rep.step_params["embedding"], st["conv_caches"], mel,
                                                   modes["cnn"])
             conv_caches = {k: v.to(st["conv_caches"][k].dtype) for k, v in conv_caches.items()}
         feat_ring = torch.cat([st["feat_ring"][:, 1:], emb[:, None, :].to(st["feat_ring"].dtype)], dim=1)
@@ -621,13 +752,13 @@ class MultiStreamEngine:
         for kind, key, meta, members in self._exec_plan:
             w = feat_ring[:, F - int(meta["input_frames"]):, :]
             if kind == "stacked":
-                out = heads_lib.forward_stacked(self._step_params["heads"][key], w, meta,
+                out = heads_lib.forward_stacked(rep.step_params["heads"][key], w, meta,
                                                 precision=modes["heads"])                # (S, H, C)
                 for h, (_, cols, start) in enumerate(members):
                     for j, c in enumerate(cols):
                         label_cols[start + j] = out[:, h, c]
             else:
-                out = heads_lib.forward(self._step_params["heads"][key], w, meta,
+                out = heads_lib.forward(rep.step_params["heads"][key], w, meta,
                                         precision=modes["heads"])                        # (S, C)
                 _, cols, start = members[0]
                 for j, c in enumerate(cols):
@@ -635,7 +766,7 @@ class MultiStreamEngine:
         scores = torch.stack(label_cols, dim=-1)                                        # (S, L)
 
         if valid is not None:
-            recycled = st["score_hist"][:, :, -1] * self._recycle_mask
+            recycled = st["score_hist"][:, :, -1] * rep.recycle
             scores = torch.where(valid[:, None], scores, recycled)
 
         if self._use_verifiers:
@@ -643,19 +774,19 @@ class MultiStreamEngine:
             # starved slot too, which reads its frozen ring -- takes its
             # model's verifier score over the same feature window
             ver_ring = feat_ring if valid is None else torch.where(valid[:, None, None], feat_ring, st["feat_ring"])
-            vp = self._step_params["verifier"]
+            vp = rep.step_params["verifier"]
             with bf16.fp32_matmul():
                 ver_scores = torch.sigmoid(ver_ring.reshape(ver_ring.shape[0], -1).to(torch.float32) @ vp["w_t"]
                                            + vp["b"])
-            scores = torch.where(self._verifier_mask & (scores >= self.custom_verifier_threshold),
+            scores = torch.where(rep.verifier_mask & (scores >= self.custom_verifier_threshold),
                                  ver_scores, scores)
 
         scores = gating.warmup_zero(scores, st["ticks"])
         raw_scores = scores
         if self._use_patience:
-            scores = gating.patience_filter(scores, st["raw_hist"], self._patience_vec, self._threshold_vec)
+            scores = gating.patience_filter(scores, st["raw_hist"], rep.patience, rep.threshold)
         elif self._use_debounce:
-            scores = gating.debounce_filter(scores, st["score_hist"], self._threshold_vec,
+            scores = gating.debounce_filter(scores, st["score_hist"], rep.threshold,
                                             self._debounce_frames)
 
         new = {
@@ -674,7 +805,7 @@ class MultiStreamEngine:
             raw_push = raw_scores
             if valid is not None:
                 # a starved stream repeats its last raw score (binary labels)
-                prev_raw = st["raw_hist"][:, :, -1] * self._recycle_mask
+                prev_raw = st["raw_hist"][:, :, -1] * rep.recycle
                 raw_push = torch.where(valid[:, None], raw_scores, prev_raw)
             new["raw_hist"] = gating.push_history(st["raw_hist"], raw_push)
 
@@ -682,7 +813,7 @@ class MultiStreamEngine:
             # two 640-sample VAD calls per step, scores averaged (the VAD's
             # __call__ frame size); each reads samples 0..591 of its chunk
             h, c = st["vad_h"].transpose(0, 1), st["vad_c"].transpose(0, 1)       # (2, S, 64)
-            vp = self._step_params["vad"]
+            vp = rep.step_params["vad"]
             s1, h, c = self._vad_apply(vp, raw_chunk[:, 0:640] / 32767.0, h, c)
             s2, h, c = self._vad_apply(vp, raw_chunk[:, 640:1280] / 32767.0, h, c)
             new["vad_h"], new["vad_c"] = h.transpose(0, 1), c.transpose(0, 1)
@@ -704,47 +835,40 @@ class MultiStreamEngine:
             # the gate window ring[0:3] is the VAD buffer's [-7:-4]; the score
             # history keeps the ungated scores (JAX engine :443-466)
             scores = gating.vad_gate(scores, new["vad_ring"][:, 0:3], self.vad_threshold)
-        self.state = new
-        return scores
+        return new, scores
 
     # ------------------------------------------------------------------
 
-    def _feed(self, arr, non_blocking: bool = False) -> torch.Tensor:
-        """Host array -> device tensor; int16 and int64 travel as they are
-        (PCM is cast on the device), other dtypes as float32. With
-        ``non_blocking`` a CUDA copy goes from pinned memory without waiting
-        for the stream: from the array itself when it lies in pinned memory
-        (its owner keeps it unchanged until the step's scores are fetched),
-        else from a pinned copy that the caching host allocator keeps until
-        the transfer is done."""
-        arr = np.asarray(arr)
-        if arr.dtype not in (np.int16, np.int64, np.bool_):
-            arr = arr.astype(np.float32, copy=False)
-        t = torch.from_numpy(np.ascontiguousarray(arr))
-        if self.device.type != "cuda":
-            return t
-        if not non_blocking:
-            return t.to(self.device)
-        if not t.is_pinned():
-            t = t.pin_memory()
-        return t.to(self.device, non_blocking=True)
+    def _feed(self, arr, axis: int = 0, non_blocking: bool = False) -> List[torch.Tensor]:
+        """Host array -> one tensor per owned shard, split on ``axis``
+        (``put_sharded``; ``_host``'s dtypes). With ``non_blocking`` a CUDA
+        copy goes from pinned memory without waiting for the stream
+        (``mesh.to_device``): the caller keeps the array unchanged until the
+        step's scores are fetched."""
+        parts = put_sharded(_host(arr), self._layout, axis, non_blocking)
+        return [parts[i] for i in self._layout.owned]
 
-    @staticmethod
-    def _fetch(scores: torch.Tensor, sync: bool):
-        return scores.cpu().numpy() if sync else HostScores(scores)
+    def _fetch(self, scores: List[torch.Tensor], sync: bool):
+        host = HostScores(scores, self._shard_rows, self.n_streams)
+        return host.numpy() if sync else host
 
-    def _advance(self, chunk: torch.Tensor, valid_host: Optional[np.ndarray] = None,
-                 valid: Optional[torch.Tensor] = None) -> torch.Tensor:
-        first = self._frames_seen_host == 0
-        if valid_host is None:
-            prime = bool(first.any())
-            self._frames_seen_host += 1
-        else:
-            # only streams that start on this step trigger the prime: a
-            # frozen slot keeps frames_seen == 0 indefinitely
-            prime = bool((first & valid_host).any())
-            self._frames_seen_host += valid_host
-        return self._step(chunk, prime, valid)
+    def _advance(self, chunks: List[torch.Tensor], valid_host: Optional[np.ndarray] = None,
+                 valids: Optional[List[torch.Tensor]] = None) -> List[torch.Tensor]:
+        """One step of every owned shard, all issued before any is read;
+        returns each shard's scores. A shard primes when one of its own
+        streams starts on this step (with ``valid_host``, only a valid one: a
+        frozen slot keeps frames_seen == 0 indefinitely)."""
+        starts = self._frames_seen_host == 0
+        if valid_host is not None:
+            starts &= valid_host
+        scores = []
+        for k, rows in enumerate(self._shard_rows):
+            self.shard_states[k], s = self._step(
+                self.shard_states[k], chunks[k], bool(starts[rows].any()),
+                self._replicas[self._shard_devices[k]], None if valids is None else valids[k])
+            scores.append(s)
+        self._frames_seen_host += 1 if valid_host is None else valid_host
+        return scores
 
     def predict(self, chunks: np.ndarray) -> np.ndarray:
         """Advance every stream by one 80 ms frame.
@@ -754,7 +878,7 @@ class MultiStreamEngine:
         Returns:
             (n_streams, n_labels) float32 scores, ordered like ``self.labels``.
         """
-        return self._advance(self._feed(chunks, non_blocking=True)).cpu().numpy()
+        return self._fetch(self._advance(self._feed(chunks, non_blocking=True)), sync=True)
 
     def predict_masked(self, chunks: np.ndarray, valid: np.ndarray, sync: bool = True):
         """Advance only the streams with ``valid[i]``; the others keep their
@@ -772,8 +896,8 @@ class MultiStreamEngine:
             (n_streams, n_labels) float32 scores, or their ``HostScores``.
         """
         valid_host = np.asarray(valid, dtype=bool).reshape(self.n_streams)
-        v = self._feed(valid_host, non_blocking=True)
-        scores = self._advance(self._feed(chunks, non_blocking=True), valid_host, v)
+        valids = self._feed(valid_host, non_blocking=True)
+        scores = self._advance(self._feed(chunks, non_blocking=True), valid_host, valids)
         return self._fetch(scores, sync)
 
     def predict_packets(self, stage: np.ndarray, slot_ids: np.ndarray, sync: bool = True):
@@ -786,7 +910,8 @@ class MultiStreamEngine:
         The ids are on the host, so the padding rows are dropped there:
         only rows with ``slot_ids >= 0`` reach the device scatter (a -1
         would index the last slot), and the valid mask and the host mirror
-        come from the same ids.
+        come from the same ids. On a mesh each packet row goes only to the
+        shard that owns its slot, with the shard's local id.
 
         Args:
             stage: (n_streams, 1280) PCM; only the rows named by slot_ids
@@ -798,19 +923,33 @@ class MultiStreamEngine:
             exactly like predict_masked), or their ``HostScores``.
         """
         ids = np.asarray(slot_ids, dtype=np.int64)
-        rows = np.flatnonzero(ids >= 0)
-        dst = ids[rows]
+        src = np.flatnonzero(ids >= 0)
+        dst = ids[src]
         if dst.size and int(dst.max()) >= self.n_streams:
             raise IndexError(f"slot ids must be < {self.n_streams}, got {int(dst.max())}")
         valid_host = np.zeros(self.n_streams, dtype=bool)
         valid_host[dst] = True
-        x = self._feed(stage, non_blocking=True)
-        idx = self._feed(np.stack([rows, dst]), non_blocking=True)           # (2, n) int64
-        chunk = torch.zeros((self.n_streams, x.shape[1]), dtype=x.dtype, device=self.device)
-        chunk[idx[1]] = x[idx[0]]
-        valid = torch.zeros(self.n_streams, dtype=torch.bool, device=self.device)
-        valid[idx[1]] = True
-        return self._fetch(self._advance(chunk, valid_host, valid), sync)
+        stage = _host(stage)
+        chunks, valids = [], []
+        for rows, dev in zip(self._shard_rows, self._shard_devices):
+            mine = (dst >= rows.start) & (dst < rows.stop)
+            if mine.all():
+                # every packet is this shard's (always so unsharded): the
+                # stage goes as it is, the device gathers the rows
+                x_host, rows_in = stage, src
+            else:
+                x_host, rows_in = stage[src[mine]], np.arange(int(mine.sum()))
+            x = to_device(torch.from_numpy(np.ascontiguousarray(x_host)), dev, non_blocking=True)
+            idx = to_device(torch.from_numpy(np.stack([rows_in, dst[mine] - rows.start])), dev,
+                            non_blocking=True)                                   # (2, n) int64
+            n = rows.stop - rows.start
+            chunk = torch.zeros((n, x.shape[1]), dtype=x.dtype, device=dev)
+            chunk[idx[1]] = x[idx[0]]
+            valid = torch.zeros(n, dtype=torch.bool, device=dev)
+            valid[idx[1]] = True
+            chunks.append(chunk)
+            valids.append(valid)
+        return self._fetch(self._advance(chunks, valid_host, valids), sync)
 
     def measure_realtime(self, n_frames: int = 25, repeats: int = 3,
                          frame_budget_s: Optional[float] = None) -> Dict:
@@ -827,9 +966,8 @@ class MultiStreamEngine:
         """
         budget = self._frame_budget_s if frame_budget_s is None else float(frame_budget_s)
 
-        def clone(tree):
-            return {k: clone(v) if isinstance(v, dict) else v.clone() for k, v in tree.items()}
-        saved, saved_host = clone(self.state), self._frames_seen_host.copy()
+        saved = [_tree_map(torch.clone, st) for st in self.shard_states]
+        saved_host = self._frames_seen_host.copy()
         frames = np.zeros((n_frames, self.n_streams, config.CHUNK_SAMPLES), np.int16)
         try:
             self.predict_frames(frames)
@@ -839,7 +977,7 @@ class MultiStreamEngine:
                 self.predict_frames(frames)
                 best = min(best, time.perf_counter() - t0)
         finally:
-            self.state, self._frames_seen_host = saved, saved_host
+            self.shard_states, self._frames_seen_host = saved, saved_host
         per_frame = best / n_frames
         return {"wall_s": best, "per_frame_s": per_frame,
                 "rt_streams": self.n_streams * budget / per_frame,
@@ -853,10 +991,12 @@ class MultiStreamEngine:
         Returns:
             (T, n_streams, n_labels) scores.
         """
-        x = self._feed(frames)
-        if x.shape[0] == 0:
+        frames = np.asarray(frames)
+        if frames.shape[0] == 0:
             return np.zeros((0, self.n_streams, len(self.labels)), dtype=np.float32)
-        return torch.stack([self._advance(x[t]) for t in range(x.shape[0])]).cpu().numpy()
+        xs = self._feed(frames, axis=1)
+        steps = [self._advance([x[t] for x in xs]) for t in range(frames.shape[0])]
+        return self._gather([torch.stack(per_shard) for per_shard in zip(*steps)], axis=1)
 
     def predict_clips(self, clips: np.ndarray, padding: int = 1) -> np.ndarray:
         """Score a batch of equal-length clips (n_streams, samples) with 1 s

@@ -33,6 +33,10 @@ On a CUDA engine the staging buffers live in pinned host memory, so a
 tick's packets go to the card without blocking; ``step_async`` then returns
 while the card computes, and a fetcher thread waits on that tick's score
 copy alone (``engine.HostScores``).
+
+``mesh=`` reaches the engine through ``**engine_kwargs``: slot ``i`` then
+lives on the shard that owns row ``i``, and resets, staged packets and
+masked steps go to that shard alone.
 """
 
 import logging
@@ -146,9 +150,9 @@ class StreamServer:
 
     def _stage_buffer(self) -> np.ndarray:
         """A zeroed (capacity, 1280) int16 staging buffer; in pinned host
-        memory when the engine runs on CUDA."""
+        memory when any of the engine's shards runs on CUDA."""
         shape = (self.capacity, config.CHUNK_SAMPLES)
-        if self.engine.device.type != "cuda":
+        if all(d.type != "cuda" for d in self.engine.devices):
             return np.zeros(shape, np.int16)
         return torch.zeros(shape, dtype=torch.int16, pin_memory=True).numpy()
 

@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from openwakeword_tpu_torch.models import heads as heads_lib
+from openwakeword_tpu_torch.parallel.mesh import Mesh, put_sharded
 
 B1, B2, EPS = 0.9, 0.999, 1e-8
 _INT32_MAX = 2 ** 31 - 1
@@ -138,8 +139,9 @@ class _Layout:
 # One training step
 # ---------------------------------------------------------------------------
 
-def _loss(params: Dict, x: torch.Tensor, y: torch.Tensor, neg_weight: torch.Tensor, meta: Dict):
-    """Masked hard-example loss -> (loss, survivor mask)."""
+def _loss_terms(params: Dict, x: torch.Tensor, y: torch.Tensor, neg_weight: torch.Tensor, meta: Dict):
+    """The masked hard-example loss before its division by the survivor
+    count -> (sum of the weighted per-example losses, survivor mask)."""
     out = heads_lib.forward(_unflatten(params), x, meta, inference=False)
     if meta["n_classes"] == 1:
         probs = out[:, 0]
@@ -149,8 +151,7 @@ def _loss(params: Dict, x: torch.Tensor, y: torch.Tensor, neg_weight: torch.Tens
         # minimum(maximum(.)) as jnp.clip, whose ties split the gradient
         probs_c = torch.minimum(torch.maximum(probs, torch.full_like(probs, eps)), torch.full_like(probs, 1 - eps))
         bce = -(y * torch.log(probs_c) + (1 - y) * torch.log(1 - probs_c))
-        n_sel = torch.clamp(mask.sum().to(torch.float32), min=1.0)
-        return (w * bce).sum() / n_sel, mask
+        return (w * bce).sum(), mask
     probs = torch.softmax(out, dim=-1)
     rows = torch.arange(y.shape[0], device=y.device)
     yi = y.to(torch.int64)
@@ -159,8 +160,7 @@ def _loss(params: Dict, x: torch.Tensor, y: torch.Tensor, neg_weight: torch.Tens
     mask = torch.where(y == 0, conf >= 0.001, correct_conf < 0.999)
     w = torch.where(y != 0, torch.ones_like(neg_weight), neg_weight) * mask
     ce = -torch.log_softmax(out, dim=-1)[rows, yi]
-    n_sel = torch.clamp(mask.sum().to(torch.float32), min=1.0)
-    return (w * ce).sum() / n_sel, mask
+    return (w * ce).sum(), mask
 
 
 def _train_step(params: torch.Tensor, opt: Dict, acc: Dict, x: torch.Tensor, y: torch.Tensor,
@@ -176,14 +176,32 @@ def _train_step(params: torch.Tensor, opt: Dict, acc: Dict, x: torch.Tensor, y: 
     batch that crosses the gate contributes its gradient, scaled by
     1/acc_steps; ``true_acc=True`` sums the window's gradients and applies
     their mean. Returns (params', opt', acc', stats), every value a tensor
-    on the device."""
-    x = x.to(torch.float32)           # a bf16 feed is cast back before any math
-    y = y.to(torch.float32)
-    leaf = params.detach().requires_grad_(True)
-    loss, mask = _loss(layout.views(leaf), x, y, neg_weight, meta)
-    grad, = torch.autograd.grad(loss, leaf)
+    on the device.
+
+    Data parallel: ``params`` a tuple of replicas of the vector and ``x``,
+    ``y`` tuples of as many batch shards, each on its replica's device. Every
+    shard's forward runs first; the survivor count is the global one, each
+    shard divides its own loss sum by it, and the shards' gradients add up
+    on the first replica's device, where ``opt`` and ``acc`` live and the
+    update is made (the single-device math, summed in another order); the
+    new vector is copied to the other replicas, returned as a tuple."""
+    sharded = not isinstance(params, torch.Tensor)
+    replicas, xs, ys = (tuple(params), tuple(x), tuple(y)) if sharded else ((params,), (x,), (y,))
+    dev = replicas[0].device
+    leaves = [p.detach().requires_grad_(True) for p in replicas]
+    # a bf16 feed is cast back before any math
+    terms = [_loss_terms(layout.views(leaf), xk.to(torch.float32), yk.to(torch.float32),
+                         neg_weight.to(leaf.device), meta)
+             for leaf, xk, yk in zip(leaves, xs, ys)]
+    n_survivors = torch.stack([mask.sum().to(dev) for _, mask in terms]).sum().to(torch.int32)
+    n_sel = torch.clamp(n_survivors.to(torch.float32), min=1.0)
+    grad = loss = None
+    for leaf, (total, _) in zip(leaves, terms):
+        part = total / n_sel.to(leaf.device)
+        g, = torch.autograd.grad(part, leaf)
+        grad = g.to(dev) if grad is None else grad + g.to(dev)
+        loss = part.detach().to(dev) if loss is None else loss + part.detach().to(dev)
     with torch.no_grad():
-        n_survivors = mask.sum().to(torch.int32)
         # zero-survivor batches neither update nor count toward the divisor
         nonzero = n_survivors > 0
         do_update = ((acc["n_acc"] + n_survivors) >= accum_target) & nonzero
@@ -195,7 +213,7 @@ def _train_step(params: torch.Tensor, opt: Dict, acc: Dict, x: torch.Tensor, y: 
         v = (1 - B2) * (g ** 2) + B2 * opt["nu"]
         update = (m / (1 - B1 ** count.to(torch.float32))) / (
             torch.sqrt(v / (1 - B2 ** count.to(torch.float32))) + EPS) * -1.0 * lr
-        new_params = torch.where(do_update, params + update, params)
+        new_params = torch.where(do_update, replicas[0] + update, replicas[0])
         new_opt = {"count": torch.where(do_update, count, opt["count"]),
                    "mu": torch.where(do_update, m, opt["mu"]), "nu": torch.where(do_update, v, opt["nu"])}
         new_acc = {"n_acc": torch.where(do_update, torch.zeros_like(acc["n_acc"]), acc["n_acc"] + n_survivors),
@@ -203,7 +221,13 @@ def _train_step(params: torch.Tensor, opt: Dict, acc: Dict, x: torch.Tensor, y: 
                                             acc["acc_steps"] + nonzero.to(torch.int32))}
         if true_acc:
             new_acc["grad_sum"] = torch.where(do_update, torch.zeros_like(grad), grad)
-    stats = {"loss": loss.detach(), "n_survivors": n_survivors, "updated": do_update}
+    stats = {"loss": loss, "n_survivors": n_survivors, "updated": do_update}
+    if sharded:
+        copies = {dev: new_params}
+        for p in replicas:
+            if p.device not in copies:
+                copies[p.device] = new_params.to(p.device)
+        new_params = tuple(copies[p.device] for p in replicas)
     return new_params, new_opt, new_acc, stats
 
 
@@ -226,17 +250,17 @@ class HeadTrainer:
     """Trains one wake-word classifier head (the reference's torch Model
     class; the JAX package's ``HeadTrainer``). Data enters as numpy (batch,
     frames, 96) feature windows with integer labels. ``device`` defaults to
-    "cuda" and raises without CUDA; "cpu" trains on the host."""
+    "cuda" and raises without CUDA; "cpu" trains on the host. ``mesh``
+    (``parallel.mesh.Mesh``, wholly owned by this process) takes the place
+    of ``device`` for data-parallel training (``shard``)."""
 
     def __init__(self, n_classes: int = 1, input_shape=(16, 96), model_type: str = "dnn",
                  layer_dim: int = 128, n_blocks: int = 1, seconds_per_example=None,
-                 seed: int = 0, mesh=None, device="cuda"):
-        if mesh is not None:
-            self.shard(mesh)
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("HeadTrainer(device='cuda') needs a CUDA device; pass device='cpu' to train on "
-                               "the host")
+                 seed: int = 0, mesh=None, device=None):
+        if mesh is not None and device is not None:
+            raise ValueError("pass either a mesh or a device: the mesh names the devices")
+        self.shard(mesh if mesh is not None else Mesh([device or "cuda"]))
+        self.mesh = mesh              # None unsharded, as in the JAX trainer
         # float32 products, as the JAX heads' Precision.HIGHEST
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -249,7 +273,6 @@ class HeadTrainer:
             n_classes=n_classes, layer_dim=layer_dim, n_blocks=n_blocks)
         self.meta = dict(self.params["__meta__"])
         self.opt_state = init_adam(_tensors(self.params, self.device))
-        self.mesh = None
 
         self.history: Dict[str, list] = defaultdict(list)
         self.best_models: List[Dict] = []
@@ -260,10 +283,22 @@ class HeadTrainer:
         self.n_fp = 0
 
     def shard(self, mesh):
-        """Data-parallel training over several devices waits for the stream
-        sharding slice (ROADMAP.md, queue 1, slice G)."""
-        raise NotImplementedError("HeadTrainer.shard / mesh= (data-parallel training) waits for slice G "
-                                  "(multi-device) of the port")
+        """Train data-parallel over a 1-D mesh: ``train_model`` keeps a
+        replica of the params vector per distinct device and splits each
+        batch over the entries (an entry may repeat a device); the gradients
+        add up on the first entry's device, which keeps the Adam state and
+        makes the update (``_train_step``). Batch sizes must be divisible by
+        the mesh size. A mesh entry of another process raises: there is no
+        process group to add gradients across processes."""
+        if len(mesh.owned) != mesh.size:
+            raise ValueError(f"HeadTrainer needs a mesh wholly owned by this process; got {mesh}")
+        for dev in set(mesh.devices):
+            if dev.type == "cuda" and not torch.cuda.is_available():
+                raise RuntimeError(f"HeadTrainer(device='{dev}') needs a CUDA device; pass device='cpu' to "
+                                   "train on the host")
+        self._layout = mesh
+        self.mesh = mesh
+        self.device = mesh.devices[0]
 
     def _leaf(self, params: Dict) -> Dict:
         return {k: v for k, v in params.items() if k != "__meta__"}
@@ -276,19 +311,27 @@ class HeadTrainer:
 
     def _device_chunk(self, group, dtype=None):
         """K same-shape (x, y) batches stacked into (K, batch, ...) tensors
-        in one host->device copy; ``dtype`` narrows the x transfer."""
+        in one host->device copy per mesh entry, each entry's share of the
+        batch axis on its device; ``dtype`` narrows the x transfer. Returns
+        (x parts, y parts), one per entry."""
+        n = np.shape(group[0][0])[0]
+        if n % self._layout.size:
+            raise ValueError(f"batch size {n} must be divisible by the {self._layout.size}-device mesh "
+                             "for data-parallel training")
         xs = self._staged((len(group),) + np.shape(group[0][0]), dtype or torch.float32)
         ys = self._staged((len(group),) + np.shape(group[0][1]), torch.float32)
         for k, (x, y) in enumerate(group):
             xs[k].copy_(torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32)))
             ys[k].copy_(torch.from_numpy(np.asarray(y, np.float32)))
-        return xs.to(self.device, non_blocking=True), ys.to(self.device, non_blocking=True)
+        return (put_sharded(xs, self._layout, axis=1, non_blocking=True),
+                put_sharded(ys, self._layout, axis=1, non_blocking=True))
 
     def _device_batch(self, x, y, dtype=None):
-        """One (x, y) batch to the device; ``dtype`` narrows the x transfer
-        (the step casts back to float32 before any math)."""
+        """One (x, y) batch to the device(s), split over the mesh entries;
+        ``dtype`` narrows the x transfer (the step casts back to float32
+        before any math)."""
         xs, ys = self._device_chunk([(x, y)], dtype)
-        return xs[0], ys[0]
+        return [p[0] for p in xs], [p[0] for p in ys]
 
     # -- core API -----------------------------------------------------
 
@@ -358,6 +401,12 @@ class HeadTrainer:
         dev = self.device
         layout = _Layout(self.params)
         params = layout.pack(self.params, dev)
+        # one replica per distinct device of the mesh, the first on dev
+        replica_of = {dev: params}
+        for d in self._layout.devices:
+            if d not in replica_of:
+                replica_of[d] = params.to(d)
+        replicas = tuple(replica_of[d] for d in self._layout.devices)
         opt = _adam_state_to(self.opt_state, dev)
         opt_state = {"count": opt["count"], "mu": layout.pack(opt["mu"], dev), "nu": layout.pack(opt["nu"], dev)}
         acc = {"n_acc": torch.zeros((), dtype=torch.int32, device=dev),
@@ -414,13 +463,14 @@ class HeadTrainer:
                 and np.shape(d[1]) == np.shape(group[0][1]) for d in group[1:])
             if uniform:
                 xs, ys = self._device_chunk(group, dtype=feed_dtype)
-                batches = [(xs[k], ys[k]) for k in range(len(group))]
+                batches = [([p[k] for p in xs], [p[k] for p in ys]) for k in range(len(group))]
             else:
                 batches = [self._device_batch(d[0], d[1], dtype=feed_dtype) for d in group]
             for k, (x, y) in enumerate(batches):
-                params, opt_state, acc, stats = _train_step(
-                    params, opt_state, acc, x, y, neg_ws[s0 + k], lrs[s0 + k], meta, layout,
+                replicas, opt_state, acc, stats = _train_step(
+                    replicas, opt_state, acc, tuple(x), tuple(y), neg_ws[s0 + k], lrs[s0 + k], meta, layout,
                     true_acc=true_accumulation)
+                params = replicas[0]
                 # stats stay on the device until a validation point
                 pending_stats.append(stats)
             step_ndx = s0 + len(group) - 1

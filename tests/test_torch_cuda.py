@@ -725,3 +725,32 @@ def test_tflite_exact_int8_on_card_bit_equal_to_cpu(cuda):
             np.testing.assert_array_equal(outs[0], outs[1], err_msg=key)
         else:
             np.testing.assert_allclose(outs[0], outs[1], atol=1e-5, rtol=0, err_msg=f"{key} {mode}")
+
+
+def test_mesh_engine_on_card_matches_unsharded(cuda):
+    """The bench configuration at 'high' on a 2-entry mesh of the card
+    (2 x cuda:0), S = 64: K1-3pass launches once per shard per step, and
+    the scores of ``predict``, ``predict_packets`` and ``predict_frames``
+    equal the unsharded engine's within 1e-5; a sharded snapshot loads into
+    the unsharded engine."""
+    import os
+    import tempfile
+    from openwakeword_tpu_torch.parallel import Mesh
+    from openwakeword_tpu_torch.parallel.engine import MultiStreamEngine
+    S, T = 64, 6
+    pcm = np.random.default_rng(25).integers(-3000, 3000, (T, S, 1280)).astype(np.int16)
+    mesh = MultiStreamEngine(n_streams=S, mesh=Mesh([cuda, cuda]))
+    whole = MultiStreamEngine(n_streams=S, device=cuda)
+    launches = melspec_cuda.melspectrogram_frames.launches
+    before = launches["direct_3pass"]
+    got = np.stack([mesh.predict(pcm[t]) for t in range(T)])
+    assert launches["direct_3pass"] - before == 2 * T
+    want = np.stack([whole.predict(pcm[t]) for t in range(T)])
+    assert np.abs(got - want).max() <= 1e-5
+    ids = np.array([5, 40, 2, 63, -1] + [-1] * (S - 5), np.int64)
+    assert np.abs(mesh.predict_packets(pcm[0], ids) - whole.predict_packets(pcm[0], ids)).max() <= 1e-5
+    assert np.abs(mesh.predict_frames(pcm) - whole.predict_frames(pcm)).max() <= 1e-5
+    path = os.path.join(tempfile.mkdtemp(), "state.npz")
+    mesh.save_state(path)
+    whole.load_state(path)
+    assert np.abs(mesh.predict(pcm[0]) - whole.predict(pcm[0])).max() <= 1e-5

@@ -194,7 +194,7 @@ def test_checkpoints_and_refusals(tmp_path, caplog):
     """The saved ``.npz`` loads in the JAX package with the same scores; the
     exports (``export_model``'s ``.onnx``, ``export_to_onnx``,
     ``train.convert_onnx_to_tflite``) load in the JAX package with the same
-    scores too; data parallelism waits for slice G."""
+    scores too."""
     from openwakeword_tpu.io.loaders import load_model_file
     from openwakeword_tpu.models import heads as jax_heads
     t = TT.HeadTrainer(layer_dim=16, seed=4, device="cpu")
@@ -212,8 +212,6 @@ def test_checkpoints_and_refusals(tmp_path, caplog):
     t.export_to_onnx(str(tmp_path / "named.onnx"), class_mapping="wake")
     from openwakeword_tpu.io import onnx_proto
     assert onnx_proto.load_onnx(str(tmp_path / "named.onnx"))["graph"]["outputs"][0]["name"] == "wake"
-    with pytest.raises(NotImplementedError, match="slice G"):
-        TT.HeadTrainer(mesh=object(), device="cpu")
     from openwakeword_tpu_torch import train
     assert train.Model is TT.HeadTrainer and train.lr_warmup_cosine_decay is TT.lr_warmup_cosine_decay
     train.convert_onnx_to_tflite(str(tmp_path / "head.onnx"), str(tmp_path / "head.tflite"))
