@@ -17,11 +17,12 @@ Phases, each of which exits nonzero on failure:
    (-100 dB); times each pair at S=4096 with CUDA events (plain, kernel,
    kernel, plain), kernel 1 also at S=1, and prints kernel 1's TFLOP/s and
    both kernels' share of their one bound (the function's operations and
-   bytes, counted once for both); K1-1pass and K1-3pass, which run on the
-   tensor cores (``csrc/melspec_mma.cu``), also at S=1, with their TFLOP/s,
-   share of the bound and ptxas register and spill lines, beside one bf16
-   ``torch.matmul`` of their DFT's product shape, (8 S, 512) x (512, 256), as
-   a yardstick (not the same function: no library time);
+   bytes, counted once for both); the bf16 variants, which run on the
+   tensor cores (K1-1pass and K1-3pass in ``csrc/melspec_mma.cu``, K2-1pass
+   and K2-3pass in ``csrc/melspec_factored_mma.cu``), also at S=1, with
+   their TFLOP/s, share of the bound and ptxas register and spill lines,
+   beside one bf16 ``torch.matmul`` of their DFT's product shape, (8 S, 512)
+   x (512, 256), as a yardstick (not the same function: no library time);
 4. golden: the port's engine on the card against the JAX engine's committed
    scores (tests/fixtures/torch_port_golden.npz), max |dscore| < 1e-3, with
    ``mel_dft="direct"`` and with ``mel_dft="factored"`` (kernel 2 must
@@ -400,13 +401,20 @@ def mel_work(n_streams: int, const_bytes: int = 4):
     return melspec_cuda.FRAMES * n_streams * per_frame, io + const_bytes * (2 * config.N_FFT * bins + nonzero)
 
 
-def mma_flops(n_streams: int) -> float:
-    """Operations of one tensor-core pass of K1-1pass / K1-3pass as they run:
-    the DFT over the padded bins and the mel projection, on 8 S rows."""
+def mma_flops(n_streams: int, dft: str = "direct") -> float:
+    """Operations of one tensor-core pass of a mel kernel's bf16 variant as
+    it runs, on 8 S rows: K1-1pass / K1-3pass, the DFT over the padded bins
+    and the mel projection; K2-1pass / K2-3pass, the four branch products
+    over the padded stage-1 columns (K = 4 x 128) and the mel projection of
+    each power half they form."""
     from openwakeword_tpu_torch import config
     from openwakeword_tpu_torch.ops import melspec_cuda
-    bins = melspec_cuda.mma_bins()
-    return 2.0 * melspec_cuda.FRAMES * n_streams * bins * (2 * config.N_FFT + config.N_MELS)
+    if dft == "factored":
+        _, _, cols, half1, _ = melspec_cuda.factored_columns()
+        per_row = cols * (2 * config.N_FFT + (2 if half1 else 1) * config.N_MELS)
+    else:
+        per_row = melspec_cuda.mma_bins() * (2 * config.N_FFT + config.N_MELS)
+    return 2.0 * melspec_cuda.FRAMES * n_streams * per_row
 
 
 def ptxas_lines(log: str, kernel: str):
@@ -2105,10 +2113,12 @@ def main():
               f"of it), on {card}")
     print(f"mel kernel 2 at S={SCALE_STREAMS}: {mel_ms['factored'][0]:.4f} ms against the same bound "
           f"{mel_bound[0]:.4f} ms ({mel_bound[0] / mel_ms['factored'][0]:.1%} of it), on {card}")
-    # K1-1pass and K1-3pass on the tensor cores: S=1 and S=4096, their rates
-    # and bounds, their registers, and a bf16 GEMM of their DFT's shape
+    # the bf16 variants on the tensor cores: S=1 and S=4096, their rates and
+    # bounds, their registers, and a bf16 GEMM of their DFT's shape
     for line in ptxas_lines(built.log, "melspec_frames_mma_kernel"):
         print(f"  ptxas (csrc/melspec_mma.cu): {line}")
+    for line in ptxas_lines(built.log, "melspec_frames_factored_mma_kernel"):
+        print(f"  ptxas (csrc/melspec_factored_mma.cu): {line}")
     frames_bf16 = torch.randn((melspec_cuda.FRAMES * SCALE_STREAMS, 512), device=dev, dtype=torch.bfloat16)
     basis_bf16 = torch.randn((512, 2 * melspec_cuda.mma_bins()), device=dev, dtype=torch.bfloat16)
     gemm_ms = min(cuda_ms(lambda: torch.matmul(frames_bf16, basis_bf16)) for _ in range(2))
@@ -2118,15 +2128,16 @@ def main():
           f"on {card}")
     del frames_bf16, basis_bf16
     # constants per value: one rounded bf16 plane (1-pass), or a hi and a lo plane (3-pass)
-    for name, passes, const_bytes in (("direct_1pass", 1, 2), ("direct_3pass", 3, 4)):
-        arith = name.split("_")[1]
-        one_ms = min(cuda_ms(lambda: mel(x_one, "direct", arith), 200) for _ in range(2))
+    for name, passes, const_bytes in (("direct_1pass", 1, 2), ("direct_3pass", 3, 4), ("factored_1pass", 1, 2),
+                                      ("factored_3pass", 3, 4)):
+        dft, arith = name.split("_")
+        one_ms = min(cuda_ms(lambda: mel(x_one, dft, arith), 200) for _ in range(2))
         for n, ms in ((1, one_ms), (SCALE_STREAMS, mel_ms[name][0])):
             flops, nbytes = mel_work(n, const_bytes)
             bound_ms, bound_by = bound(passes * flops, nbytes, peak=BF16_FLOPS)
             print(f"mel kernel ({name}) on the tensor cores at S={n}: {ms:.4f} ms, "
                   f"{passes * flops / ms / 1e9:.2f} TFLOP/s of the function's {passes} x {flops / 1e9:.4f} GFLOP, "
-                  f"{passes * mma_flops(n) / ms / 1e9:.2f} TFLOP/s of MMA work issued, {nbytes / 1e6:.4f} MB, "
+                  f"{passes * mma_flops(n, dft) / ms / 1e9:.2f} TFLOP/s of MMA work issued, {nbytes / 1e6:.4f} MB, "
                   f"bound {bound_ms:.4f} ms ({bound_by}; {bound_ms / ms:.1%} of it), on {card}")
     for name in ("direct_1pass", "factored_1pass"):
         print(f"mel kernel ({name}) at S={SCALE_STREAMS}: {mel_ms[name][0]:.4f} ms against the 1-pass bound "
@@ -2512,7 +2523,7 @@ def main():
          cnn_launches["prime"], cnn_err["prime"], prime_ms, cnn_bound["prime"]),
         ("melspec_frames_1pass", "melspec_mma.cu", "openwakeword_tpu/ops/melspec_pallas.py:73",
          mel_launches["direct_1pass"], mel_err["direct_1pass"], mel_ms["direct_1pass"], mel_bound_1pass),
-        ("melspec_frames_factored_1pass", "melspec.cu", "openwakeword_tpu/ops/melspec_pallas.py:110",
+        ("melspec_frames_factored_1pass", "melspec_factored_mma.cu", "openwakeword_tpu/ops/melspec_pallas.py:110",
          mel_launches["factored_1pass"], mel_err["factored_1pass"], mel_ms["factored_1pass"], mel_bound_1pass),
         ("cnn_step_bf16", "cnn_step_bf16.cu", "openwakeword_tpu/ops/cnn_pallas.py:167",
          cnn_launches["step_bf16"], cnn_err["step_bf16"], step16_ms, cnn_bound["step_bf16"]),
@@ -2520,7 +2531,7 @@ def main():
          cnn_launches["prime_bf16"], cnn_err["prime_bf16"], prime16_ms, cnn_bound["prime_bf16"]),
         ("melspec_frames_3pass", "melspec_mma.cu", "openwakeword_tpu/ops/melspec_pallas.py:73",
          mel_launches["direct_3pass"], mel_err["direct_3pass"], mel_ms["direct_3pass"], mel_bound_3pass),
-        ("melspec_frames_factored_3pass", "melspec.cu", "openwakeword_tpu/ops/melspec_pallas.py:110",
+        ("melspec_frames_factored_3pass", "melspec_factored_mma.cu", "openwakeword_tpu/ops/melspec_pallas.py:110",
          mel_launches["factored_3pass"], mel_err["factored_3pass"], mel_ms["factored_3pass"], mel_bound_3pass),
         ("cnn_step_high", "cnn_step_high.cu", "openwakeword_tpu/ops/cnn_pallas.py:167",
          cnn_launches["step_high"], cnn_err["step_high"], step3_ms, cnn_bound["step_high"]),

@@ -1,7 +1,7 @@
 // Streaming mel frontend for Hopper (sm_90a), fp32 on the CUDA cores: kernel 1
 // (direct DFT over the live bins) and, further down, kernel 2 (radix-4
-// factored DFT) with its bf16 variants. Kernel 1's bf16 variants run on the
-// tensor cores, in csrc/melspec_mma.cu.
+// factored DFT). Their bf16 variants run on the tensor cores: kernel 1's in
+// csrc/melspec_mma.cu, kernel 2's in csrc/melspec_factored_mma.cu.
 //
 // Kernel 1 replaces the TPU kernel openwakeword_tpu/ops/melspec_pallas.py::_make_kernel
 // (melspectrogram_pallas, dft="direct"): for each stream, the 8 new 512-sample
@@ -41,34 +41,11 @@
 //     chip.
 // Any S >= 1: streams past the end of the last block read zeros and are
 // not written.
-//
-// Kernel 2's 1-pass variant (ARITH = kOnePass; entry point
-// owwt_melspec_frames_factored_1pass): the arithmetic of the TPU kernel at
-// precision None/DEFAULT, whose MXU products round each operand to bf16 and
-// sum in f32. A bf16 x bf16 product is exact in fp32, so the variant keeps the
-// fp32 FFMA loop and rounds where the TPU kernel's operands are formed: the
-// host passes the basis and the mel weights rounded
-// (ops/melspec_cuda.py::_device_consts); the kernel rounds the window samples
-// as it stages them, and the power of bins [0, 256) before the mel projection,
-// in registers, and keeps bin 256's in fp32, as _make_factored_kernel does.
-// Its bound is the same operations over the card's dense bf16 tensor-core
-// rate.
-//
-// Kernel 2's 3-pass variant (ARITH = kThreePass; owwt_melspec_frames_factored_3pass):
-// the TPU kernel at Precision.HIGH, each operand split into bf16 halves and
-// each product taken as hi*hi + hi*lo + lo*hi with fp32 sums
-// (bf16_arith.cuh). The host passes the basis and the mel weights split, as
-// packed words, so they move through the same loads as the fp32 kernel's; the
-// kernel splits the window samples into words as it stages them and the power
-// before the mel projection, and keeps bin 256's power and mel row unsplit, as
-// _make_factored_kernel does. Bound: three times the 1-pass operations at the
-// dense bf16 rate.
 
 #include <atomic>
 
 #include <cuda_runtime.h>
 
-#include "bf16_arith.cuh"
 #include "mel_program.h"
 #include "smem.cuh"
 
@@ -263,7 +240,6 @@ static_assert(kTileS * kMels == kFactoredThreads, "one thread per (stream, mel) 
 static_assert(kNfft % kRadix == 0 && kTileS % 4 == 0, "radix-4 branches; frames read as float4 over streams");
 static_assert(kFreqs <= kNfft, "the power reuses the frame buffer");
 
-template <int ARITH>
 __global__ void __launch_bounds__(kFactoredThreads)
 melspec_frames_factored_kernel(const float* __restrict__ windows,
                                const float2* __restrict__ basis,   // (128 a, 128 d, 4 b) of (Re, Im)
@@ -283,7 +259,7 @@ melspec_frames_factored_kernel(const float* __restrict__ windows,
         if (s < n_valid) {
             v = windows[static_cast<size_t>(s0 + s) * kWindow + kHop * frame + n];
         }
-        smem[n * kTileS + s] = operand<ARITH>(v);
+        smem[n * kTileS + s] = v;
     }
     __syncthreads();
 
@@ -303,14 +279,14 @@ melspec_frames_factored_kernel(const float* __restrict__ windows,
 #pragma unroll
         for (int q = 0; q < kTileS / 4; ++q) {
             const float4 x = x4[q];
-            re[4 * q + 0] = mac<ARITH>(x.x, w.x, re[4 * q + 0]);
-            im[4 * q + 0] = mac<ARITH>(x.x, w.y, im[4 * q + 0]);
-            re[4 * q + 1] = mac<ARITH>(x.y, w.x, re[4 * q + 1]);
-            im[4 * q + 1] = mac<ARITH>(x.y, w.y, im[4 * q + 1]);
-            re[4 * q + 2] = mac<ARITH>(x.z, w.x, re[4 * q + 2]);
-            im[4 * q + 2] = mac<ARITH>(x.z, w.y, im[4 * q + 2]);
-            re[4 * q + 3] = mac<ARITH>(x.w, w.x, re[4 * q + 3]);
-            im[4 * q + 3] = mac<ARITH>(x.w, w.y, im[4 * q + 3]);
+            re[4 * q + 0] = fmaf(w.x, x.x, re[4 * q + 0]);
+            im[4 * q + 0] = fmaf(w.y, x.x, im[4 * q + 0]);
+            re[4 * q + 1] = fmaf(w.x, x.y, re[4 * q + 1]);
+            im[4 * q + 1] = fmaf(w.y, x.y, im[4 * q + 1]);
+            re[4 * q + 2] = fmaf(w.x, x.z, re[4 * q + 2]);
+            im[4 * q + 2] = fmaf(w.y, x.z, im[4 * q + 2]);
+            re[4 * q + 3] = fmaf(w.x, x.w, re[4 * q + 3]);
+            im[4 * q + 3] = fmaf(w.y, x.w, im[4 * q + 3]);
         }
     }
 
@@ -333,7 +309,7 @@ melspec_frames_factored_kernel(const float* __restrict__ windows,
         if (b == 0) {
             const float sr = e_re + f_re;
             const float si = e_im + f_im;
-            power[s * kFreqs + d] = operand<ARITH>(sr * sr + si * si);
+            power[s * kFreqs + d] = sr * sr + si * si;
             if (d == 0) {
                 const float dr = e_re - f_re;
                 const float di = e_im - f_im;
@@ -342,7 +318,7 @@ melspec_frames_factored_kernel(const float* __restrict__ windows,
         } else if (b == 2) {
             const float cr = e_re + f_im;
             const float ci = e_im - f_re;
-            power[s * kFreqs + kSub + d] = operand<ARITH>(cr * cr + ci * ci);
+            power[s * kFreqs + kSub + d] = cr * cr + ci * ci;
         }
     }
     __syncthreads();
@@ -354,8 +330,8 @@ melspec_frames_factored_kernel(const float* __restrict__ windows,
         float lo = 0.0f;
         float hi = 0.0f;
         for (int f = 0; f < kSub; ++f) {
-            lo = mac<ARITH>(p[f], melw[f * kMels + m], lo);
-            hi = mac<ARITH>(p[kSub + f], melw[(kSub + f) * kMels + m], hi);
+            lo = fmaf(melw[f * kMels + m], p[f], lo);
+            hi = fmaf(melw[(kSub + f) * kMels + m], p[kSub + f], hi);
         }
         const float mel = (lo + hi) + p[2 * kSub] * melw[2 * kSub * kMels + m];
         out[(static_cast<size_t>(s0 + s) * kFrames + frame) * kMels + m] =
@@ -368,14 +344,13 @@ melspec_frames_factored_kernel(const float* __restrict__ windows,
 // launch on each device only.
 constexpr size_t kSmemBytes = kSmemFloats * sizeof(float);
 
-template <int ARITH>
 int launch_factored(const float* windows, const float* basis, const float* melw, float* out, int n_streams,
                     void* stream) {
     if (n_streams <= 0) {
         return 0;
     }
     const dim3 grid((n_streams + kTileS - 1) / kTileS, kFrames);
-    melspec_frames_factored_kernel<ARITH><<<grid, kFactoredThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+    melspec_frames_factored_kernel<<<grid, kFactoredThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         windows, reinterpret_cast<const float2*>(basis), melw, out, n_streams);
     return static_cast<int>(cudaGetLastError());
 }
@@ -399,10 +374,7 @@ int launch_direct(const float* windows, const float* basis, const float* melw, f
 }  // namespace
 
 // C entry points: launch on `stream` and return cudaGetLastError() (0 = the
-// launch was accepted). Pointers are device pointers to contiguous float32;
-// the *_1pass entry takes the rounded constants of the 1-pass variant, the
-// *_3pass entry the split words of the 3-pass one (the last mel row as
-// float32).
+// launch was accepted). Pointers are device pointers to contiguous float32.
 extern "C" int owwt_melspec_frames(const float* windows, const float* basis, const float* melw, float* out,
                                    int n_streams, void* stream) {
     return launch_direct(windows, basis, melw, out, n_streams, stream);
@@ -410,15 +382,5 @@ extern "C" int owwt_melspec_frames(const float* windows, const float* basis, con
 
 extern "C" int owwt_melspec_frames_factored(const float* windows, const float* basis, const float* melw,
                                             float* out, int n_streams, void* stream) {
-    return launch_factored<kFp32>(windows, basis, melw, out, n_streams, stream);
-}
-
-extern "C" int owwt_melspec_frames_factored_1pass(const float* windows, const float* basis, const float* melw,
-                                                  float* out, int n_streams, void* stream) {
-    return launch_factored<kOnePass>(windows, basis, melw, out, n_streams, stream);
-}
-
-extern "C" int owwt_melspec_frames_factored_3pass(const float* windows, const float* basis, const float* melw,
-                                                  float* out, int n_streams, void* stream) {
-    return launch_factored<kThreePass>(windows, basis, melw, out, n_streams, stream);
+    return launch_factored(windows, basis, melw, out, n_streams, stream);
 }

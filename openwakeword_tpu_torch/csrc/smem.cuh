@@ -1,7 +1,7 @@
 // Shared-memory helpers of the port's kernels (csrc/melspec.cu,
-// csrc/melspec_mma.cu and csrc/cnn_step.cuh): cp.async copies from global
-// into shared memory and their groups, and the opt-in to more than 48 KB of
-// dynamic shared memory.
+// csrc/melspec_mma.cu, csrc/melspec_factored_mma.cu and csrc/cnn_step.cuh):
+// cp.async copies from global into shared memory and their groups, and the
+// opt-in to more than 48 KB of dynamic shared memory.
 
 #pragma once
 

@@ -8,20 +8,19 @@ only, the DFT bins on which the mel filterbank has a non-zero weight),
 ``arith`` picks the arithmetic of the TPU kernels (``ops.melspec._mel_bf16``):
 'fp32' (``precision=HIGHEST``), the 1-pass bf16 variant '1pass'
 (``precision=None``) or the 3-pass variant '3pass' (``Precision.HIGH``).
-Kernel 2 and fp32 kernel 1 run on the fp32 units (``csrc/melspec.cu``):
-kernel 2's bf16 variants take the basis and the mel weights rounded, or split
-and packed as bf16 (hi, lo) pairs (``bf16.pack_split``), from the host, and
-round or split the window samples as they stage them and the power before
-the mel projection. Kernel 1's bf16 variants, K1-1pass and K1-3pass, run their
-products on the tensor cores (``csrc/melspec_mma.cu``): they take the basis
-and the mel weights as bf16 planes (rounded, or a hi and a lo plane) in their
-own layout (``_device_consts``, ``mma_columns``). The live range comes from
-``live_bins()`` and reaches the kernels through the generated header
-``mel_program.h`` (``utils.cuda_build.generated_headers``). A CPU tensor
-goes through ``melspectrogram_frames_plain``, the plain PyTorch version; a
-CUDA tensor goes through the hand-written kernel or the call raises. There
-is no fallback between the two. The wrapper counts each kernel's launches
-in ``melspectrogram_frames.launches[variant(dft, arith)]``.
+Kernel 2 and kernel 1 in fp32 run on the fp32 units (``csrc/melspec.cu``).
+Their bf16 variants run their products on the tensor cores and take the
+basis and the mel weights as bf16 planes (rounded, or a hi and a lo plane)
+in their own layouts (``_device_consts``): K1-1pass and K1-3pass
+(``csrc/melspec_mma.cu``, ``mma_columns``) over the live bins, K2-1pass and
+K2-3pass (``csrc/melspec_factored_mma.cu``, ``factored_columns``) over the
+stage-1 columns that feed a live bin. The live ranges come from
+``live_bins()`` and ``factored_columns()`` and reach the kernels through the
+generated header ``mel_program.h`` (``utils.cuda_build.generated_headers``).
+A CPU tensor goes through ``melspectrogram_frames_plain``, the plain PyTorch
+version; a CUDA tensor goes through the hand-written kernel or the call
+raises. There is no fallback between the two. The wrapper counts each
+kernel's launches in ``melspectrogram_frames.launches[variant(dft, arith)]``.
 """
 
 import ctypes
@@ -33,7 +32,7 @@ import torch
 
 from openwakeword_tpu_torch import config
 from openwakeword_tpu_torch.ops import melspec
-from openwakeword_tpu_torch.ops.bf16 import pack_split, round_bf16, split_bf16
+from openwakeword_tpu_torch.ops.bf16 import round_bf16, split_bf16
 from openwakeword_tpu_torch.utils import cuda_build
 
 WINDOW = config.CHUNK_SAMPLES + config.MEL_LOOKBACK_SAMPLES   # 1760
@@ -52,6 +51,10 @@ BIN_TILE = 16
 # -sin n8 tensor-core tile; mel_program.h carries it to csrc/melspec_mma.cu); their
 # constants pad the live range with zero bins to a whole number of these tiles
 MMA_BIN_TILE = 32
+# K2-1pass's and K2-3pass's stage-1 columns per block pass (2 column warps x 2
+# groups of 8 columns; mel_program.h carries it to csrc/melspec_factored_mma.cu);
+# their constants pad the computed columns with zeros to whole passes
+FACTORED_CHUNK = 32
 
 
 def variant(dft: str, arith: str = "fp32") -> str:
@@ -156,28 +159,77 @@ def _mma_consts(arith: str):
     return tuple(torch.stack((round_bf16(c),) if arith == "1pass" else split_bf16(c)) for c in consts)
 
 
+def factored_columns() -> Tuple[int, int, int, bool, bool]:
+    """K2-1pass's and K2-3pass's stage-1 columns, (first, count, padded,
+    half1, nyquist). Column d of the branch sums Z_b feeds bin d (c = 0 of
+    the radix-4 butterfly), bin 128 + d (c = 1) and, at d = 0, bin 256; the
+    kernels compute columns ``first .. first + count - 1``, the span of those
+    that feed a bin of ``live_bins()``, padded with zero columns to
+    ``padded``, whole ``FACTORED_CHUNK``-column passes (2..121 of 128 at the
+    default range). ``half1``: a bin in [128, 256) is live, so the kernels
+    form the c = 1 power; ``nyquist``: bin 256 is live (only for an FMAX
+    above half the sample rate), so they form its power too."""
+    first, count, _ = live_bins()
+    stop, sub = first + count, config.N_FFT // melspec.RADIX
+    cols = [*range(first, min(stop, sub)), *range(max(first, sub) - sub, min(stop, 2 * sub) - sub)]
+    if stop > 2 * sub:
+        cols.append(0)
+    lo, n = min(cols), max(cols) + 1 - min(cols)
+    return lo, n, -(-n // FACTORED_CHUNK) * FACTORED_CHUNK, stop > sub, stop > 2 * sub
+
+
+def factored_mma_columns() -> np.ndarray:
+    """The row order of K2-1pass's and K2-3pass's (N, K) basis: row n holds
+    column ``factored_mma_columns()[n]`` of ``factored_dft_bases()``'s last
+    axis, or -1 for a zero row past ``count`` (``factored_columns``). Per
+    group of 8 stage-1 columns d, the Re columns (2 d) of the 8, then their
+    Im columns (2 d + 1): one tensor-core n8 tile of each."""
+    first, count, padded, _, _ = factored_columns()
+    n = np.arange(2 * padded)
+    col = first + 8 * (n // 16) + n % 8
+    return np.where(col < first + count, 2 * col + (n % 16) // 8, -1)
+
+
+def _factored_mma_consts(arith: str):
+    """Kernel 2's constants for K2-1pass / K2-3pass as float32 tensors: the
+    (planes, N, 512) stage-1 basis in ``factored_mma_columns()`` order, K in
+    (branch, tap) order, k = 128 b + a; the (planes, halves, 32, padded)
+    transposed mel weights of bins ``first + i`` (half 0) and ``128 + first
+    + i`` (half 1, only with ``half1``); both zero past ``count`` columns
+    (``factored_columns``), one plane rounded to bf16 (1-pass) or a hi and a
+    lo plane (``split_bf16``, 3-pass); and bin 256's float32 mel row (32,),
+    which multiplies an unrounded power."""
+    first, count, padded, half1, _ = factored_columns()
+    sub = config.N_FFT // melspec.RADIX
+    cols = factored_mma_columns()
+    live = cols >= 0
+    basis = np.zeros((2 * padded, config.N_FFT))
+    basis[live] = melspec.factored_dft_bases()[:, :, cols[live]].transpose(2, 0, 1).reshape(int(live.sum()), -1)
+    fb = _filterbank()
+    melw = np.zeros((2 if half1 else 1, config.N_MELS, padded))
+    for half in range(melw.shape[0]):
+        melw[half, :, :count] = fb[sub * half + first:sub * half + first + count].T
+    consts = (melspec.f32_const(basis, "cpu"), melspec.f32_const(melw, "cpu"))
+    return (*(torch.stack((round_bf16(c),) if arith == "1pass" else split_bf16(c)) for c in consts),
+            melspec.f32_const(fb[2 * sub], "cpu"))
+
+
 @functools.lru_cache(maxsize=None)
 def _device_consts(device: torch.device, dft: str, arith: str = "fp32"):
     """The kernel's DFT basis and mel weights, resident on ``device``, made
     on the host: float32 for the fp32 kernels; for K1-1pass and K1-3pass the
-    bf16 planes of ``_mma_consts``; for kernel 2's 1-pass variant float32
-    rounded to bf16, for its 3-pass one packed split words (int32,
-    ``pack_split``), in either with the bin-256 mel row float32, since it
-    multiplies an unrounded power."""
+    bf16 planes of ``_mma_consts``; for K2-1pass and K2-3pass the bf16 basis
+    planes of ``_factored_mma_consts`` and its mel planes, flat, followed by
+    the float32 bin-256 mel row's bits as 64 bf16 words."""
     if arith not in config.ARITHS:
         raise ValueError(f"unknown arithmetic {arith!r} (expected one of {config.ARITHS})")
     if dft == "direct" and arith != "fp32":
         return tuple(c.to(torch.bfloat16).contiguous().to(device) for c in _mma_consts(arith))
-    basis = melspec.f32_const(_kernel_basis(dft), "cpu")
-    melw = melspec.f32_const(_kernel_melw(dft), "cpu")
-    rows = 2 * (config.N_FFT // melspec.RADIX)         # kernel 2's bins [0, 256); bin 256 stays float32
-    if arith == "1pass":
-        basis = round_bf16(basis)
-        melw = torch.cat([round_bf16(melw[:rows]), melw[rows:]])
-    elif arith == "3pass":
-        basis = pack_split(basis)
-        melw = torch.cat([pack_split(melw[:rows]), melw[rows:].contiguous().view(torch.int32)])
-    return basis.contiguous().to(device), melw.contiguous().to(device)
+    if arith != "fp32":
+        basis, melw, nyquist = _factored_mma_consts(arith)
+        melw = torch.cat([melw.to(torch.bfloat16).flatten(), nyquist.view(torch.bfloat16)])
+        return basis.to(torch.bfloat16).contiguous().to(device), melw.to(device)
+    return (melspec.f32_const(_kernel_basis(dft), device), melspec.f32_const(_kernel_melw(dft), device))
 
 
 def melspectrogram_frames(windows: torch.Tensor, dft: str = "direct", arith: str = "fp32") -> torch.Tensor:

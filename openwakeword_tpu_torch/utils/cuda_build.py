@@ -64,8 +64,9 @@ def generated_headers() -> Dict[str, str]:
     ``conv_tiles()``, as ``csrc/cnn_step.cuh``'s ``kTiles``;
     ``mel_program.h``, the mel frontend's geometry from
     ``config``, kernel 1's live DFT bins from
-    ``ops.melspec_cuda.live_bins()`` and its warp tiles, for
-    ``csrc/melspec.cu`` and ``csrc/melspec_mma.cu``."""
+    ``ops.melspec_cuda.live_bins()`` and its warp tiles, and kernel 2's
+    stage-1 columns from ``factored_columns()``, for ``csrc/melspec.cu``,
+    ``csrc/melspec_mma.cu`` and ``csrc/melspec_factored_mma.cu``."""
     from openwakeword_tpu_torch import config
     from openwakeword_tpu_torch.ops import cnn_step, cnn_step_cuda, melspec_cuda   # they import this module
     table = cnn_step.conv_table()
@@ -74,10 +75,13 @@ def generated_headers() -> Dict[str, str]:
     tile_consts = {"kStreamQuads": cnn_step_cuda.STREAM_QUADS, "kThreadChannels": cnn_step_cuda.THREAD_CHANNELS,
                    "kStages": cnn_step_cuda.STAGES}
     first, count, padded = melspec_cuda.live_bins()
+    col0, cols, cols_pad, half1, nyquist = melspec_cuda.factored_columns()
     mel = {"kWindow": config.CHUNK_SAMPLES + config.MEL_LOOKBACK_SAMPLES, "kFrames": config.MELS_PER_CHUNK,
            "kNfft": config.N_FFT, "kHop": config.HOP_LENGTH, "kMels": config.N_MELS,
            "kLiveBin0": first, "kLiveBins": count, "kLiveBinsPad": padded, "kBinTile": melspec_cuda.BIN_TILE,
-           "kMmaBinTile": melspec_cuda.MMA_BIN_TILE}
+           "kMmaBinTile": melspec_cuda.MMA_BIN_TILE, "kFactoredCol0": col0, "kFactoredCols": cols,
+           "kFactoredColsPad": cols_pad, "kFactoredChunk": melspec_cuda.FACTORED_CHUNK,
+           "kFactoredHalf1": int(half1), "kFactoredNyquist": int(nyquist)}
     return {"cnn_program.h": "// Written by utils/cuda_build.py from ops/cnn_step.py::conv_table:\n"
                              "// (kh, kw, cin, cout, pool_h, pool_w, epilogue) per conv.\n" + rows,
             "cnn_tiles.h": "// Written by utils/cuda_build.py from ops/cnn_step_cuda.py: the tile\n"
@@ -89,7 +93,11 @@ def generated_headers() -> Dict[str, str]:
                              "// the frame geometry, and the DFT bins [kLiveBin0, kLiveBin0 + kLiveBins) on\n"
                              "// which the mel filterbank has a non-zero weight, padded to kLiveBinsPad,\n"
                              "// a whole number of kernel 1's kBinTile-bin warp tiles; K1-1pass and\n"
-                             "// K1-3pass pad them further to whole kMmaBinTile-bin warp tiles.\n"
+                             "// K1-3pass pad them further to whole kMmaBinTile-bin warp tiles. K2-1pass\n"
+                             "// and K2-3pass compute the stage-1 columns [kFactoredCol0, kFactoredCol0 +\n"
+                             "// kFactoredCols) that feed a live bin (factored_columns), padded to\n"
+                             "// kFactoredColsPad, whole kFactoredChunk-column passes; kFactoredHalf1: a\n"
+                             "// bin in [128, 256) is live; kFactoredNyquist: bin 256 is live.\n"
                              + "".join(f"constexpr int {k} = {v};\n" for k, v in mel.items())}
 
 

@@ -180,41 +180,43 @@ def test_mel_3pass_kernel_matches_plain(cuda, n_streams, dft):
         assert float((got[silent] + 100.0).abs().max()) <= 1e-4
 
 
+@pytest.mark.parametrize("dft", ["direct", "factored"])
 @pytest.mark.parametrize("arith", ["1pass", "3pass"])
 @pytest.mark.parametrize("n_streams", [15, 16, 17, 31, 32, 33])
-def test_mel_tensor_core_kernels_ragged_block(cuda, arith, n_streams):
-    """K1-1pass and K1-3pass take 16 streams per block: both sides of one
-    and two whole blocks, with a silent stream in the last block, held to
-    their plain versions as above (1-pass: MEL_1PASS_TOL_DB, the share and
-    the bit-equality on rounded windows; 3-pass: 2e-3 dB and nearer the
-    plain 3-pass version than the plain fp32 one)."""
+def test_mel_tensor_core_kernels_ragged_block(cuda, arith, n_streams, dft):
+    """K1-1pass, K1-3pass, K2-1pass and K2-3pass take 16 streams per block:
+    both sides of one and two whole blocks, with a silent stream in the last
+    block, held to their plain versions as above (1-pass: MEL_1PASS_TOL_DB,
+    the share and the bit-equality on rounded windows; 3-pass: 2e-3 dB and
+    nearer the plain 3-pass version than the plain fp32 one)."""
     w = (np.random.default_rng(n_streams).uniform(-1, 1, (n_streams, 1760)) * 25000).astype(np.float32)
     w[-1] = 0.0
     x = torch.from_numpy(w).to(cuda)
-    got = melspec_cuda.melspectrogram_frames(x, "direct", arith=arith)
-    want = melspec_cuda.melspectrogram_frames_plain(x, "direct", arith=arith)
-    f32 = melspec_cuda.melspectrogram_frames_plain(x, "direct")
+    got = melspec_cuda.melspectrogram_frames(x, dft, arith=arith)
+    want = melspec_cuda.melspectrogram_frames_plain(x, dft, arith=arith)
+    f32 = melspec_cuda.melspectrogram_frames_plain(x, dft)
     torch.cuda.synchronize()
     assert got.shape == (n_streams, 8, 32)
     assert float((got[-1] + 100.0).abs().max()) <= 1e-4
     if arith == "1pass":
         assert float((got - want).abs().max()) <= MEL_1PASS_TOL_DB
         assert float(((got - want).abs() > 2e-3).float().mean()) <= MEL_1PASS_SHARE
-        assert torch.equal(melspec_cuda.melspectrogram_frames(round_bf16(x), "direct", arith="1pass"), got)
+        assert torch.equal(melspec_cuda.melspectrogram_frames(round_bf16(x), dft, arith="1pass"), got)
     else:
         assert float((got - want).abs().max()) <= 2e-3
         assert_nearer_3pass(got[:-1], want[:-1], f32[:-1], n_streams)
 
 
-def test_mel_3pass_kernel_nearer_at_scale(cuda):
-    """K1-3pass at S=4096, the engine's scale: its tensor-core sums keep it
-    THREE_PASS_CLOSER times nearer the plain 3-pass version than the plain
-    fp32 one."""
+@pytest.mark.parametrize("dft", ["direct", "factored"])
+def test_mel_3pass_kernel_nearer_at_scale(cuda, dft):
+    """K1-3pass and K2-3pass at S=4096, the engine's scale: their
+    tensor-core sums keep them THREE_PASS_CLOSER times nearer the plain
+    3-pass version than the plain fp32 one."""
     w = (np.random.default_rng(4096).uniform(-1, 1, (4096, 1760)) * 25000).astype(np.float32)
     x = torch.from_numpy(w).to(cuda)
-    got = melspec_cuda.melspectrogram_frames(x, "direct", arith="3pass")
-    want = melspec_cuda.melspectrogram_frames_plain(x, "direct", arith="3pass")
-    f32 = melspec_cuda.melspectrogram_frames_plain(x, "direct")
+    got = melspec_cuda.melspectrogram_frames(x, dft, arith="3pass")
+    want = melspec_cuda.melspectrogram_frames_plain(x, dft, arith="3pass")
+    f32 = melspec_cuda.melspectrogram_frames_plain(x, dft)
     torch.cuda.synchronize()
     assert float((got - want).abs().max()) <= 2e-3
     assert_nearer_3pass(got, want, f32, "S=4096")
@@ -257,44 +259,60 @@ def test_live_bin_kernel_other_live_range(cuda, wide_mel_range, n_streams):
     assert float((got[-1] + 100.0).abs().max()) <= 1e-4
 
 
-def _live_range_frames(x, arith):
+def _live_range_frames(x, arith, dft="direct"):
     """The plain version's function in ``arith`` ('fp32', '1pass', '3pass')
-    over kernel 1's live bins and their mel weights as ``config`` now sets
-    them (``_kernel_basis`` / ``_kernel_melw``), with the plain version's
+    with the filterbank as ``config`` now sets it, with the plain version's
     products (``bf16.product_1pass`` / ``product_3pass``): the plain version
-    itself keeps the default filterbank."""
+    itself keeps the default filterbank. 'direct' over kernel 1's live bins
+    and their mel weights (``_kernel_basis`` / ``_kernel_melw``); 'factored'
+    through the four branch products, the butterfly and the products of the
+    power of bins [0, 128) and [128, 256) with their mel weights, plus bin
+    256's power times its weights (``ops.melspec._mel_bf16``'s order)."""
     from openwakeword_tpu_torch.ops import bf16, melspec
     frames = melspec.frame_signal(x)
-    basis = melspec.f32_const(melspec_cuda._kernel_basis("direct"), x.device)
-    melw = melspec.f32_const(melspec_cuda._kernel_melw("direct"), x.device)
     if arith == "fp32":
         def product(op, a, b):
             with bf16.fp32_matmul():
                 return op(a, b)
     else:
         product = bf16.product_1pass if arith == "1pass" else bf16.product_3pass
+    if dft == "factored":
+        z = product(lambda a, b: torch.einsum("...ba,bad->...bd", a, b), melspec.deinterleave_branches(frames),
+                    melspec.f32_const(melspec.factored_dft_bases(), x.device))
+        p0, p1, p2 = melspec._factored_power_parts(z)
+        fb = melspec.f32_const(melspec_cuda._filterbank(), x.device)
+        mel = product(torch.matmul, p0, fb[:128]) + product(torch.matmul, p1, fb[128:256]) + p2 * fb[256:]
+        return melspec.power_to_db(mel, top_db=None)
+    basis = melspec.f32_const(melspec_cuda._kernel_basis("direct"), x.device)
+    melw = melspec.f32_const(melspec_cuda._kernel_melw("direct"), x.device)
     spec = product(torch.matmul, frames, basis)
     power = spec[..., 0::2] ** 2 + spec[..., 1::2] ** 2
     return melspec.power_to_db(product(torch.matmul, power, melw), top_db=None)
 
 
+@pytest.mark.parametrize("dft", ["direct", "factored"])
 @pytest.mark.parametrize("arith", ["1pass", "3pass"])
 @pytest.mark.parametrize("n_streams", [9, 17, 1000])
-def test_tensor_core_kernels_other_live_range(cuda, wide_mel_range, arith, n_streams):
-    """K1-1pass and K1-3pass built for another live range (224 bins: 7 bin
-    warps, 448 threads a block, 16-deep 3-pass K slices), with a silent
+def test_tensor_core_kernels_other_live_range(cuda, wide_mel_range, arith, n_streams, dft):
+    """The tensor-core variants built for another live range, with a silent
     stream, held as in ``test_mel_1pass_kernel_matches_plain`` /
     ``test_mel_3pass_kernel_matches_plain`` to the plain products over that
-    range (``_live_range_frames``)."""
-    assert melspec_cuda.live_bins() == (2, 222, 224) and melspec_cuda.mma_bins() == 224
+    range (``_live_range_frames``): K1-1pass and K1-3pass over 224 bins (7
+    bin warps, 448 threads a block, 16-deep 3-pass K slices); K2-1pass and
+    K2-3pass over all 128 stage-1 columns with the c = 1 half live (bins
+    128..223: D, F and p1 formed, 64-deep 3-pass K slices)."""
+    if dft == "direct":
+        assert melspec_cuda.live_bins() == (2, 222, 224) and melspec_cuda.mma_bins() == 224
+    else:
+        assert melspec_cuda.factored_columns() == (0, 128, 128, True, False)
     w = (np.random.default_rng(n_streams).uniform(-1, 1, (n_streams, 1760)) * 25000).astype(np.float32)
     w[-1] = 0.0
     x = torch.from_numpy(w).to(cuda)
-    name = melspec_cuda.variant("direct", arith)
+    name = melspec_cuda.variant(dft, arith)
     before = melspec_cuda.melspectrogram_frames.launches[name]
-    got = melspec_cuda.melspectrogram_frames(x, "direct", arith=arith)
-    want = _live_range_frames(x, arith)
-    f32 = _live_range_frames(x, "fp32")
+    got = melspec_cuda.melspectrogram_frames(x, dft, arith=arith)
+    want = _live_range_frames(x, arith, dft)
+    f32 = _live_range_frames(x, "fp32", dft)
     torch.cuda.synchronize()
     assert melspec_cuda.melspectrogram_frames.launches[name] == before + 1
     assert got.shape == (n_streams, 8, 32) and got.dtype == torch.float32
@@ -303,7 +321,7 @@ def test_tensor_core_kernels_other_live_range(cuda, wide_mel_range, arith, n_str
         assert float((got - want).abs().max()) <= MEL_1PASS_TOL_DB
         assert float(((got - want).abs() > 2e-3).float().mean()) <= MEL_1PASS_SHARE
         assert float((got - f32).abs().max()) > 2e-3
-        assert torch.equal(melspec_cuda.melspectrogram_frames(round_bf16(x), "direct", arith="1pass"), got)
+        assert torch.equal(melspec_cuda.melspectrogram_frames(round_bf16(x), dft, arith="1pass"), got)
     else:
         assert float((got - want).abs().max()) <= 2e-3
         assert_nearer_3pass(got[:-1], want[:-1], f32[:-1], n_streams)

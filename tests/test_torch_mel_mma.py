@@ -138,17 +138,26 @@ def test_wrapper_rejects_as_before(arith):
 
 
 def test_tensor_core_entries_live_in_their_own_unit():
-    """K1-1pass and K1-3pass build from ``csrc/melspec_mma.cu``, which takes
-    its geometry and warp tile only from ``mel_program.h``; ``melspec.cu``
-    keeps the fp32 kernel 1 and kernel 2 with its variants."""
+    """K1-1pass and K1-3pass build from ``csrc/melspec_mma.cu``, K2-1pass
+    and K2-3pass from ``csrc/melspec_factored_mma.cu``; both take their
+    geometry, live range and warp tiles only from ``mel_program.h`` and their
+    tensor-core helpers from ``mma_bf16.cuh``. ``melspec.cu`` keeps the fp32
+    kernels 1 and 2 only."""
     text = cuda_build.generated_headers()["mel_program.h"]
     assert f"constexpr int kMmaBinTile = {melspec_cuda.MMA_BIN_TILE};" in text
+    assert f"constexpr int kFactoredChunk = {melspec_cuda.FACTORED_CHUNK};" in text
     mma = (cuda_build.CSRC / "melspec_mma.cu").read_text()
+    factored = (cuda_build.CSRC / "melspec_factored_mma.cu").read_text()
     fp32 = (cuda_build.CSRC / "melspec.cu").read_text()
-    assert '#include "mel_program.h"' in mma and "constexpr int kLiveBin" not in mma
-    assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in mma
-    for entry in ("owwt_melspec_frames_1pass", "owwt_melspec_frames_3pass"):
-        assert f'extern "C" int {entry}(' in mma and f'extern "C" int {entry}(' not in fp32
-    for entry in ("owwt_melspec_frames", "owwt_melspec_frames_factored", "owwt_melspec_frames_factored_1pass",
-                  "owwt_melspec_frames_factored_3pass"):
+    helpers = (cuda_build.CSRC / "mma_bf16.cuh").read_text()
+    assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in helpers
+    for unit, entries in ((mma, ("owwt_melspec_frames_1pass", "owwt_melspec_frames_3pass")),
+                          (factored, ("owwt_melspec_frames_factored_1pass", "owwt_melspec_frames_factored_3pass"))):
+        assert '#include "mel_program.h"' in unit and '#include "mma_bf16.cuh"' in unit
+        assert "constexpr int kLiveBin" not in unit and "constexpr int kFactoredCol" not in unit
+        assert "asm" not in unit
+        for entry in entries:
+            assert f'extern "C" int {entry}(' in unit and f'extern "C" int {entry}(' not in fp32
+    for entry in ("owwt_melspec_frames", "owwt_melspec_frames_factored"):
         assert f'extern "C" int {entry}(' in fp32
+    assert "_1pass(" not in fp32 and "_3pass(" not in fp32 and "ARITH" not in fp32

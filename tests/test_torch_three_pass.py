@@ -38,7 +38,7 @@ from openwakeword_tpu.ops import cnn_pallas
 from openwakeword_tpu.ops import melspec_pallas as jax_mel
 from openwakeword_tpu_torch import config, convert
 from openwakeword_tpu_torch.models import embedding, embedding_stream
-from openwakeword_tpu_torch.ops import bf16, cnn_step, melspec_cuda
+from openwakeword_tpu_torch.ops import bf16, cnn_step, melspec, melspec_cuda
 from openwakeword_tpu_torch.parallel.engine import MultiStreamEngine
 
 MEL_TOL_DB = 2e-3      # tests/test_pallas.py
@@ -120,12 +120,14 @@ def test_product_3pass_is_jax_three_dots(rng):
 
 
 def test_mel_device_constants_are_host_split():
-    """The 3-pass kernels' constants, made on the host. K1-3pass (tensor
-    cores): a hi and a lo bf16 plane, which un-permuted (``mma_columns``,
-    the mel weights transposed) are ``split_bf16`` of the float32 kernel's
-    basis and mel weights, bit for bit, zero in the padded bins. K2-3pass:
-    the basis and the mel weights as packed split words of their float32
-    values, except the bin-256 mel row, kept as float32 bits."""
+    """The 3-pass kernels' constants, made on the host: a hi and a lo bf16
+    plane in each tensor-core kernel's layout. K1-3pass's, un-permuted
+    (``mma_columns``, the mel weights transposed), are ``split_bf16`` of the
+    float32 kernel's basis and mel weights, bit for bit, zero in the padded
+    bins. K2-3pass's basis rows are ``split_bf16`` of the float32 stage-1
+    bases' live columns (``factored_mma_columns``, K in (branch, tap)
+    order), zero past them, and its mel weights the split filterbank rows of
+    those columns' bins, followed by the bin-256 row as float32 bits."""
     basis, melw = melspec_cuda._device_consts(torch.device("cpu"), "direct", "3pass")
     basis32, melw32 = melspec_cuda._device_consts(torch.device("cpu"), "direct")
     bins, padded = melspec_cuda.mma_bins(), melspec_cuda.live_bins()[2]
@@ -139,12 +141,19 @@ def test_mel_device_constants_are_host_split():
         got_melw = melw[plane].float().t()
         assert torch.equal(got_melw[:padded], want_melw) and not got_melw[padded:].any()
     basis, melw = melspec_cuda._device_consts(torch.device("cpu"), "factored", "3pass")
-    basis32, melw32 = melspec_cuda._device_consts(torch.device("cpu"), "factored")
-    assert basis.dtype == melw.dtype == torch.int32
-    assert torch.equal(basis, bf16.pack_split(basis32))
-    rows = melw.shape[0] - 1
-    assert torch.equal(melw[:rows], bf16.pack_split(melw32[:rows]))
-    assert torch.equal(melw[rows:].view(torch.float32), melw32[rows:])
+    first, count, padded, _, _ = melspec_cuda.factored_columns()
+    cols = torch.from_numpy(melspec_cuda.factored_mma_columns())
+    live = cols >= 0
+    bases32 = melspec.f32_const(melspec.factored_dft_bases(), "cpu")                     # (4, 128, 256)
+    want = bases32[:, :, cols[live]].permute(2, 0, 1).reshape(-1, 512)
+    fb32 = melspec.f32_const(melspec.mel_filterbank(), "cpu")
+    assert basis.dtype == melw.dtype == torch.bfloat16 and basis.shape == (2, 2 * padded, 512)
+    got_melw = melw[:-64].view(2, 32, padded)
+    for plane, want_basis, want_melw in zip(range(2), bf16.split_bf16(want),
+                                            bf16.split_bf16(fb32[first:first + count])):
+        assert torch.equal(basis[plane, live].float(), want_basis) and not basis[plane, ~live].any()
+        assert torch.equal(got_melw[plane].float().t()[:count], want_melw) and not got_melw[plane, :, count:].any()
+    assert torch.equal(melw[-64:].view(torch.float32), fb32[-1])
 
 
 def test_cnn_weights_are_host_split_once(folded):

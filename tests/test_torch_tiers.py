@@ -37,7 +37,7 @@ from openwakeword_tpu.ops import cnn_pallas
 from openwakeword_tpu.ops import melspec_pallas as jax_mel
 from openwakeword_tpu_torch import config, convert
 from openwakeword_tpu_torch.models import embedding, heads
-from openwakeword_tpu_torch.ops import bf16, cnn_step, melspec_cuda
+from openwakeword_tpu_torch.ops import bf16, cnn_step, melspec, melspec_cuda
 from openwakeword_tpu_torch.ops.bf16 import round_bf16
 
 MEL_TOL_DB = 2e-3 + 10 * math.log10(1 + 2 ** -7)
@@ -124,11 +124,14 @@ def test_mel_plain_1pass_matches_jax_rounding(rng, dft, n_streams):
 
 def test_mel_1pass_device_constants_are_rounded():
     """The kernels' 1-pass constants: the basis and mel weights rounded to
-    bf16. K1-1pass (tensor cores) takes them as one bf16 plane, which
-    un-permuted (``mma_columns``, the mel weights transposed) is
+    bf16, as bf16 planes in each tensor-core kernel's layout. K1-1pass's,
+    un-permuted (``mma_columns``, the mel weights transposed), are
     ``round_bf16`` of the float32 kernel's constants bit for bit, zero in the
-    padded bins; K2-1pass as float32 values, except the bin-256 mel row,
-    which multiplies an unrounded power."""
+    padded bins. K2-1pass's basis rows are ``round_bf16`` of the float32
+    stage-1 bases' live columns (``factored_mma_columns``, K in (branch,
+    tap) order), zero past them, and its mel weights the rounded filterbank
+    rows of those columns' bins, followed by the bin-256 row as float32,
+    since it multiplies an unrounded power."""
     basis, melw = melspec_cuda._device_consts(torch.device("cpu"), "direct", "1pass")
     basis32, melw32 = melspec_cuda._device_consts(torch.device("cpu"), "direct")
     bins, padded = melspec_cuda.mma_bins(), melspec_cuda.live_bins()[2]
@@ -142,11 +145,19 @@ def test_mel_1pass_device_constants_are_rounded():
     torch.testing.assert_close(got_melw[:padded], round_bf16(melw32), rtol=0, atol=0)
     assert not got_melw[padded:].any()
     basis, melw = melspec_cuda._device_consts(torch.device("cpu"), "factored", "1pass")
-    basis32, melw32 = melspec_cuda._device_consts(torch.device("cpu"), "factored")
-    torch.testing.assert_close(basis, round_bf16(basis32), rtol=0, atol=0)
-    rows = melw.shape[0] - 1
-    torch.testing.assert_close(melw[:rows], round_bf16(melw32[:rows]), rtol=0, atol=0)
-    torch.testing.assert_close(melw[rows:], melw32[rows:], rtol=0, atol=0)
+    first, count, padded, _, _ = melspec_cuda.factored_columns()
+    cols = torch.from_numpy(melspec_cuda.factored_mma_columns())
+    live = cols >= 0
+    bases32 = melspec.f32_const(melspec.factored_dft_bases(), "cpu")                     # (4, 128, 256)
+    want = bases32[:, :, cols[live]].permute(2, 0, 1).reshape(-1, 512)
+    assert basis.dtype == melw.dtype == torch.bfloat16 and basis.shape == (1, 2 * padded, 512)
+    torch.testing.assert_close(basis[0, live].float(), round_bf16(want), rtol=0, atol=0)
+    assert not basis[0, ~live].any()
+    fb32 = melspec.f32_const(melspec.mel_filterbank(), "cpu")
+    got_melw = melw[:-64].view(32, padded).float().t()
+    torch.testing.assert_close(got_melw[:count], round_bf16(fb32[first:first + count]), rtol=0, atol=0)
+    assert not got_melw[count:].any()
+    torch.testing.assert_close(melw[-64:].view(torch.float32), fb32[-1], rtol=0, atol=0)
 
 
 @pytest.fixture(scope="module")
