@@ -15,9 +15,12 @@ Phases, each of which exits nonzero on failure:
    card (the unpruned 257-bin path), S in {1, 5, 17, 63, 64, 65, 1000, 4095,
    4096} with one silent stream each, max |dB diff| <= 2e-3, plus silence
    (-100 dB); times each pair at S=4096 with CUDA events (plain, kernel,
-   kernel, plain), kernel 1 also at S=1, and prints kernel 1's TFLOP/s and
-   both kernels' share of their one bound (the function's operations and
-   bytes, counted once for both); the bf16 variants, which run on the
+   kernel, plain), kernels 1 and 2 also at S=1, and prints their TFLOP/s
+   and share of their one bound (the function's operations and bytes,
+   counted once for both), kernel 2's ptxas register and spill lines and one
+   fp32 ``torch.matmul`` of its DFT's product shape, (8 S, 512) x (512, 2 x
+   the live stage-1 columns), as a yardstick (not the same function: no
+   library time); the bf16 variants, which run on the
    tensor cores (K1-1pass and K1-3pass in ``csrc/melspec_mma.cu``, K2-1pass
    and K2-3pass in ``csrc/melspec_factored_mma.cu``), also at S=1, with
    their TFLOP/s, share of the bound and ptxas register and spill lines,
@@ -68,14 +71,15 @@ Phases, each of which exits nonzero on failure:
    ``bulk_predict_streaming`` must equal ``engine.predict_clips`` on the same
    audio within 1e-5;
 13. precision tiers: the bench configuration at 4096 streams x 50 frames at
-   'highest', then 'high', 'fast', 'bf16' (with each mel DFT) and 'mixed'
-   (twice, printing whether the two runs' scores are bit-equal) on the same
-   weights and audio: ms per step, streams in real time and max |dscore|
-   against the port's own 'highest' run, which must lie in (0, 1e-3] at
-   'high' (the score budget) and in (0, 0.02] at the others; scores finite
-   in [0, 1]; each run's mel variant (K1 at 'highest', K1-3pass at 'high' and
-   'mixed', K1-1pass at 'fast' and 'bf16', K2-1pass at 'bf16' with
-   ``mel_dft="factored"``) must launch once per step, and no other;
+   'highest' (with each mel DFT), then 'high', 'fast', 'bf16' (with each mel
+   DFT) and 'mixed' (twice, printing whether the two runs' scores are
+   bit-equal) on the same weights and audio: ms per step, streams in real
+   time and max |dscore| against the port's own 'highest' run (direct), which
+   must lie in [0, 1e-3] at 'highest' with ``mel_dft="factored"``, in (0,
+   1e-3] at 'high' (the score budget) and in (0, 0.02] at the others; scores
+   finite in [0, 1]; each run's mel variant (K1 and K2 at 'highest', K1-3pass
+   at 'high' and 'mixed', K1-1pass at 'fast' and 'bf16', K2-1pass at 'bf16'
+   with ``mel_dft="factored"``) must launch once per step, and no other;
 14. gating add-ons (noise suppression, the VAD gate, folded verifiers):
    a. golden: the engine at 'highest' on ``testing.gating_inputs()`` with
       the bundled VAD and two folded verifiers, suppression 'spectral' and
@@ -771,8 +775,8 @@ def serving(card: str) -> int:
 
 def tiers(card: str) -> dict:
     """Phase 13, the precision tiers at scale; returns the mel kernels'
-    launches in the runs that put them on the main path: K1 at 'highest',
-    K1-1pass and K2-1pass at 'bf16' (with each mel DFT)."""
+    launches in the runs that put them on the main path: K1 and K2 at
+    'highest', K1-1pass and K2-1pass at 'bf16' (with each mel DFT)."""
     import torch
     from openwakeword_tpu_torch import config
     from openwakeword_tpu_torch.ops import melspec_cuda
@@ -781,8 +785,8 @@ def tiers(card: str) -> dict:
     launches = melspec_cuda.melspectrogram_frames.launches
     frames = np.random.default_rng(13).integers(-2000, 2000, (SCALE_FRAMES, SCALE_STREAMS, 1280), dtype=np.int16)
     reference, out, mixed = None, {}, []
-    runs = [("highest", "direct"), ("high", "direct")] + [(t, "direct") for t in TIERS] + [
-        ("mixed", "direct"), ("bf16", "factored")]
+    runs = [("highest", "direct"), ("highest", "factored"), ("high", "direct")] + [
+        (t, "direct") for t in TIERS] + [("mixed", "direct"), ("bf16", "factored")]
     for precision, dft in runs:
         engine = MultiStreamEngine(n_streams=SCALE_STREAMS, precision=precision, mel_dft=dft, device=dev)
         engine.predict_frames(frames[:8])                    # warm-up, includes the prime
@@ -799,10 +803,16 @@ def tiers(card: str) -> dict:
         if scores.shape != (SCALE_FRAMES, SCALE_STREAMS, 11) or not (
                 np.isfinite(scores).all() and scores.min() >= 0.0 and scores.max() <= 1.0):
             fail(f"tier {precision} ({dft}): scores are not finite values in [0, 1] of the expected shape")
-        limit = SCORE_TOL if precision == "high" else TIER_DRIFT_TOL
-        if precision == "highest":
+        limit = SCORE_TOL if precision in ("high", "highest") else TIER_DRIFT_TOL
+        if reference is None:
             reference = scores
             drift = 0.0
+        elif precision == "highest":
+            # the factored DFT in fp32: the same function in another fp32 order
+            drift = float(np.abs(scores - reference).max())
+            if not drift <= limit:
+                fail(f"tier {precision} ({dft}): max |dscore| vs the port's 'highest' (direct) is {drift}, "
+                     f"above {limit}")
         else:
             # every tier here runs some stage 1-pass or 3-pass, so it must move the
             # scores: 'high' no further than the score budget, the 1-pass tiers no
@@ -2100,19 +2110,31 @@ def main():
                                     lambda: mel_plain(x_scale, dft, arith))
 
     x_one = x_scale[:1].contiguous()
-    k1_one_ms = min(cuda_ms(lambda: mel(x_one, "direct"), 200) for _ in range(2))
     mel_bound = bound(*mel_work(SCALE_STREAMS))
     mel_bound_1pass = bound(*mel_work(SCALE_STREAMS, 2), peak=BF16_FLOPS)
     mel_flops, mel_bytes = mel_work(SCALE_STREAMS)
     mel_bound_3pass = bound(3 * mel_flops, mel_bytes, peak=BF16_FLOPS)
-    for n, ms in ((1, k1_one_ms), (SCALE_STREAMS, mel_ms["direct"][0])):
-        flops, nbytes = mel_work(n)
-        bound_ms, bound_by = bound(flops, nbytes)
-        print(f"mel kernel 1 at S={n}: {ms:.4f} ms, {flops / ms / 1e9:.2f} TFLOP/s over {flops / 1e9:.4f} GFLOP "
-              f"of live bins and {nbytes / 1e6:.4f} MB, bound {bound_ms:.4f} ms ({bound_by}; {bound_ms / ms:.1%} "
-              f"of it), on {card}")
-    print(f"mel kernel 2 at S={SCALE_STREAMS}: {mel_ms['factored'][0]:.4f} ms against the same bound "
-          f"{mel_bound[0]:.4f} ms ({mel_bound[0] / mel_ms['factored'][0]:.1%} of it), on {card}")
+    # the fp32 kernels on the CUDA cores, one function and one bound: S=1 and S=4096,
+    # their rates, K2's registers, and an fp32 GEMM of K2's DFT shape
+    for k, dft in ((1, "direct"), (2, "factored")):
+        one_ms = min(cuda_ms(lambda: mel(x_one, dft), 200) for _ in range(2))
+        for n, ms in ((1, one_ms), (SCALE_STREAMS, mel_ms[dft][0])):
+            flops, nbytes = mel_work(n)
+            bound_ms, bound_by = bound(flops, nbytes)
+            print(f"mel kernel {k} at S={n}: {ms:.4f} ms, {flops / ms / 1e9:.2f} TFLOP/s over {flops / 1e9:.4f} "
+                  f"GFLOP of live bins and {nbytes / 1e6:.4f} MB, bound {bound_ms:.4f} ms ({bound_by}; "
+                  f"{bound_ms / ms:.1%} of it), on {card}")
+    for line in ptxas_lines(built.log, "melspec_frames_factored_kernel"):
+        print(f"  ptxas (csrc/melspec.cu, kernel 2): {line}")
+    _, live_cols, _, _, _ = melspec_cuda.factored_columns()
+    frames_f32 = torch.randn((melspec_cuda.FRAMES * SCALE_STREAMS, 512), device=dev)
+    basis_f32 = torch.randn((512, 2 * live_cols), device=dev)
+    gemm_ms = min(cuda_ms(lambda: torch.matmul(frames_f32, basis_f32)) for _ in range(2))
+    gemm_flops = 2.0 * frames_f32.shape[0] * 512 * basis_f32.shape[1]
+    print(f"yardstick: one fp32 torch.matmul {tuple(frames_f32.shape)} x {tuple(basis_f32.shape)} (kernel 2's DFT "
+          f"product shape at S={SCALE_STREAMS}, TF32 off) {gemm_ms:.4f} ms, {gemm_flops / gemm_ms / 1e9:.1f} "
+          f"TFLOP/s, on {card}")
+    del frames_f32, basis_f32
     # the bf16 variants on the tensor cores: S=1 and S=4096, their rates and
     # bounds, their registers, and a bf16 GEMM of their DFT's shape
     for line in ptxas_lines(built.log, "melspec_frames_mma_kernel"):

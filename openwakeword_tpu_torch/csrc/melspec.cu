@@ -214,134 +214,361 @@ melspec_frames_kernel(const float* __restrict__ windows,   // (S, kWindow)
     }
 }
 
-// Kernel 2: the same output by the radix-4 factored DFT. Replaces the TPU kernel
-// openwakeword_tpu/ops/melspec_pallas.py::_make_factored_kernel
-// (melspectrogram_pallas, dft="factored"). Decimating n = 4a + b splits each
-// 512-point frame into four 128-point branches b (samples 160j + 4a + b, read
-// from the staged frame with stride 4, no deinterleave in memory):
-//   Z_b[d]   = sum_a x[4a + b] * B_b[a, d]   (window and twiddle folded into B)
-//   X[d]     = Z0 + Z1 + Z2 + Z3                    bins 0..127
-//   X[128+d] = (Z0 - Z2) - i (Z1 - Z3)              bins 128..255
-//   X[256]   = (Z0 + Z2) - (Z1 + Z3) at d = 0
-// 4 x 128 x 128 complex MACs per frame against a direct DFT's 512 x 257:
-// half the FMAs, but over all 257 bins (kernel 1 prunes to the live ones).
-// Thread 4d + b owns Z_b[d] for the 16 streams of the tile; its basis is read
-// as (a, d, b)-ordered float2, so a warp's basis loads are one contiguous
-// 256-byte line. The four branches of a bin sit in neighbouring lanes, so the
-// butterfly is two rounds of warp shuffles that write the power straight to
-// shared memory. The mel projection is split as in
-// the TPU kernel: bins [0, 128), [128, 256), then the k = 256 row.
-constexpr int kTileS = 16;                           // streams per block
+// Kernel 2: the same output by the radix-4 factored DFT, fp32 on the CUDA cores.
+// Replaces the TPU kernel openwakeword_tpu/ops/melspec_pallas.py::_make_factored_kernel
+// (melspectrogram_pallas, dft="factored") at precision=HIGHEST. Its function, for the
+// 8 frames j of each (S, 1760) f32 window:
+//   Z_b[d] = sum_a x[160 j + 4 a + b] B_b[a, d]        branches b < 4, taps a < 128
+//   E = Z0 + Z2, O = Z1 + Z3, D = Z0 - Z2, F = Z1 - Z3  (fp32, in that order)
+//   p0[d] = |E + O|^2 (bin d), p1[d] = |D - i F|^2 (bin 128 + d), p2 = |E - O|^2 at d = 0 (bin 256)
+//   mel = p0 W0 + p1 W1 + p2 w256, out = ln(max(mel, 1e-10)) * 10/ln(10), (S, 8, 32) raw dB.
+// The window and the (b, d) twiddle are folded into the stage-1 bases B_b
+// (ops/melspec.py::factored_dft_bases).
+//
+// What bounds it: the function is kernel 1's (chip_smoke.py::mel_work), 8.08 GFLOP at
+// S = 4096 against 67 TFLOP/s of fp32: operations, 0.1206 ms. Run as it is here it is
+// one GEMM of 8 S rows (stream, frame), K = 512 in (branch, tap) order and N = 2 x the
+// live stage-1 columns (Re, Im), with the butterfly and the mel projection fused:
+//   * only the stage-1 columns that feed a live bin (mel_program.h: kFactoredCol0 ..,
+//     from ops/melspec_cuda.py::factored_columns): 2..121 at the default range, where
+//     no bin of the c = 1 half and not bin 256 is live, so only X = E + O is formed. D,
+//     F and p1 are formed only with kFactoredHalf1, p2 only with kFactoredNyquist. The
+//     columns are padded to whole kFactoredColTile-column warp tiles (120 stay 120);
+//   * one block per 8 streams, all 8 frames: 64 rows. Each window is staged once as
+//     four fp32 branch planes (branch b = samples b::4, 408 positions), [position]
+//     [stream] with 4 floats of padding after every 8 positions, so frame j's branch-b
+//     operand starts 340 j floats into plane b and the 8 frames of a warp read 8
+//     distinct bank quads (eight streams take 55.5 KB);
+//   * the basis of the live columns (ops/melspec_cuda.py::_kernel_basis, fp32, zero
+//     past the live count) streams in K slices of 32 rows (16 where two stages of 32 do
+//     not fit) with cp.async, double buffered behind one barrier per slice; each slice
+//     feeds the block's 64 rows;
+//   * a warp is 8 frames x 4 column pairs; a thread holds 8 streams x 2 columns (Re,
+//     Im). Per K step it does 32 FMAs from three 16-byte shared loads (two window reads,
+//     broadcast to the warp's 4 column pairs, one basis read, broadcast to its 8 frames);
+//   * the branch loop is outermost, in the order 0, 2, 1, 3, each branch summed into a
+//     fresh tile, so the butterfly keeps the body's fp32 order: E = Z0 + Z2 (and D = Z0 -
+//     Z2 with the c = 1 half) goes to shared memory that only its own thread touches,
+//     then O = Z1 + Z3 and F = Z1 - Z3 are formed in registers and E comes back one
+//     stream at a time. Two sets of 32 accumulators are live at once, which keeps a
+//     thread within the 128 registers that 16 warps a block leave it (three sets
+//     spilled there): 15 warps (120 columns) in one pass at the default range. With
+//     the c = 1 half the saved E and D of 16 warps do not fit beside the rest, so 8
+//     warps take the 128 columns in two passes;
+//   * the epilogue of each pass forms the power in registers, writes the (64 rows x
+//     columns) power tile and reads the mel weights of those columns, staged with the
+//     first basis slice, and warp w projects rows w, w + warps, ... onto the 32 bands
+//     (one band per lane), summing over the passes in registers; then p2 w256 and the
+//     log. Only the (64, 32) dB tile leaves the chip.
+// Any S >= 1: streams past the end of the last block read zeros and are not written.
+// Measured with tools/mel_times.py on an NVIDIA H100 80GB HBM3 at 700.00 W: 0.2420 ms at
+// S = 4096 (127 registers, no spills), 49.8% of the bound, against 0.7101 ms in the same
+// call for the design it replaced (one block per 16 streams per frame over all 257 bins,
+// the basis read from global memory by every block); a thread tile of 8 streams x 4
+// columns (8 warps, 183 registers) took 0.2447 ms.
+namespace factored {
+
 constexpr int kRadix = 4;
-constexpr int kSub = kNfft / kRadix;                 // 128 samples per branch, 128 bins
-constexpr int kFactoredThreads = kRadix * kSub;      // 512
+constexpr int kSub = kNfft / kRadix;                     // taps per branch, and stage-1 columns
+constexpr int kBranchLen = kSpan / kRadix;               // positions per stream in a branch plane
+constexpr int kGroup = 8;                                // positions between two pads
+constexpr int kGroupFloats = kGroup * kStreams + 4;      // 8 positions of the 8 streams, then 4 floats
+constexpr int kPlane = kBranchLen / kGroup * kGroupFloats;   // floats of one branch plane
+constexpr int kFrameFloats = kHop / kRadix / kGroup * kGroupFloats;   // a frame further into a plane
+constexpr int kColTile = kFactoredColTile;               // columns per warp: 4 lanes x 2 columns
+constexpr int kColsPad = (kFactoredCols + kColTile - 1) / kColTile * kColTile;
+constexpr int kHalves = kFactoredHalf1 ? 2 : 1;          // the power of bins d, and of 128 + d
+constexpr int kMaxWarps = 16;                            // 128 registers a thread: 2 sets of 32 accumulators
+constexpr int kTileWarps = kColsPad / kColTile;
+constexpr int kSaved = kHalves * kStreams * 4;           // floats a thread keeps in shared memory: E (and D)
+constexpr int kMaxSmem = 227 * 1024;
+// Shared memory, in floats, of a block that takes the columns in `passes` passes with
+// K slices of `slice_k` rows: window planes, the threads' saved E (and D), the power
+// tile, the mel weights ([pass][half][column][mel], then bin 256's row), p2 per row,
+// and two basis stages.
+constexpr int smem_floats(int passes, int slice_k) {
+    return kRadix * kPlane + kSaved * 32 * (kTileWarps / passes) +
+           kRows * (kHalves * kColsPad / passes + 4) + (kHalves * kColsPad + 1) * kMels + kRows +
+           2 * slice_k * 2 * kColsPad / passes;
+}
+constexpr bool fits(int passes) {
+    return kTileWarps % passes == 0 && kTileWarps / passes <= kMaxWarps &&
+           smem_floats(passes, 16) * static_cast<int>(sizeof(float)) <= kMaxSmem;
+}
+constexpr int kPasses = fits(1) ? 1 : fits(2) ? 2 : 4;   // the fewest passes whose block fits an SM
+constexpr int kWarps = kTileWarps / kPasses;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kPassCols = kWarps * kColTile;             // columns of one pass
+constexpr int kSliceRow = 2 * kPassCols;                 // floats of a staged basis row: (Re, Im) per column
+constexpr int kPowStride = kHalves * kPassCols + 4;
+constexpr int kMelRows = kHalves * kColsPad;             // then bin 256's row
+constexpr int kRowsPerWarp = (kRows + kWarps - 1) / kWarps;
+constexpr int kSavedOffset = kRadix * kPlane;
+constexpr int kPowOffset = kSavedOffset + kSaved * kThreads;
+constexpr int kMelOffset = kPowOffset + kRows * kPowStride;
+constexpr int kNyqOffset = kMelOffset + (kMelRows + 1) * kMels;
+constexpr int kStageOffset = kNyqOffset + kRows;
+constexpr int kSliceK = smem_floats(kPasses, 32) * static_cast<int>(sizeof(float)) <= kMaxSmem ? 32 : 16;
+constexpr int kSlicesPerBranch = kSub / kSliceK;
+constexpr int kStagesPerPass = kRadix * kSlicesPerBranch;
+constexpr int kStages = kPasses * kStagesPerPass;
+constexpr int kSliceFloats = kSliceK * kSliceRow;
+constexpr size_t kSmemBytes = smem_floats(kPasses, kSliceK) * sizeof(float);
 
-static_assert(kTileS * kMels == kFactoredThreads, "one thread per (stream, mel) output");
-static_assert(kNfft % kRadix == 0 && kTileS % 4 == 0, "radix-4 branches; frames read as float4 over streams");
-static_assert(kFreqs <= kNfft, "the power reuses the frame buffer");
+static_assert(kBranchLen % kGroup == 0 && (kHop / kRadix) % kGroup == 0 && kSliceK % kGroup == 0,
+              "frames and K slices start on a pad group");
+static_assert(kGroupFloats % 4 == 0 && (kFrameFloats / 4) % 2 == 1,
+              "16-byte window reads; the 8 frames of a warp start in distinct bank quads");
+static_assert(kColTile == 8 && kGroupsPerWarp * kFrames == 32, "a warp is 8 frames x 4 column pairs");
+static_assert(fits(kPasses) && kStageOffset + 2 * kSliceK * kSliceRow == smem_floats(kPasses, kSliceK),
+              "whole passes of whole warps; the regions add up");
+static_assert(kFactoredCol0 + kFactoredCols <= kSub && kColsPad <= kSub, "live stage-1 columns");
+static_assert(!kFactoredNyquist || kFactoredCol0 == 0, "bin 256 is the butterfly of column 0, which must be computed");
+static_assert(kSub % kSliceK == 0 && kSliceRow % 4 == 0 && kPowStride % 4 == 0 && kPlane % 4 == 0 &&
+              kPowOffset % 4 == 0 && kMelOffset % 4 == 0 && kStageOffset % 4 == 0, "16-byte aligned regions");
+static_assert(kSmemBytes <= kMaxSmem && kThreads <= 1024, "the block fits an SM");
 
-__global__ void __launch_bounds__(kFactoredThreads)
-melspec_frames_factored_kernel(const float* __restrict__ windows,
-                               const float2* __restrict__ basis,   // (128 a, 128 d, 4 b) of (Re, Im)
-                               const float* __restrict__ melw,     // (257, 32)
-                               float* __restrict__ out,            // (S, 8, 32)
-                               int n_streams) {
-    __shared__ __align__(16) float smem[kNfft * kTileS];
-    const int s0 = blockIdx.x * kTileS;
-    const int frame = blockIdx.y;
-    const int tid = threadIdx.x;
-    const int n_valid = min(kTileS, n_streams - s0);
+// Starts the copy of stage i, K slice i % kSlicesPerBranch of the pass's v-th branch
+// (v = (i / kSlicesPerBranch) % 4; branches in the order 0, 2, 1, 3), the columns of
+// pass i / kStagesPerPass, into dst ([row][kSliceRow]), committed as one cp.async
+// group with whatever this thread issued before.
+__device__ __forceinline__ void load_stage(float* dst, const float* __restrict__ basis, int i) {
+    constexpr int kChunks = kSliceRow / 4;
+    const int pass = i / kStagesPerPass;
+    const int v = (i - pass * kStagesPerPass) / kSlicesPerBranch;
+    const int k0 = kSub * ((v & 1) * 2 + (v >> 1)) + kSliceK * (i % kSlicesPerBranch);
+    const float* src = basis + static_cast<size_t>(k0) * (2 * kColsPad) + kSliceRow * pass;
+    for (int c = threadIdx.x; c < kSliceK * kChunks; c += kThreads) {
+        const int row = c / kChunks;
+        const int chunk = c - row * kChunks;
+        cp_async16(dst + row * kSliceRow + 4 * chunk, src + row * (2 * kColsPad) + 4 * chunk);
+    }
+    cp_async_commit();
+}
 
-    for (int i = tid; i < kTileS * kNfft; i += kFactoredThreads) {
-        const int s = i / kNfft;
-        const int n = i - s * kNfft;
-        float v = 0.0f;
-        if (s < n_valid) {
-            v = windows[static_cast<size_t>(s0 + s) * kWindow + kHop * frame + n];
+// the thread's tile of one branch's product: the window from `a` (the thread's frame
+// in the branch's plane), the basis from the branch's kSlicesPerBranch stages, the
+// first of them `stage` (arrive(i) waits for stage i and returns the thread's column
+// pair in it)
+template <typename Arrive>
+__device__ __forceinline__ void branch_product(float (&acc)[kStreams][4], const float* a, Arrive& arrive,
+                                               int stage) {
+#pragma unroll
+    for (int s = 0; s < kStreams; ++s) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+            acc[s][q] = 0.0f;
         }
-        smem[n * kTileS + s] = v;
     }
-    __syncthreads();
-
-    const int b = tid % kRadix;
-    const int d = tid / kRadix;
-    float re[kTileS];
-    float im[kTileS];
+#pragma unroll 1
+    for (int sl = 0; sl < kSlicesPerBranch; ++sl) {
+        const float* b = arrive(stage + sl);
+        const float* as = a + kSliceK / kGroup * kGroupFloats * sl;
 #pragma unroll
-    for (int s = 0; s < kTileS; ++s) {
-        re[s] = 0.0f;
-        im[s] = 0.0f;
-    }
-#pragma unroll 4
-    for (int a = 0; a < kSub; ++a) {
-        const float2 w = basis[a * kFactoredThreads + tid];
-        const float4* x4 = reinterpret_cast<const float4*>(smem + (kRadix * a + b) * kTileS);
+        for (int kk = 0; kk < kSliceK; ++kk) {
+            const float* ak = as + kk / kGroup * kGroupFloats + kk % kGroup * kStreams;
+            const float4 a0 = *reinterpret_cast<const float4*>(ak);
+            const float4 a1 = *reinterpret_cast<const float4*>(ak + 4);
+            const float4 w = *reinterpret_cast<const float4*>(b + kSliceRow * kk);
+            const float x[kStreams] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
 #pragma unroll
-        for (int q = 0; q < kTileS / 4; ++q) {
-            const float4 x = x4[q];
-            re[4 * q + 0] = fmaf(w.x, x.x, re[4 * q + 0]);
-            im[4 * q + 0] = fmaf(w.y, x.x, im[4 * q + 0]);
-            re[4 * q + 1] = fmaf(w.x, x.y, re[4 * q + 1]);
-            im[4 * q + 1] = fmaf(w.y, x.y, im[4 * q + 1]);
-            re[4 * q + 2] = fmaf(w.x, x.z, re[4 * q + 2]);
-            im[4 * q + 2] = fmaf(w.y, x.z, im[4 * q + 2]);
-            re[4 * q + 3] = fmaf(w.x, x.w, re[4 * q + 3]);
-            im[4 * q + 3] = fmaf(w.y, x.w, im[4 * q + 3]);
-        }
-    }
-
-    __syncthreads();                                // all frame reads are done
-
-    // Butterfly, straight into the power buffer [s][k] that reuses the frame
-    // buffer. Round 1 pairs b with b ^ 2: lanes 0, 1 form E = Z0 + Z2 and
-    // O = Z1 + Z3, lanes 2, 3 form D = Z0 - Z2 and F = Z1 - Z3. Round 2 pairs
-    // b with b ^ 1: lane 0 takes O beside E and writes bin d (and, for d = 0,
-    // bin 256), lane 2 takes F beside D and writes bin 128 + d.
-    float* power = smem;
-#pragma unroll
-    for (int s = 0; s < kTileS; ++s) {
-        const float o_re = __shfl_xor_sync(0xffffffffu, re[s], 2);
-        const float o_im = __shfl_xor_sync(0xffffffffu, im[s], 2);
-        const float e_re = b < 2 ? re[s] + o_re : o_re - re[s];
-        const float e_im = b < 2 ? im[s] + o_im : o_im - im[s];
-        const float f_re = __shfl_xor_sync(0xffffffffu, e_re, 1);
-        const float f_im = __shfl_xor_sync(0xffffffffu, e_im, 1);
-        if (b == 0) {
-            const float sr = e_re + f_re;
-            const float si = e_im + f_im;
-            power[s * kFreqs + d] = sr * sr + si * si;
-            if (d == 0) {
-                const float dr = e_re - f_re;
-                const float di = e_im - f_im;
-                power[s * kFreqs + 2 * kSub] = dr * dr + di * di;
+            for (int s = 0; s < kStreams; ++s) {
+                acc[s][0] = fmaf(w.x, x[s], acc[s][0]);
+                acc[s][1] = fmaf(w.y, x[s], acc[s][1]);
+                acc[s][2] = fmaf(w.z, x[s], acc[s][2]);
+                acc[s][3] = fmaf(w.w, x[s], acc[s][3]);
             }
-        } else if (b == 2) {
-            const float cr = e_re + f_im;
-            const float ci = e_im - f_re;
-            power[s * kFreqs + kSub + d] = cr * cr + ci * ci;
         }
-    }
-    __syncthreads();
-
-    const int s = tid / kMels;
-    const int m = tid - s * kMels;
-    if (s < n_valid) {
-        const float* p = power + s * kFreqs;
-        float lo = 0.0f;
-        float hi = 0.0f;
-        for (int f = 0; f < kSub; ++f) {
-            lo = fmaf(melw[f * kMels + m], p[f], lo);
-            hi = fmaf(melw[(kSub + f) * kMels + m], p[kSub + f], hi);
-        }
-        const float mel = (lo + hi) + p[2 * kSub] * melw[2 * kSub * kMels + m];
-        out[(static_cast<size_t>(s0 + s) * kFrames + frame) * kMels + m] =
-            logf(fmaxf(mel, kAmin)) * kDbPerLn;
     }
 }
 
-// Kernel 1 needs more than 48 KB of dynamic shared memory, which a kernel
-// must opt in to once per device: a driver call, so it is made on the first
-// launch on each device only.
+__device__ __forceinline__ float norm2(float re, float im) {
+    return __fadd_rn(__fmul_rn(re, re), __fmul_rn(im, im));
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+melspec_frames_factored_kernel(const float* __restrict__ windows,   // (S, kWindow)
+                               const float* __restrict__ basis,     // (kNfft, 2 kColsPad): (Re, Im) per live column
+                               const float* __restrict__ melw,      // (kMelRows + 1, kMels)
+                               float* __restrict__ out,             // (S, kFrames, kMels)
+                               int n_streams) {
+    extern __shared__ __align__(16) float smem[];
+    float* win = smem;                               // [branch][position (+pad)][stream]
+    float4* saved = reinterpret_cast<float4*>(smem + kSavedOffset);   // [half][stream][thread]: E, then D
+    float* power = smem + kPowOffset;                // [row][half * kPassCols + column]
+    float* mel_w = smem + kMelOffset;                // [pass][half][column][mel], then bin 256's row
+    float* nyquist = smem + kNyqOffset;              // p2 per row
+    float* stage = smem + kStageOffset;              // two basis stages
+    const int tid = threadIdx.x;
+    const int lane = tid & 31;
+    const int warp = tid >> 5;
+    const int f = lane & 7;                          // the thread's frame
+    const int g = lane >> 3;                         // its columns: 8 warp + 2 g, + 1 of each pass
+    const int s0 = blockIdx.x * kStreams;
+    const int n_valid = min(kStreams, n_streams - s0);
+
+    // the mel weights and basis stage 0 arrive as the first cp.async group
+    for (int c = tid; c < (kMelRows + 1) * (kMels / 4); c += kThreads) {
+        const int row = c / (kMels / 4);
+        const int half = row / kColsPad;
+        const int col = row - half * kColsPad;
+        const int pass = col / kPassCols;
+        const int at = row < kMelRows ? (pass * kHalves + half) * kPassCols + col - pass * kPassCols : kMelRows;
+        cp_async16(mel_w + at * kMels + 4 * (c - row * (kMels / 4)), melw + 4 * c);
+    }
+    load_stage(stage, basis, 0);
+
+    // Unit u of stream s, samples 4 u .. 4 u + 3, is position u of the four branch
+    // planes. Lanes take 8 streams x 4 units, so that a warp's stores are 32
+    // consecutive floats; a thread loads a batch of units before it stores them.
+    constexpr int kUnits = kStreams * kBranchLen;
+    constexpr int kBatch = 4;
+    for (int v0 = 0; v0 < kUnits; v0 += kBatch * kThreads) {
+        float x[kBatch][kRadix];
+#pragma unroll
+        for (int v = 0; v < kBatch; ++v) {
+            const int i = v0 + v * kThreads + tid;
+            const int s = i % kStreams;
+#pragma unroll
+            for (int b = 0; b < kRadix; ++b) {
+                x[v][b] = 0.0f;
+            }
+            if (i < kUnits && s < n_valid) {
+                const float* src = windows + static_cast<size_t>(s0 + s) * kWindow + kRadix * (i / kStreams);
+#pragma unroll
+                for (int b = 0; b < kRadix; ++b) {
+                    x[v][b] = src[b];
+                }
+            }
+        }
+#pragma unroll
+        for (int v = 0; v < kBatch; ++v) {
+            const int i = v0 + v * kThreads + tid;
+            const int u = i / kStreams;
+            if (i < kUnits) {
+                const int at = u / kGroup * kGroupFloats + u % kGroup * kStreams + i % kStreams;
+#pragma unroll
+                for (int b = 0; b < kRadix; ++b) {
+                    win[b * kPlane + at] = x[v][b];
+                }
+            }
+        }
+    }
+
+    // stage i is in, and every warp is done with stage i - 1, whose buffer now takes
+    // stage i + 1; returns the thread's column pair in stage i
+    const int b_lane = 2 * kColTile * warp + 4 * g;
+    auto arrive = [&](int i) {
+        cp_async_wait<0>();
+        __syncthreads();
+        if (i + 1 < kStages) {
+            load_stage(stage + ((i + 1) & 1) * kSliceFloats, basis, i + 1);
+        }
+        return stage + (i & 1) * kSliceFloats + b_lane;
+    };
+
+    const float* a_lane = win + kFrameFloats * f;
+    float mel[kRowsPerWarp];
+#pragma unroll
+    for (int i = 0; i < kRowsPerWarp; ++i) {
+        mel[i] = 0.0f;
+    }
+#pragma unroll 1
+    for (int pass = 0; pass < kPasses; ++pass) {
+        const int first = kStagesPerPass * pass;
+        float z[kStreams][4];                        // Z0, then Z1 and O
+        float t[kStreams][4];                        // Z2, then Z3 and F
+        branch_product(z, a_lane, arrive, first);
+        branch_product(t, a_lane + 2 * kPlane, arrive, first + kSlicesPerBranch);
+#pragma unroll
+        for (int s = 0; s < kStreams; ++s) {
+            const float* z0 = z[s];
+            const float* z2 = t[s];
+            saved[s * kThreads + tid] = make_float4(z0[0] + z2[0], z0[1] + z2[1], z0[2] + z2[2], z0[3] + z2[3]);
+            if constexpr (kFactoredHalf1) {
+                saved[(kStreams + s) * kThreads + tid] =
+                    make_float4(z0[0] - z2[0], z0[1] - z2[1], z0[2] - z2[2], z0[3] - z2[3]);
+            }
+        }
+        branch_product(z, a_lane + kPlane, arrive, first + 2 * kSlicesPerBranch);
+        branch_product(t, a_lane + 3 * kPlane, arrive, first + 3 * kSlicesPerBranch);
+#pragma unroll
+        for (int s = 0; s < kStreams; ++s) {
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+                const float z1 = z[s][q];
+                const float z3 = t[s][q];
+                z[s][q] = z1 + z3;
+                t[s][q] = z1 - z3;
+            }
+        }
+
+        // The power of the thread's 8 streams x 2 columns: row 8 s + f of the tile.
+        const int col = kColTile * warp + 2 * g;
+#pragma unroll
+        for (int s = 0; s < kStreams; ++s) {
+            const float4 e = saved[s * kThreads + tid];
+            const float* o = z[s];
+            float* p = power + (kFrames * s + f) * kPowStride + col;
+            *reinterpret_cast<float2*>(p) = make_float2(norm2(e.x + o[0], e.y + o[1]), norm2(e.z + o[2], e.w + o[3]));
+            if constexpr (kFactoredHalf1) {
+                const float4 d = saved[(kStreams + s) * kThreads + tid];
+                const float* fo = t[s];
+                *reinterpret_cast<float2*>(p + kPassCols) =
+                    make_float2(norm2(d.x + fo[1], d.y - fo[0]), norm2(d.z + fo[3], d.w - fo[2]));
+            }
+            if constexpr (kFactoredNyquist) {
+                // column 0 is the first column of lanes g == 0 in warp 0 of pass 0
+                if (pass == 0 && col == 0) {
+                    nyquist[kFrames * s + f] = norm2(e.x - o[0], e.y - o[1]);
+                }
+            }
+        }
+        __syncthreads();                             // the power tile is written
+
+        // Warp w projects rows w, w + kWarps, ... onto band `lane`.
+        const float* w_pass = mel_w + pass * kHalves * kPassCols * kMels + lane;
+#pragma unroll 2
+        for (int k = 0; k < kHalves * kPassCols; k += 4) {
+            const float w0 = w_pass[(k + 0) * kMels];
+            const float w1 = w_pass[(k + 1) * kMels];
+            const float w2 = w_pass[(k + 2) * kMels];
+            const float w3 = w_pass[(k + 3) * kMels];
+#pragma unroll
+            for (int i = 0; i < kRowsPerWarp; ++i) {
+                const int r = warp + kWarps * i;
+                if (kRows % kWarps == 0 || r < kRows) {
+                    const float4 p = *reinterpret_cast<const float4*>(power + r * kPowStride + k);
+                    mel[i] = fmaf(w0, p.x, mel[i]);
+                    mel[i] = fmaf(w1, p.y, mel[i]);
+                    mel[i] = fmaf(w2, p.z, mel[i]);
+                    mel[i] = fmaf(w3, p.w, mel[i]);
+                }
+            }
+        }
+        // the next pass writes the power tile only after its K loop's barriers
+    }
+
+    // Row r = 8 s + f of the block is out[s0 + s, f]; bin 256's fp32 product comes
+    // last, as the body adds p2 * mel_last after its two dots.
+#pragma unroll
+    for (int i = 0; i < kRowsPerWarp; ++i) {
+        const int r = warp + kWarps * i;
+        if ((kRows % kWarps == 0 || r < kRows) && r / kFrames < n_valid) {
+            float v = mel[i];
+            if constexpr (kFactoredNyquist) {
+                v = __fadd_rn(v, __fmul_rn(nyquist[r], mel_w[kMelRows * kMels + lane]));
+            }
+            out[(static_cast<size_t>(s0) * kFrames + r) * kMels + lane] = logf(fmaxf(v, kAmin)) * kDbPerLn;
+        }
+    }
+}
+
+}  // namespace factored
+
+// Kernels 1 and 2 need more than 48 KB of dynamic shared memory, which a
+// kernel must opt in to once per device: a costly runtime call, so it is made
+// on the first launch on each device only.
 constexpr size_t kSmemBytes = kSmemFloats * sizeof(float);
 
 int launch_factored(const float* windows, const float* basis, const float* melw, float* out, int n_streams,
@@ -349,9 +576,15 @@ int launch_factored(const float* windows, const float* basis, const float* melw,
     if (n_streams <= 0) {
         return 0;
     }
-    const dim3 grid((n_streams + kTileS - 1) / kTileS, kFrames);
-    melspec_frames_factored_kernel<<<grid, kFactoredThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        windows, reinterpret_cast<const float2*>(basis), melw, out, n_streams);
+    static std::atomic<unsigned long long> allowed{0};
+    const cudaError_t err = allow_smem(factored::melspec_frames_factored_kernel, factored::kSmemBytes, &allowed);
+    if (err != cudaSuccess) {
+        return static_cast<int>(err);
+    }
+    const int grid = (n_streams + kStreams - 1) / kStreams;
+    factored::melspec_frames_factored_kernel<<<grid, factored::kThreads, factored::kSmemBytes,
+                                               static_cast<cudaStream_t>(stream)>>>(windows, basis, melw, out,
+                                                                                    n_streams);
     return static_cast<int>(cudaGetLastError());
 }
 

@@ -4,7 +4,8 @@
 ``melspectrogram_frames(windows, dft)`` is the wrapper the engine calls:
 ``dft="direct"`` is kernel 1 (the windowed cos/sin DFT over the live bins
 only, the DFT bins on which the mel filterbank has a non-zero weight),
-``dft="factored"`` kernel 2 (the radix-4 factored DFT over all 257 bins).
+``dft="factored"`` kernel 2 (the radix-4 factored DFT over the stage-1
+columns that feed a live bin, ``factored_columns``).
 ``arith`` picks the arithmetic of the TPU kernels (``ops.melspec._mel_bf16``):
 'fp32' (``precision=HIGHEST``), the 1-pass bf16 variant '1pass'
 (``precision=None``) or the 3-pass variant '3pass' (``Precision.HIGH``).
@@ -55,6 +56,10 @@ MMA_BIN_TILE = 32
 # groups of 8 columns; mel_program.h carries it to csrc/melspec_factored_mma.cu);
 # their constants pad the computed columns with zeros to whole passes
 FACTORED_CHUNK = 32
+# kernel 2's (fp32) stage-1 columns per warp (4 column pairs; mel_program.h carries
+# it to csrc/melspec.cu); its constants pad the computed columns with zeros to a
+# whole number of these tiles (120 stay 120 at the default range)
+FACTORED_COL_TILE = 8
 
 
 def variant(dft: str, arith: str = "fp32") -> str:
@@ -103,29 +108,43 @@ def live_bins() -> Tuple[int, int, int]:
 def _kernel_basis(dft: str) -> np.ndarray:
     """Kernel 1: the (512, 2 * padded) interleaved cos/-sin basis of the live
     bins (``stft_power_basis`` columns 2 * first .. 2 * (first + count)),
-    zero past 2 * count. Kernel 2: the factored bases reordered to
-    (128 a, 128 d, 4 b, 2) so that thread 4d + b reads (Re, Im) of branch b
-    as one float2."""
+    zero past 2 * count. Kernel 2: the (512, 2 * ``factored_padded()``)
+    stage-1 basis of the columns of ``factored_columns()``, K in (branch,
+    tap) order, k = 128 b + a, and per column d = first + i its Re and Im
+    (``factored_dft_bases()`` columns 2 d, 2 d + 1) at 2 i, 2 i + 1, zero
+    past 2 * count."""
     if dft == "direct":
         first, count, padded = live_bins()
         basis = np.zeros((config.N_FFT, 2 * padded))
         basis[:, :2 * count] = melspec.stft_power_basis(config.N_FFT, config.WIN_LENGTH)[
             :, 2 * first:2 * (first + count)]
         return basis
-    sub = config.N_FFT // melspec.RADIX                                         # 128
-    bases = melspec.factored_dft_bases().reshape(melspec.RADIX, sub, sub, 2)    # (b, a, d, 2)
-    return np.transpose(bases, (1, 2, 0, 3))
+    first, count, _, _, _ = factored_columns()
+    basis = np.zeros((config.N_FFT, 2 * factored_padded()))
+    basis[:, :2 * count] = melspec.factored_dft_bases()[:, :, 2 * first:2 * (first + count)].reshape(config.N_FFT, -1)
+    return basis
 
 
 def _kernel_melw(dft: str) -> np.ndarray:
     """Kernel 1: the (padded, 32) mel weights of the live bins, zero past
-    ``count``. Kernel 2: the full (257, 32) filterbank."""
+    ``count``. Kernel 2: (halves * ``factored_padded()`` + 1, 32), the
+    filterbank rows of bins ``first + i`` (half 0) and, with ``half1``,
+    ``128 + first + i`` (half 1) at row ``half * padded + i``, zero past
+    ``count``; then bin 256's row (read by the kernel only with
+    ``nyquist``)."""
+    fb = _filterbank()
     if dft == "direct":
         first, count, padded = live_bins()
         melw = np.zeros((padded, config.N_MELS))
-        melw[:count] = _filterbank()[first:first + count]
+        melw[:count] = fb[first:first + count]
         return melw
-    return melspec.mel_filterbank()
+    first, count, _, half1, _ = factored_columns()
+    sub, padded = config.N_FFT // melspec.RADIX, factored_padded()
+    melw = np.zeros(((2 if half1 else 1) * padded + 1, config.N_MELS))
+    for half in range(2 if half1 else 1):
+        melw[half * padded:half * padded + count] = fb[sub * half + first:sub * half + first + count]
+    melw[-1] = fb[2 * sub]
+    return melw
 
 
 def mma_bins() -> int:
@@ -176,6 +195,13 @@ def factored_columns() -> Tuple[int, int, int, bool, bool]:
         cols.append(0)
     lo, n = min(cols), max(cols) + 1 - min(cols)
     return lo, n, -(-n // FACTORED_CHUNK) * FACTORED_CHUNK, stop > sub, stop > 2 * sub
+
+
+def factored_padded() -> int:
+    """Kernel 2's (fp32) computed stage-1 columns: ``factored_columns()``'s
+    count padded with zero columns to whole ``FACTORED_COL_TILE``-column
+    warp tiles (120 at the default range)."""
+    return -(-factored_columns()[1] // FACTORED_COL_TILE) * FACTORED_COL_TILE
 
 
 def factored_mma_columns() -> np.ndarray:

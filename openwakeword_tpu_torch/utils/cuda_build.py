@@ -81,6 +81,7 @@ def generated_headers() -> Dict[str, str]:
            "kLiveBin0": first, "kLiveBins": count, "kLiveBinsPad": padded, "kBinTile": melspec_cuda.BIN_TILE,
            "kMmaBinTile": melspec_cuda.MMA_BIN_TILE, "kFactoredCol0": col0, "kFactoredCols": cols,
            "kFactoredColsPad": cols_pad, "kFactoredChunk": melspec_cuda.FACTORED_CHUNK,
+           "kFactoredColTile": melspec_cuda.FACTORED_COL_TILE,
            "kFactoredHalf1": int(half1), "kFactoredNyquist": int(nyquist)}
     return {"cnn_program.h": "// Written by utils/cuda_build.py from ops/cnn_step.py::conv_table:\n"
                              "// (kh, kw, cin, cout, pool_h, pool_w, epilogue) per conv.\n" + rows,
@@ -96,7 +97,8 @@ def generated_headers() -> Dict[str, str]:
                              "// K1-3pass pad them further to whole kMmaBinTile-bin warp tiles. K2-1pass\n"
                              "// and K2-3pass compute the stage-1 columns [kFactoredCol0, kFactoredCol0 +\n"
                              "// kFactoredCols) that feed a live bin (factored_columns), padded to\n"
-                             "// kFactoredColsPad, whole kFactoredChunk-column passes; kFactoredHalf1: a\n"
+                             "// kFactoredColsPad, whole kFactoredChunk-column passes; kernel 2 (fp32)\n"
+                             "// pads them to whole kFactoredColTile-column warp tiles. kFactoredHalf1: a\n"
                              "// bin in [128, 256) is live; kFactoredNyquist: bin 256 is live.\n"
                              + "".join(f"constexpr int {k} = {v};\n" for k, v in mel.items())}
 

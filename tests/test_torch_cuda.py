@@ -125,6 +125,25 @@ def test_live_bin_kernel_ragged_streams(cuda, n_streams):
     assert float((got[-1] + 100.0).abs().max()) <= 1e-4
 
 
+@pytest.mark.parametrize("n_streams", [1, 7, 8, 9, 63, 65, 1000, 4095])
+def test_factored_kernel_ragged_streams(cuda, n_streams):
+    """Kernel 2 tiles 8 streams per block over the live stage-1 columns: a
+    last block with 1..8 streams, held against the plain version (all 257
+    bins), with a silent stream in that last block; each call launches the
+    kernel once."""
+    w = (np.random.default_rng(n_streams).uniform(-1, 1, (n_streams, 1760)) * 25000).astype(np.float32)
+    w[-1] = 0.0
+    x = torch.from_numpy(w).to(cuda)
+    before = melspec_cuda.melspectrogram_frames.launches["factored"]
+    got = melspec_cuda.melspectrogram_frames(x, "factored")
+    want = melspec_cuda.melspectrogram_frames_plain(x, "factored")
+    torch.cuda.synchronize()
+    assert melspec_cuda.melspectrogram_frames.launches["factored"] == before + 1
+    assert got.shape == (n_streams, 8, 32)
+    assert float((got - want).abs().max()) <= 2e-3
+    assert float((got[-1] + 100.0).abs().max()) <= 1e-4
+
+
 @pytest.mark.parametrize("dft", ["direct", "factored"])
 @pytest.mark.parametrize("n_streams", [1, 5, 17, 63, 65, 1000, 4095])
 def test_mel_1pass_kernel_matches_plain(cuda, n_streams, dft):
@@ -325,6 +344,26 @@ def test_tensor_core_kernels_other_live_range(cuda, wide_mel_range, arith, n_str
     else:
         assert float((got - want).abs().max()) <= 2e-3
         assert_nearer_3pass(got[:-1], want[:-1], f32[:-1], n_streams)
+
+
+@pytest.mark.parametrize("n_streams", [1, 9, 1000])
+def test_factored_kernel_other_live_range(cuda, wide_mel_range, n_streams):
+    """Kernel 2 built for another live range, with a silent stream: all 128
+    stage-1 columns with the c = 1 half live (bins 128..223: D, F and p1
+    formed; 8 column warps in two passes), held to the plain fp32 function
+    over that range (``_live_range_frames``) within 2e-3 dB."""
+    assert melspec_cuda.factored_columns() == (0, 128, 128, True, False) and melspec_cuda.factored_padded() == 128
+    w = (np.random.default_rng(n_streams).uniform(-1, 1, (n_streams, 1760)) * 25000).astype(np.float32)
+    w[-1] = 0.0
+    x = torch.from_numpy(w).to(cuda)
+    before = melspec_cuda.melspectrogram_frames.launches["factored"]
+    got = melspec_cuda.melspectrogram_frames(x, "factored")
+    want = _live_range_frames(x, "fp32", "factored")
+    torch.cuda.synchronize()
+    assert melspec_cuda.melspectrogram_frames.launches["factored"] == before + 1
+    assert got.shape == (n_streams, 8, 32)
+    assert float((got - want).abs().max()) <= 2e-3
+    assert float((got[-1] + 100.0).abs().max()) <= 1e-4
 
 
 def test_mel_kernel_rejects_bad_inputs(cuda):
