@@ -13,7 +13,7 @@ Phases, each of which exits nonzero on failure:
 3. mel kernels vs plain: kernels 1 (direct DFT over the filterbank's live
    bins) and 2 (factored DFT) against their plain PyTorch versions on the
    card (the unpruned 257-bin path), S in {1, 5, 17, 63, 64, 65, 1000, 4095,
-   4096} with one silent stream each, max |dB diff| <= 2e-3, plus silence
+   4096} with one silent stream each where S > 1, max |dB diff| <= 2e-3, plus silence
    (-100 dB); times each pair at S=4096 with CUDA events (plain, kernel,
    kernel, plain), kernels 1 and 2 also at S=1, and prints their TFLOP/s
    and share of their one bound (the function's operations and bytes,
@@ -221,6 +221,14 @@ Phases, each of which exits nonzero on failure:
       path, the structural shard check, scores within 1e-5 of the
       unsharded engine, and the weak-scaling walls (the efficiency asserted
       only with one card per entry).
+20. the full band: the library rebuilt at ``config.FMAX = 8000`` (254 live
+   DFT bins; K1-3pass loads its mel weights after its K loop there), its
+   build seconds and K1-1pass/K1-3pass's ptxas lines; all six mel kernels
+   held to their plain versions over that range at phase 3's limits at
+   S=4096 and S=1 and timed against them at S=4096 beside their bounds at
+   that range; the bench step at 'highest' and 'high', S=4096, with each mel
+   DFT, the 'high' scores within 1e-3 of 'highest' (its launches join the
+   kernels line); then the default library restored.
 
 The 1-pass bf16 variants of the four kernels run beside their fp32 ones.
 Phase 3 holds K1-1pass and K2-1pass against their plain versions within
@@ -338,6 +346,9 @@ DP_ENTRIES = 2
 DP_BATCH = 1024
 DP_STEPS = 40
 DP_PARAM_TOL = 5e-5        # the JAX mesh trainer test's tolerance (tests/test_trainer.py)
+# phase 20, the full band: the filterbank up to half the sample rate (254 live DFT bins)
+FULL_BAND_FMAX = 8000.0
+FULL_BAND_STREAMS = (SCALE_STREAMS, 1)
 
 
 def fail(msg: str):
@@ -386,23 +397,51 @@ def bound(flops: float, nbytes: int, peak: float = FP32_FLOPS):
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-def mel_work(n_streams: int, const_bytes: int = 4):
+def mel_work(n_streams: int, const_bytes: int = 4, dft: str = "direct"):
     """(fp32 operations, bytes) of the mel frontend's function on
-    ``n_streams`` windows, counted once for both kernels: per frame the
-    DFT's multiply-adds over the live bins (cos and sin over 512 samples),
-    the power of those bins and the mel projection's non-zero filterbank
-    weights; of each window the samples its 8 frames read, (8 - 1) * 160 +
-    512, read once, each dB value written once, and the live bins' DFT
-    coefficients and the non-zero weights read once at ``const_bytes`` each
-    (4 for fp32 or a bf16 hi and lo, 2 for one rounded bf16 plane)."""
+    ``n_streams`` windows by ``dft``: per frame the DFT's multiply-adds over
+    its columns, Re and Im over K = 512 (the direct DFT's live bins, cos and
+    sin over 512 samples; the factored DFT's live stage-1 columns,
+    ``factored_columns()``, over 4 branches x 128 taps, which feed the live
+    bins of both power halves and bin 256), the power of the live bins and
+    the mel projection's non-zero filterbank weights (the factored
+    butterfly's adds, at most 6 per live bin, are left out); of each window
+    the samples its 8 frames read, (8 - 1) * 160 + 512, read once, each dB
+    value written once, and the DFT's coefficients over those columns and
+    the non-zero weights read once at ``const_bytes`` each (4 for fp32 or a
+    bf16 hi and lo, 2 for one rounded bf16 plane). At the default range both
+    DFTs have 120 columns; at the full band the direct DFT has 254, the
+    factored one 128."""
     from openwakeword_tpu_torch import config
     from openwakeword_tpu_torch.ops import melspec_cuda
     _, bins, _ = melspec_cuda.live_bins()
+    cols = melspec_cuda.factored_columns()[1] if dft == "factored" else bins
     nonzero = int(np.count_nonzero(melspec_cuda._kernel_melw("direct").astype(np.float32)))
-    per_frame = 2 * 2 * config.N_FFT * bins + 3 * bins + 2 * nonzero
+    per_frame = 2 * 2 * config.N_FFT * cols + 3 * bins + 2 * nonzero
     samples = (melspec_cuda.FRAMES - 1) * config.HOP_LENGTH + config.N_FFT
     io = 4 * n_streams * (samples + melspec_cuda.FRAMES * melspec_cuda.N_MELS)
-    return melspec_cuda.FRAMES * n_streams * per_frame, io + const_bytes * (2 * config.N_FFT * bins + nonzero)
+    return melspec_cuda.FRAMES * n_streams * per_frame, io + const_bytes * (2 * config.N_FFT * cols + nonzero)
+
+
+# per arithmetic: the passes of the DFT's product and the bytes of each constant
+MEL_PASSES = {"fp32": (1, 4), "1pass": (1, 2), "3pass": (3, 4)}
+
+
+def mel_bounds(n_streams: int) -> dict:
+    """Each mel variant's ``bound`` on ``n_streams`` windows, by name: its
+    DFT's ``mel_work`` at the fp32 rate, or at the dense bf16 tensor-core
+    rate once (1-pass, one rounded constant plane) or three times (3-pass,
+    hi and lo planes)."""
+    from openwakeword_tpu_torch import config
+    from openwakeword_tpu_torch.ops import melspec_cuda
+    out = {}
+    for dft in melspec_cuda.DFTS:
+        for arith in config.ARITHS:
+            passes, const_bytes = MEL_PASSES[arith]
+            flops, nbytes = mel_work(n_streams, const_bytes, dft)
+            out[melspec_cuda.variant(dft, arith)] = bound(passes * flops, nbytes,
+                                                          FP32_FLOPS if arith == "fp32" else BF16_FLOPS)
+    return out
 
 
 def mma_flops(n_streams: int, dft: str = "direct") -> float:
@@ -515,6 +554,64 @@ def nearer_3pass(what: str, got, want3, want32) -> float:
         fail(f"{what}: mean |diff| {d3} from the plain 3-pass version, {d32} from the plain fp32 one "
              f"(ratio {ratio}, need {THREE_PASS_CLOSER}): it does not compute the 3-pass function")
     return ratio
+
+
+def mel_check(dft: str, arith: str, n: int, where: str = "") -> tuple:
+    """Phase 3's check of one mel variant on ``n`` seeded windows, stream
+    n // 2 silent where n > 1: within MEL_TOL_DB of its plain version (MEL_1PASS_TOL_DB
+    at 1-pass); a 3-pass variant THREE_PASS_CLOSER times nearer its plain
+    3-pass version than the plain fp32 one over the sounding streams; a
+    1-pass variant beyond MEL_TOL_DB in at most MEL_1PASS_SHARE of the
+    values, more than MEL_TOL_DB from the fp32 kernel and bit for bit the
+    same on windows rounded to bf16 beforehand. Fails otherwise; returns
+    (max |diff|, the 3-pass ratio or nan)."""
+    import torch
+    from openwakeword_tpu_torch.ops import melspec_cuda
+    from openwakeword_tpu_torch.ops.bf16 import round_bf16
+    mel, mel_plain = melspec_cuda.melspectrogram_frames, melspec_cuda.melspectrogram_frames_plain
+    name, tol = melspec_cuda.variant(dft, arith), (MEL_1PASS_TOL_DB if arith == "1pass" else MEL_TOL_DB)
+    w = (np.random.default_rng(n).uniform(-1, 1, (n, melspec_cuda.WINDOW)) * 25000).astype(np.float32)
+    silent = n // 2 if n > 1 else None            # one silent stream beside sounding ones
+    if silent is not None:
+        w[silent] = 0.0
+    x = torch.from_numpy(w).to(torch.device("cuda", 0))
+    got, want = mel(x, dft, arith), mel_plain(x, dft, arith)
+    torch.cuda.synchronize()
+    err, ratio = max_diff(got, want), math.nan
+    if arith == "fp32":
+        print(f"mel kernel ({name}) vs plain{where}, S={n}: max |diff| {err:.3e} dB (limit {tol:.1e})")
+    elif arith == "3pass":
+        # it computes the 3-pass function: nearer its plain version than the fp32
+        # one, over the sounding streams (a silent one gives -100 dB in each)
+        sounding = [i for i in range(n) if i != silent]
+        if silent is not None:
+            ratio = nearer_3pass(f"mel kernel ({name}){where} at S={n}", got[sounding], want[sounding],
+                                 mel_plain(x, dft)[sounding])
+        print(f"mel kernel ({name}) vs plain{where}, S={n}: max |diff| {err:.3e} dB (limit {tol:.1e}), "
+              f"mean |diff| over the sounding streams to the plain fp32 version {ratio:.2f}x that "
+              f"to the plain 3-pass one (need {THREE_PASS_CLOSER})")
+    else:
+        # it rounds at the plain version's points (the share), it is not
+        # the fp32 kernel (the gap), and it rounds the windows it stages
+        # (the same result on windows rounded beforehand, bit for bit)
+        share = float(((got - want).abs() > MEL_TOL_DB).float().mean())
+        gap = max_diff(got, mel(x, dft))
+        same = bool(torch.equal(mel(round_bf16(x), dft, "1pass"), got))
+        print(f"mel kernel ({name}) vs plain{where}, S={n}: max |diff| {err:.3e} dB (limit {tol:.3e}), "
+              f"share over {MEL_TOL_DB:.0e} dB {share:.2e} (limit {MEL_1PASS_SHARE}), "
+              f"the fp32 kernel's gap {gap:.3e} dB (must exceed {MEL_TOL_DB:.0e}), "
+              f"same on rounded windows: {same}")
+        if not share <= MEL_1PASS_SHARE:
+            fail(f"mel kernel ({name}){where} moves {share:.2%} of the values at S={n} over {MEL_TOL_DB} dB "
+                 f"from its plain version: it does not round where the plain version does")
+        if n > 1 and not gap > MEL_TOL_DB:
+            fail(f"mel kernel ({name}){where} is within {gap} dB of the fp32 kernel at S={n}")
+        if not same:
+            fail(f"mel kernel ({name}){where} changes when its windows come rounded to bf16 at S={n}: "
+                 f"it does not round the samples it stages")
+    if not err <= tol:
+        fail(f"mel kernel ({name}){where} disagrees with the plain version at S={n}: {err} dB > {tol}")
+    return err, ratio
 
 
 def scaled_err(got, want) -> float:
@@ -2005,6 +2102,91 @@ def slice_g(card: str) -> int:
     return total
 
 
+def full_band(card: str) -> tuple:
+    """Phase 20, the full band: the library rebuilt at ``config.FMAX`` =
+    FULL_BAND_FMAX (254 live bins, K1-3pass with its mel weights loaded after
+    the K loop), every mel kernel held to its plain version over that range
+    at phase 3's limits (``mel_check``) at S=4096 and S=1 and timed against
+    it at S=4096, the bench step at 'high' with each mel DFT held within
+    SCORE_TOL of the same engine at 'highest', then the default library
+    restored. Returns (the mel kernels' launches in the engine runs, the
+    largest kernel-vs-plain error per variant)."""
+    import torch
+    from openwakeword_tpu_torch import config
+    from openwakeword_tpu_torch.ops import melspec_cuda
+    from openwakeword_tpu_torch.parallel.engine import MultiStreamEngine
+    from openwakeword_tpu_torch.utils import cuda_build
+    dev = torch.device("cuda", 0)
+    mel, mel_plain = melspec_cuda.melspectrogram_frames, melspec_cuda.melspectrogram_frames_plain
+    caches = (cuda_build.load_library, melspec_cuda._kernel_fn, melspec_cuda._device_consts)
+    default_fmax = config.FMAX
+    config.FMAX = FULL_BAND_FMAX
+    for cache in caches:
+        cache.cache_clear()
+    built = cuda_build.load_library()
+    first, count, padded = melspec_cuda.live_bins()
+    print(f"full band: FMAX {config.FMAX:.0f} Hz, DFT bins {first}..{first + count - 1} ({count} live, padded to "
+          f"{padded}; K1-1pass/K1-3pass over {melspec_cuda.mma_bins()}), library {built.path} built in "
+          f"{built.build_seconds:.2f} s")
+    for line in ptxas_lines(built.log, "melspec_frames_mma_kernel"):
+        print(f"  ptxas (csrc/melspec_mma.cu, full band): {line}")
+    errs = {}
+    x_scale = torch.from_numpy((np.random.default_rng(20).uniform(-1, 1, (SCALE_STREAMS, melspec_cuda.WINDOW))
+                                * 25000).astype(np.float32)).to(dev)
+    bounds = mel_bounds(SCALE_STREAMS)
+    for dft in melspec_cuda.DFTS:
+        flops, _ = mel_work(SCALE_STREAMS, dft=dft)
+        cols = melspec_cuda.factored_columns()[1] if dft == "factored" else count
+        for arith in config.ARITHS:
+            name = melspec_cuda.variant(dft, arith)
+            errs[name] = max(mel_check(dft, arith, n, " (full band)")[0] for n in FULL_BAND_STREAMS)
+            ms = sandwich(f"mel ({name}, full band)", lambda: mel(x_scale, dft, arith),
+                          lambda: mel_plain(x_scale, dft, arith))
+            passes = MEL_PASSES[arith][0]
+            bound_ms, bound_by = bounds[name]
+            print(f"mel kernel ({name}) at the full band, S={SCALE_STREAMS}: {ms[0]:.4f} ms (plain {ms[1]:.4f}), "
+                  f"bound {bound_ms:.4f} ms ({bound_by}, {passes} x {flops / 1e9:.4f} GFLOP over {cols} DFT "
+                  f"columns for {count} live bins; {bound_ms / ms[0]:.1%} of it), on {card}")
+    launches = melspec_cuda.melspectrogram_frames.launches
+    frames = np.random.default_rng(20).integers(-2000, 2000, (SCALE_FRAMES, SCALE_STREAMS, 1280), dtype=np.int16)
+    used_total = {}
+    for dft in melspec_cuda.DFTS:
+        scores = {}
+        for precision in ("highest", "high"):
+            engine = MultiStreamEngine(n_streams=SCALE_STREAMS, precision=precision, mel_dft=dft, device=dev)
+            engine.predict_frames(frames[:8])                # warm-up, includes the prime
+            for k in launches:
+                launches[k] = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            scores[precision] = engine.predict_frames(frames)
+            wall = time.perf_counter() - t0
+            want = melspec_cuda.variant(dft, config.kernel_arith(precision))
+            used = {k: v for k, v in launches.items() if v}
+            if used != {want: SCALE_FRAMES}:
+                fail(f"full band, {precision} ({dft}): mel launches {used}, expected {SCALE_FRAMES} of {want}")
+            used_total[want] = used_total.get(want, 0) + SCALE_FRAMES
+            out = scores[precision]
+            if out.shape != (SCALE_FRAMES, SCALE_STREAMS, 11) or not (
+                    np.isfinite(out).all() and out.min() >= 0.0 and out.max() <= 1.0):
+                fail(f"full band, {precision} ({dft}): scores are not finite values in [0, 1] of the expected shape")
+            print(f"full band engine {precision} (mel_dft={dft}): {wall / SCALE_FRAMES * 1e3:.3f} ms per step over "
+                  f"{SCALE_FRAMES} frames x {SCALE_STREAMS} streams, {want} launches {launches[want]}, on {card}")
+            del engine
+        drift = float(np.abs(scores["high"] - scores["highest"]).max())
+        print(f"full band engine (mel_dft={dft}): 'high' max |dscore| vs 'highest' {drift:.3e} (limit {SCORE_TOL})")
+        if not drift <= SCORE_TOL:
+            fail(f"full band engine (mel_dft={dft}): 'high' is {drift} from 'highest', above {SCORE_TOL}")
+    config.FMAX = default_fmax
+    for cache in caches:
+        cache.cache_clear()
+    restored = cuda_build.load_library()
+    if melspec_cuda.live_bins() != (2, 120, 128):
+        fail(f"full band: the default live range did not come back ({melspec_cuda.live_bins()})")
+    print(f"full band: default library restored ({restored.path}, built in {restored.build_seconds:.2f} s)")
+    return used_total, errs
+
+
 def main():
     t_start = time.perf_counter()
     import torch
@@ -2058,50 +2240,12 @@ def main():
     print(f"mel kernel 1 computes DFT bins {first}..{first + count - 1} ({count} of 257, padded to {padded})")
     for dft in melspec_cuda.DFTS:
         for arith in ("fp32", "1pass", "3pass"):
-            name, tol = melspec_cuda.variant(dft, arith), (MEL_1PASS_TOL_DB if arith == "1pass" else MEL_TOL_DB)
+            name = melspec_cuda.variant(dft, arith)
             mel_err[name] = 0.0
             for n in MEL_CHECK_STREAMS:
-                w = (np.random.default_rng(n).uniform(-1, 1, (n, melspec_cuda.WINDOW)) * 25000).astype(np.float32)
-                w[n // 2] = 0.0                               # one silent stream
-                x = torch.from_numpy(w).to(dev)
-                got, want = mel(x, dft, arith), mel_plain(x, dft, arith)
-                torch.cuda.synchronize()
-                err = max_diff(got, want)
-                if arith == "fp32":
-                    print(f"mel kernel ({name}) vs plain, S={n}: max |diff| {err:.3e} dB (limit {tol:.1e})")
-                elif arith == "3pass":
-                    # it computes the 3-pass function: nearer its plain version than the fp32
-                    # one, over the sounding streams (a silent one gives -100 dB in each)
-                    sounding = [i for i in range(n) if i != n // 2]
-                    ratio = math.nan
-                    if sounding:
-                        ratio = nearer_3pass(f"mel kernel ({name}) at S={n}", got[sounding], want[sounding],
-                                             mel_plain(x, dft)[sounding])
-                        mel_ratio[name] = min(mel_ratio.get(name, math.inf), ratio)
-                    print(f"mel kernel ({name}) vs plain, S={n}: max |diff| {err:.3e} dB (limit {tol:.1e}), "
-                          f"mean |diff| over the sounding streams to the plain fp32 version {ratio:.2f}x that "
-                          f"to the plain 3-pass one (need {THREE_PASS_CLOSER})")
-                else:
-                    # it rounds at the plain version's points (the share), it is not
-                    # the fp32 kernel (the gap), and it rounds the windows it stages
-                    # (the same result on windows rounded beforehand, bit for bit)
-                    share = float(((got - want).abs() > MEL_TOL_DB).float().mean())
-                    gap = max_diff(got, mel(x, dft))
-                    same = bool(torch.equal(mel(round_bf16(x), dft, "1pass"), got))
-                    print(f"mel kernel ({name}) vs plain, S={n}: max |diff| {err:.3e} dB (limit {tol:.3e}), "
-                          f"share over {MEL_TOL_DB:.0e} dB {share:.2e} (limit {MEL_1PASS_SHARE}), "
-                          f"the fp32 kernel's gap {gap:.3e} dB (must exceed {MEL_TOL_DB:.0e}), "
-                          f"same on rounded windows: {same}")
-                    if not share <= MEL_1PASS_SHARE:
-                        fail(f"mel kernel ({name}) moves {share:.2%} of the values at S={n} over {MEL_TOL_DB} dB "
-                             f"from its plain version: it does not round where the plain version does")
-                    if n > 1 and not gap > MEL_TOL_DB:
-                        fail(f"mel kernel ({name}) is within {gap} dB of the fp32 kernel at S={n}")
-                    if not same:
-                        fail(f"mel kernel ({name}) changes when its windows come rounded to bf16 at S={n}: "
-                             f"it does not round the samples it stages")
-                if not err <= tol:
-                    fail(f"mel kernel ({name}) disagrees with the plain version at S={n}: {err} dB > {tol}")
+                err, ratio = mel_check(dft, arith, n)
+                if not math.isnan(ratio):
+                    mel_ratio[name] = min(mel_ratio.get(name, math.inf), ratio)
                 mel_err[name] = max(mel_err[name], err)
             silence = mel(torch.zeros((7, melspec_cuda.WINDOW), device=dev), dft, arith)
             if float((silence + 100.0).abs().max()) > 1e-4:
@@ -2110,16 +2254,13 @@ def main():
                                     lambda: mel_plain(x_scale, dft, arith))
 
     x_one = x_scale[:1].contiguous()
-    mel_bound = bound(*mel_work(SCALE_STREAMS))
-    mel_bound_1pass = bound(*mel_work(SCALE_STREAMS, 2), peak=BF16_FLOPS)
-    mel_flops, mel_bytes = mel_work(SCALE_STREAMS)
-    mel_bound_3pass = bound(3 * mel_flops, mel_bytes, peak=BF16_FLOPS)
-    # the fp32 kernels on the CUDA cores, one function and one bound: S=1 and S=4096,
+    mel_bound = mel_bounds(SCALE_STREAMS)
+    # the fp32 kernels on the CUDA cores, each with its DFT's bound: S=1 and S=4096,
     # their rates, K2's registers, and an fp32 GEMM of K2's DFT shape
     for k, dft in ((1, "direct"), (2, "factored")):
         one_ms = min(cuda_ms(lambda: mel(x_one, dft), 200) for _ in range(2))
         for n, ms in ((1, one_ms), (SCALE_STREAMS, mel_ms[dft][0])):
-            flops, nbytes = mel_work(n)
+            flops, nbytes = mel_work(n, dft=dft)
             bound_ms, bound_by = bound(flops, nbytes)
             print(f"mel kernel {k} at S={n}: {ms:.4f} ms, {flops / ms / 1e9:.2f} TFLOP/s over {flops / 1e9:.4f} "
                   f"GFLOP of live bins and {nbytes / 1e6:.4f} MB, bound {bound_ms:.4f} ms ({bound_by}; "
@@ -2155,7 +2296,7 @@ def main():
         dft, arith = name.split("_")
         one_ms = min(cuda_ms(lambda: mel(x_one, dft, arith), 200) for _ in range(2))
         for n, ms in ((1, one_ms), (SCALE_STREAMS, mel_ms[name][0])):
-            flops, nbytes = mel_work(n, const_bytes)
+            flops, nbytes = mel_work(n, const_bytes, dft)
             bound_ms, bound_by = bound(passes * flops, nbytes, peak=BF16_FLOPS)
             print(f"mel kernel ({name}) on the tensor cores at S={n}: {ms:.4f} ms, "
                   f"{passes * flops / ms / 1e9:.2f} TFLOP/s of the function's {passes} x {flops / 1e9:.4f} GFLOP, "
@@ -2163,12 +2304,12 @@ def main():
                   f"bound {bound_ms:.4f} ms ({bound_by}; {bound_ms / ms:.1%} of it), on {card}")
     for name in ("direct_1pass", "factored_1pass"):
         print(f"mel kernel ({name}) at S={SCALE_STREAMS}: {mel_ms[name][0]:.4f} ms against the 1-pass bound "
-              f"{mel_bound_1pass[0]:.4f} ms ({mel_bound_1pass[1]}, dense bf16 tensor-core rate; "
-              f"{mel_bound_1pass[0] / mel_ms[name][0]:.1%} of it), on {card}")
+              f"{mel_bound[name][0]:.4f} ms ({mel_bound[name][1]}, dense bf16 tensor-core rate; "
+              f"{mel_bound[name][0] / mel_ms[name][0]:.1%} of it), on {card}")
     for name in ("direct_3pass", "factored_3pass"):
         print(f"mel kernel ({name}) at S={SCALE_STREAMS}: {mel_ms[name][0]:.4f} ms against the 3-pass bound "
-              f"{mel_bound_3pass[0]:.4f} ms ({mel_bound_3pass[1]}, three times the 1-pass operations at the dense "
-              f"bf16 tensor-core rate; {mel_bound_3pass[0] / mel_ms[name][0]:.1%} of it); mean |diff| to the "
+              f"{mel_bound[name][0]:.4f} ms ({mel_bound[name][1]}, three times the 1-pass operations at the dense "
+              f"bf16 tensor-core rate; {mel_bound[name][0] / mel_ms[name][0]:.1%} of it); mean |diff| to the "
               f"plain fp32 version at least {mel_ratio[name]:.2f}x that to the plain 3-pass one, on {card}")
 
     print(f"[{time.perf_counter() - t_start:.1f} s] phase 4")
@@ -2531,30 +2672,38 @@ def main():
         mel_launches[k] = mel_launches.get(k, 0) + n
     print(f"[{time.perf_counter() - t_start:.1f} s] phase 19")
     mel_launches["direct_3pass"] += slice_g(card)
+    print(f"[{time.perf_counter() - t_start:.1f} s] phase 20")
+    band_launches, band_errs = full_band(card)
+    for k, n in band_launches.items():
+        mel_launches[k] = mel_launches.get(k, 0) + n
+    for k, e in band_errs.items():
+        mel_err[k] = max(mel_err[k], e)
 
     # no single PyTorch call computes any of these functions (a mel frontend or a
     # 20-conv step is several calls), so library_ms is null throughout
     kernels = [
         ("melspec_frames", "melspec.cu", "openwakeword_tpu/ops/melspec_pallas.py:73",
-         mel_launches["direct"], mel_err["direct"], mel_ms["direct"], mel_bound),
+         mel_launches["direct"], mel_err["direct"], mel_ms["direct"], mel_bound["direct"]),
         ("melspec_frames_factored", "melspec.cu", "openwakeword_tpu/ops/melspec_pallas.py:110",
-         mel_launches["factored"], mel_err["factored"], mel_ms["factored"], mel_bound),
+         mel_launches["factored"], mel_err["factored"], mel_ms["factored"], mel_bound["factored"]),
         ("cnn_step", "cnn_step.cu", "openwakeword_tpu/ops/cnn_pallas.py:167",
          cnn_launches["step"], cnn_err["step"], step_ms, cnn_bound["step"]),
         ("cnn_prime", "cnn_step.cu", "openwakeword_tpu/ops/cnn_pallas.py:167",
          cnn_launches["prime"], cnn_err["prime"], prime_ms, cnn_bound["prime"]),
         ("melspec_frames_1pass", "melspec_mma.cu", "openwakeword_tpu/ops/melspec_pallas.py:73",
-         mel_launches["direct_1pass"], mel_err["direct_1pass"], mel_ms["direct_1pass"], mel_bound_1pass),
+         mel_launches["direct_1pass"], mel_err["direct_1pass"], mel_ms["direct_1pass"], mel_bound["direct_1pass"]),
         ("melspec_frames_factored_1pass", "melspec_factored_mma.cu", "openwakeword_tpu/ops/melspec_pallas.py:110",
-         mel_launches["factored_1pass"], mel_err["factored_1pass"], mel_ms["factored_1pass"], mel_bound_1pass),
+         mel_launches["factored_1pass"], mel_err["factored_1pass"], mel_ms["factored_1pass"],
+         mel_bound["factored_1pass"]),
         ("cnn_step_bf16", "cnn_step_bf16.cu", "openwakeword_tpu/ops/cnn_pallas.py:167",
          cnn_launches["step_bf16"], cnn_err["step_bf16"], step16_ms, cnn_bound["step_bf16"]),
         ("cnn_prime_bf16", "cnn_step_bf16.cu", "openwakeword_tpu/ops/cnn_pallas.py:167",
          cnn_launches["prime_bf16"], cnn_err["prime_bf16"], prime16_ms, cnn_bound["prime_bf16"]),
         ("melspec_frames_3pass", "melspec_mma.cu", "openwakeword_tpu/ops/melspec_pallas.py:73",
-         mel_launches["direct_3pass"], mel_err["direct_3pass"], mel_ms["direct_3pass"], mel_bound_3pass),
+         mel_launches["direct_3pass"], mel_err["direct_3pass"], mel_ms["direct_3pass"], mel_bound["direct_3pass"]),
         ("melspec_frames_factored_3pass", "melspec_factored_mma.cu", "openwakeword_tpu/ops/melspec_pallas.py:110",
-         mel_launches["factored_3pass"], mel_err["factored_3pass"], mel_ms["factored_3pass"], mel_bound_3pass),
+         mel_launches["factored_3pass"], mel_err["factored_3pass"], mel_ms["factored_3pass"],
+         mel_bound["factored_3pass"]),
         ("cnn_step_high", "cnn_step_high.cu", "openwakeword_tpu/ops/cnn_pallas.py:167",
          cnn_launches["step_high"], cnn_err["step_high"], step3_ms, cnn_bound["step_high"]),
         ("cnn_prime_high", "cnn_step_high.cu", "openwakeword_tpu/ops/cnn_pallas.py:167",

@@ -23,7 +23,10 @@
 // with a fused epilogue, as kernel 1:
 //   * a block takes 16 streams (128 rows) and all the live bins; 8 warps, each
 //     64 rows (4 m16 tiles: the 8 frames of 2 streams each) x 32 bins (4 groups
-//     of 8 bins, a cos and a -sin n8 tile each): 128 fp32 accumulators a thread;
+//     of 8 bins, a cos and a -sin n8 tile each): 128 fp32 accumulators a thread.
+//     A live range of more than 4 bin warps (128 bins) takes 8 streams a
+//     block, so that the block keeps 8 warps or fewer and 255 registers a
+//     thread (16 streams at 256 bins spilled 11 KB a thread at 128 registers);
 //   * A comes straight from the staged window: each stream's 1632 samples are
 //     staged once in shared memory as bf16 (hi, and lo for 3-pass), with 8 bf16
 //     of padding after every 160 samples. ldmatrix takes one row address per
@@ -43,7 +46,10 @@
 //   * the epilogue forms the power in registers, where the m16n8 accumulators
 //     of two 8-bin groups are the m16k16 A fragment of the mel projection,
 //     rounded or split to bf16 pairs; B is the (32 mels x bins) weight tile,
-//     loaded into shared memory with the first K slice. Each warp's partial
+//     loaded into shared memory with the first K slice, or, where that leaves
+//     the K slices shallower (3-pass at the full band, 254 live bins: 16 deep
+//     against 32), after the K loop into the region the window and the basis
+//     stages free (mel_late). Each warp's partial
 //     mel tile (its 32 bins) goes to shared memory, and the block adds the
 //     partials of its 4 bin warps in a fixed order, takes the log and writes
 //     the (128, 32) dB tile with 16-byte stores.
@@ -78,8 +84,13 @@ constexpr int kCols = 2 * kBins;                      // basis rows (N): [cos | 
 constexpr int kGroups = kMmaBinTile / 8;              // a warp's 8-bin groups
 constexpr int kBinWarps = kBins / kMmaBinTile;
 constexpr int kMTiles = 4;                            // a warp's m16 tiles: 8 streams x 8 frames
-constexpr int kRowGroups = 2;
-constexpr int kStreams = kRowGroups * 2 * kMTiles;    // 16 streams per block
+// Row groups of 8 streams: two (16 streams a block) while the block stays at
+// 8 warps or fewer, where __launch_bounds__ leaves a thread 255 registers for
+// its 128 accumulators; one (8 streams) past 4 bin warps (more than 128 padded
+// bins), where two would cap a thread below 255 registers (128 at 256 bins)
+constexpr int kMaxWarps = 8;
+constexpr int kRowGroups = 2 * kBinWarps <= kMaxWarps ? 2 : 1;
+constexpr int kStreams = kRowGroups * 2 * kMTiles;    // 16 streams per block at the default range
 constexpr int kRows = kStreams * kFrames;             // 128 GEMM rows per block
 constexpr int kWarps = kRowGroups * kBinWarps;
 constexpr int kThreads = 32 * kWarps;
@@ -95,22 +106,37 @@ constexpr int kMaxSmem = 227 * 1024;
 
 // Shared memory of a block with `planes` bf16 planes (2 for 3-pass) and basis
 // K slices of `slice_k`: the window and two basis stages (rows padded by 8
-// bf16) during the K loop, then the partial mel tiles in their place; the mel
-// weights after them.
+// bf16) during the K loop, then the partial mel tiles in their place. The mel
+// weights go after both regions, loaded with the first K slice ("early"), or
+// after the partial tiles, loaded once the K loop has freed the window and the
+// basis stages ("late").
 constexpr int loop_bytes(int planes, int slice_k) {
     return 2 * planes * (kPlane + 2 * kCols * (slice_k + 8));
 }
-constexpr int mel_offset(int planes, int slice_k) {
-    return loop_bytes(planes, slice_k) > kPartBytes ? loop_bytes(planes, slice_k) : kPartBytes;
+constexpr int max_bytes(int a, int b) {
+    return a > b ? a : b;
 }
-constexpr int block_bytes(int planes, int slice_k) {
-    return mel_offset(planes, slice_k) + 2 * planes * kMelPlane;
+constexpr int mel_offset(int planes, int slice_k, bool late) {
+    return late ? kPartBytes : max_bytes(loop_bytes(planes, slice_k), kPartBytes);
+}
+constexpr int block_bytes(int planes, int slice_k, bool late) {
+    return max_bytes(loop_bytes(planes, slice_k), mel_offset(planes, slice_k, late) + 2 * planes * kMelPlane);
+}
+constexpr bool fits(int planes, int slice_k, bool late) {
+    return block_bytes(planes, slice_k, late) <= kMaxSmem;
 }
 
 // basis K per cp.async stage: the deepest of 64, 32 and 16 whose two stages
-// fit beside the window (64 for 1-pass and 32 for 3-pass at the default range)
+// fit beside the window with the mel weights loaded early or late; early where
+// both fit at that depth. 64 early for 1-pass and 32 early for 3-pass at the
+// default range; at the full band (254 live bins, 8 streams a block) 64 early
+// for 1-pass and 32 late for 3-pass, where early fits only at 16
 constexpr int slice_k(int planes) {
-    return block_bytes(planes, 64) <= kMaxSmem ? 64 : block_bytes(planes, 32) <= kMaxSmem ? 32 : 16;
+    return fits(planes, 64, false) || fits(planes, 64, true) ? 64
+         : fits(planes, 32, false) || fits(planes, 32, true) ? 32 : 16;
+}
+constexpr bool mel_late(int planes) {
+    return !fits(planes, slice_k(planes), false);
 }
 
 static_assert(kFrames == 8, "an 8x8 matrix of A is the 8 frames of one stream");
@@ -126,12 +152,13 @@ template <int ARITH>
 struct Smem {
     static constexpr int kPlanes = ARITH == kThreePass ? 2 : 1;   // hi, and lo for 3-pass
     static constexpr int kSliceK = slice_k(kPlanes);
+    static constexpr bool kMelLate = mel_late(kPlanes);
     static constexpr int kSlices = kNfft / kSliceK;
     static constexpr int kSliceStride = kSliceK + 8;              // bf16 per staged basis row
     static constexpr int kSlicePlane = kCols * kSliceStride;
     static constexpr int kStage = kPlanes * kSlicePlane;           // bf16 of one basis stage
-    static constexpr int kMelOffset = mel_offset(kPlanes, kSliceK);
-    static constexpr int kBytes = block_bytes(kPlanes, kSliceK);
+    static constexpr int kMelOffset = mel_offset(kPlanes, kSliceK, kMelLate);
+    static constexpr int kBytes = block_bytes(kPlanes, kSliceK, kMelLate);
     static_assert(kSliceStride % 16 == 8, "the 8 rows of an ldmatrix start in distinct bank quads");
     static_assert(kPlane % 8 == 0 && kSlicePlane % 8 == 0 && kMelPlane % 8 == 0 && kMelOffset % 16 == 0,
                   "16-byte aligned regions");
@@ -152,6 +179,18 @@ __device__ __forceinline__ void load_slice(__nv_bfloat16* dst, const __nv_bfloat
                    basis + static_cast<size_t>(row) * kNfft + L::kSliceK * slice + 8 * chunk);
     }
     cp_async_commit();
+}
+
+// Starts the copy of the (planes, kMels, kBins) mel weights into `dst`
+// ([plane][mel][kMelStride]); the caller commits it.
+template <int ARITH>
+__device__ __forceinline__ void load_mel(__nv_bfloat16* dst, const __nv_bfloat16* __restrict__ melw) {
+    constexpr int kMelChunks = kBins / 8;               // 16-byte chunks per row
+    for (int c = threadIdx.x; c < Smem<ARITH>::kPlanes * kMels * kMelChunks; c += kThreads) {
+        const int row = c / kMelChunks;
+        const int chunk = c - row * kMelChunks;
+        cp_async16(dst + row * kMelStride + 8 * chunk, melw + row * kBins + 8 * chunk);
+    }
 }
 
 template <int ARITH>
@@ -176,12 +215,9 @@ melspec_frames_mma_kernel(const float* __restrict__ windows,          // (S, kWi
     const int s0 = blockIdx.x * kStreams;
     const int n_valid = min(kStreams, n_streams - s0);
 
-    // the mel weights and basis slice 0 arrive as the first cp.async group
-    constexpr int kMelChunks = kBins / 8;
-    for (int c = tid; c < L::kPlanes * kMels * kMelChunks; c += kThreads) {
-        const int row = c / kMelChunks;
-        const int chunk = c - row * kMelChunks;
-        cp_async16(mel_w + row * kMelStride + 8 * chunk, melw + row * kBins + 8 * chunk);
+    // the mel weights (when early) and basis slice 0 arrive as the first cp.async group
+    if constexpr (!L::kMelLate) {
+        load_mel<ARITH>(mel_w, melw);
     }
     load_slice<ARITH>(stage, basis, 0);
 
@@ -283,6 +319,12 @@ melspec_frames_mma_kernel(const float* __restrict__ windows,          // (S, kWi
         }
     }
     __syncthreads();                                   // the window and the basis are read
+    if constexpr (L::kMelLate) {
+        load_mel<ARITH>(mel_w, melw);
+        cp_async_commit();
+        cp_async_wait<0>();
+        __syncthreads();
+    }
 
     // The mel projection of the warp's 32 bins, one m16 tile at a time: the
     // accumulators of groups 2 kb and 2 kb + 1 (bins 16 kb ..) give the A

@@ -273,9 +273,21 @@ def encode_tensor(name: str, arr: np.ndarray) -> bytes:
     return bytes(out)
 
 
+class GraphAttr:
+    """Marker wrapping encoded GraphProto bytes for subgraph attributes
+    (If then/else branches)."""
+
+    def __init__(self, data: bytes):
+        self.data = data
+
+
 def encode_attribute(name: str, value) -> bytes:
     out = bytearray()
     _put_str(out, 1, name)
+    if isinstance(value, GraphAttr):
+        _put_bytes(out, 6, value.data)
+        _put_varint(out, 20, 5)   # type GRAPH
+        return bytes(out)
     if isinstance(value, float):
         _tag(out, 2, 5)
         out.extend(struct.pack("<f", value))

@@ -225,6 +225,25 @@ def run_program(folded: Dict, x: torch.Tensor,
     return x
 
 
+def apply(params: Dict, x: torch.Tensor) -> torch.Tensor:
+    """Forward pass with explicit BatchNorm (eps ``BN_EPS``) on unfolded
+    params (``init_params`` or imported weights, through
+    ``convert.embedding_from_jax``): (B, 76, 32) or (B, 76, 32, 1)
+    transformed log-mel windows -> (B, 96) embeddings, as JAX's
+    ``embedding.apply``. Every BatchNorm runs as its own per-channel affine
+    after a conv with a zero bias; each conv is float32, or 1-pass on bf16
+    weights."""
+    program: Dict = {}
+    for i in range(sum(op[0] == "conv" for op in _SPEC)):
+        w = params[f"conv_{i}"]["w"]
+        program[f"conv_{i}"] = {"w": w, "b": torch.zeros(w.shape[0], device=w.device)}
+    for i in range(sum(op[0] == "bnact" for op in _SPEC)):
+        bn = {k: v.to(torch.float32) for k, v in params[f"bn_{i}"].items()}
+        scale = bn["gamma"] * torch.rsqrt(bn["var"] + BN_EPS)
+        program[f"affine_{i}"] = {"scale": scale, "shift": bn["beta"] - bn["mean"] * scale}
+    return apply_folded(program, x)
+
+
 def fold_batchnorm(params: Dict) -> Dict:
     """Fold inference BatchNorms into the preceding convs. The stem conv has
     an in-graph ReLU before its BN, so that BN stays a per-channel affine

@@ -33,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from openwakeword_tpu_torch.models.embedding import _normal
+from openwakeword_tpu_torch.models.heads import n_params  # noqa: F401  (the same count)
 from openwakeword_tpu_torch.ops import bf16
 
 INPUT_SHAPE = (76, 32, 1)

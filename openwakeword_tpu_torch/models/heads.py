@@ -131,6 +131,15 @@ def check_supported(meta: Dict):
         raise ValueError(f"Unsupported head model_type: {meta['model_type']}")
 
 
+def apply(params: Dict, x: torch.Tensor, inference: bool = True) -> torch.Tensor:
+    """Score a (B, F, 96) embedding window -> (B, n_classes), the
+    architecture taken from ``params["__meta__"]``. Binary heads return
+    sigmoid probabilities whatever ``inference`` says; multiclass heads
+    return softmax probabilities with ``inference`` and the (ReLU'd) logits
+    without it, as JAX's ``heads.apply``."""
+    return forward(params, x, params["__meta__"], inference)
+
+
 def forward(params: Dict, x: torch.Tensor, meta: Dict, inference: bool = True,
             precision=None) -> torch.Tensor:
     """Score a (B, F, 96) embedding window -> (B, n_classes)."""
@@ -178,6 +187,13 @@ def _forward_graph(params: Dict, x: torch.Tensor, meta: Dict, inference: bool) -
         return torch.func.vmap(lambda xi: prog.apply(params, {in_name: xi[None]})[out_name]
                                .to(torch.float32).reshape(-1))(h)
     return prog.apply(params, {in_name: h})[out_name].to(torch.float32).reshape(x.shape[0], -1)
+
+
+def n_params(params: Dict) -> int:
+    """The number of values in the leaves of ``params`` (a head's or the
+    student embedding's), ``__meta__`` left out."""
+    return sum(n_params(v) if isinstance(v, dict) else int(np.prod(np.shape(v)))
+               for k, v in params.items() if k != "__meta__")
 
 
 def stack_params(params_list: List[Dict]) -> Dict:

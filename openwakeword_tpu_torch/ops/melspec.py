@@ -9,14 +9,18 @@ tensor ops are the plain reference path of the port: the STFT is one
 radix-4 butterfly (``dft="factored"``), then power, the (257, 32) Slaney mel
 projection and librosa-style power_to_db.
 Inputs are raw int16-range float32 values, not normalized to [-1, 1].
-``arith`` picks the arithmetic of the TPU kernels (``melspec_pallas._make_kernel``
-and ``_make_factored_kernel``): 'fp32' is ``precision=HIGHEST``, '1pass'
-``None``/``DEFAULT`` (1-pass bf16 products with float32 sums) and '3pass'
-``HIGH`` (3-pass bf16 splits), each rounded or split at the points those
-kernels take (``ops.bf16``, ``_mel_bf16``).
+``arith`` picks the arithmetic of the DFT product: 'fp32' is
+``precision=HIGHEST``, '1pass' ``None``/``DEFAULT`` (1-pass bf16 products
+with float32 sums) and '3pass' ``HIGH`` (3-pass bf16 splits; ``ops.bf16``).
+``melspectrogram`` takes the mel product in float32 at every arithmetic, as
+JAX's XLA mel does; ``_mel_bf16`` takes it in ``arith`` too, at the points
+the TPU kernels (``melspec_pallas._make_kernel`` and
+``_make_factored_kernel``) take it, and is the plain version of the bf16
+mel kernels.
 """
 
 import functools
+from typing import Optional
 
 import numpy as np
 import torch
@@ -65,13 +69,23 @@ def _mel_to_hz_slaney(mels):
     return freqs
 
 
+def mel_filterbank(sr: Optional[int] = None, n_fft: Optional[int] = None, n_mels: Optional[int] = None,
+                   fmin: Optional[float] = None, fmax: Optional[float] = None):
+    """Slaney-normalized triangular mel filterbank, shape (n_fft//2+1, n_mels).
+
+    An argument left None takes ``config``'s value at the time of the call
+    (``SAMPLE_RATE``, ``N_FFT``, ``N_MELS``, ``FMIN``, ``FMAX``), as the mel
+    kernels do when they are built, so that a kernel built for a range and
+    its plain version compute the same function."""
+    return _mel_filterbank(config.SAMPLE_RATE if sr is None else sr,
+                           config.N_FFT if n_fft is None else n_fft,
+                           config.N_MELS if n_mels is None else n_mels,
+                           config.FMIN if fmin is None else fmin,
+                           config.FMAX if fmax is None else fmax)
+
+
 @functools.lru_cache(maxsize=None)
-def mel_filterbank(sr: int = config.SAMPLE_RATE,
-                   n_fft: int = config.N_FFT,
-                   n_mels: int = config.N_MELS,
-                   fmin: float = config.FMIN,
-                   fmax: float = config.FMAX):
-    """Slaney-normalized triangular mel filterbank, shape (n_fft//2+1, n_mels)."""
+def _mel_filterbank(sr: int, n_fft: int, n_mels: int, fmin: float, fmax: float):
     n_freqs = 1 + n_fft // 2
     fftfreqs = np.linspace(0.0, sr / 2.0, n_freqs)
     mel_f = _mel_to_hz_slaney(np.linspace(_hz_to_mel_slaney(fmin), _hz_to_mel_slaney(fmax), n_mels + 2))
@@ -105,6 +119,7 @@ def stft_power_basis(n_fft: int = config.N_FFT,
 
 
 RADIX = 4  # factored-DFT branch count (512 = 4 * 128)
+DFTS = ("direct", "factored")
 
 
 @functools.lru_cache(maxsize=None)
@@ -215,6 +230,21 @@ def power_to_db(mel: torch.Tensor,
     return log_spec
 
 
+def _product_fp32(op, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The product ``op(a, b)`` in full fp32 (TF32 off), whatever the caller set."""
+    with bf16.fp32_matmul():
+        return op(a, b)
+
+
+# the products of each arithmetic, as ``op(a, b)`` of a matmul or an einsum
+_PRODUCTS = {"fp32": _product_fp32, "1pass": bf16.product_1pass, "3pass": bf16.product_3pass}
+
+
+def _branch_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The four branch products of the factored DFT's stage 1."""
+    return torch.einsum("...ba,bad->...bd", a, b)
+
+
 def _mel_bf16(frames: torch.Tensor, dft: str, arith: str) -> torch.Tensor:
     """The (..., T, 32) mel power in the TPU kernels' 1-pass or 3-pass
     arithmetic (``bf16.product_1pass`` / ``product_3pass``, for ``arith``
@@ -223,20 +253,38 @@ def _mel_bf16(frames: torch.Tensor, dft: str, arith: str) -> torch.Tensor:
     the four branch products of the branch operands and bases, runs the
     butterfly in float32, takes the products of the power of bins [0, 128)
     and [128, 256) and their mel weights, and adds bin 256's power times its
-    mel weights in float32."""
-    product = bf16.product_1pass if arith == "1pass" else bf16.product_3pass
+    mel weights in float32. This is the plain version of the bf16 mel
+    kernels (``melspec_cuda.melspectrogram_frames_plain``); ``melspectrogram``
+    computes JAX's XLA mel, whose mel product is float32."""
+    product = _PRODUCTS[arith]
     dev = frames.device
     melw = f32_const(mel_filterbank(), dev)                    # (257, 32)
     if dft == "direct":
-        spec = product(torch.matmul, frames, f32_const(stft_power_basis(), dev))
-        power = spec[..., 0::2] ** 2 + spec[..., 1::2] ** 2
-        return product(torch.matmul, power, melw)
-    z = product(lambda a, b: torch.einsum("...ba,bad->...bd", a, b),
-                deinterleave_branches(frames), f32_const(factored_dft_bases(), dev))
+        return product(torch.matmul, _power(frames, dft, product), melw)
+    z = product(_branch_product, deinterleave_branches(frames), f32_const(factored_dft_bases(), dev))
     p0, p1, p2 = _factored_power_parts(z)
     sub = p0.shape[-1]
     return (product(torch.matmul, p0, melw[:sub]) + product(torch.matmul, p1, melw[sub:2 * sub])
             + p2 * melw[2 * sub:])
+
+
+def _power(frames: torch.Tensor, dft: str, product) -> torch.Tensor:
+    """(..., T, 257) power of the frames' windowed DFT, its product (the
+    direct one or the four branch products) taken by ``product``, the power
+    and the butterfly in float32."""
+    if dft == "factored":
+        return _factored_power(product(_branch_product, deinterleave_branches(frames),
+                                       f32_const(factored_dft_bases(), frames.device)))
+    spec = product(torch.matmul, frames, f32_const(stft_power_basis(), frames.device))    # (..., T, 514)
+    return spec[..., 0::2] ** 2 + spec[..., 1::2] ** 2
+
+
+def check_mode(dft: str, arith: str) -> None:
+    """Raise ValueError for an unknown DFT or arithmetic."""
+    if dft not in DFTS:
+        raise ValueError(f"unknown dft mode {dft!r} (expected 'direct' or 'factored')")
+    if arith not in config.ARITHS:
+        raise ValueError(f"unknown arithmetic {arith!r} (expected one of {config.ARITHS})")
 
 
 def melspectrogram(x: torch.Tensor,
@@ -245,31 +293,25 @@ def melspectrogram(x: torch.Tensor,
                    dft: str = "direct",
                    arith: str = "fp32") -> torch.Tensor:
     """Log-mel spectrogram of raw int16-range audio (..., N) -> (..., T, 32),
-    in full float32 (``arith='fp32'``, JAX's ``precision=HIGHEST``), or in
-    the TPU kernels' 1-pass or 3-pass bf16 arithmetic ('1pass', '3pass';
-    ``_mel_bf16``). With
-    ``apply_transform`` the downstream affine spec/10 + 2 is applied.
+    as JAX's ``melspectrogram(compute_dtype, precision)`` computes it: the
+    DFT product in ``arith`` ('fp32', JAX's ``precision=HIGHEST``; '1pass',
+    ``DEFAULT`` or bf16 operands; '3pass', ``HIGH``), the power and the
+    butterfly in float32, and the mel product in float32 over all 257 bins.
+    With ``apply_transform`` the downstream affine spec/10 + 2 is applied.
     ``dft='factored'`` computes the spectrum by the radix-4 factored DFT
     (``factored_dft_bases``): equal to 'direct' up to float32 rounding, not
     bit-equal."""
-    if dft not in ("direct", "factored"):
-        raise ValueError(f"unknown dft mode {dft!r} (expected 'direct' or 'factored')")
-    if arith not in config.ARITHS:
-        raise ValueError(f"unknown arithmetic {arith!r} (expected one of {config.ARITHS})")
+    check_mode(dft, arith)
     x = x.to(torch.float32)
-    frames = frame_signal(x)                                   # (..., T, 512)
-    if arith != "fp32":
-        mel = _mel_bf16(frames, dft, arith)
-    else:
-        if dft == "factored":
-            bases = f32_const(factored_dft_bases(), x.device)  # (4, 128, 256)
-            z = torch.einsum("...ba,bad->...bd", deinterleave_branches(frames), bases)
-            power = _factored_power(z)                         # (..., T, 257)
-        else:
-            spec = torch.matmul(frames, f32_const(stft_power_basis(), x.device))   # (..., T, 514)
-            power = spec[..., 0::2] ** 2 + spec[..., 1::2] ** 2                      # (..., T, 257)
+    power = _power(frame_signal(x), dft, _PRODUCTS[arith])    # (..., T, 257)
+    with bf16.fp32_matmul():
         mel = torch.matmul(power, f32_const(mel_filterbank(), x.device))
     out = power_to_db(mel, top_db=top_db)
     if apply_transform:
         out = out * config.MEL_TRANSFORM_SCALE + config.MEL_TRANSFORM_SHIFT
     return out
+
+
+def log_mel_features(x: torch.Tensor) -> torch.Tensor:
+    """The fully transformed mel features fed to the embedding CNN."""
+    return melspectrogram(x, apply_transform=True)

@@ -19,8 +19,9 @@ stage-1 columns that feed a live bin. The live ranges come from
 ``live_bins()`` and ``factored_columns()`` and reach the kernels through the
 generated header ``mel_program.h`` (``utils.cuda_build.generated_headers``).
 A CPU tensor goes through ``melspectrogram_frames_plain``, the plain PyTorch
-version; a CUDA tensor goes through the hand-written kernel or the call
-raises. There is no fallback between the two. The wrapper counts each
+version (the kernels' arithmetic, with the filterbank of ``config`` as it
+stands at the call); a CUDA tensor goes through the hand-written kernel or
+the call raises. There is no fallback between the two. The wrapper counts each
 kernel's launches in ``melspectrogram_frames.launches[variant(dft, arith)]``.
 """
 
@@ -39,7 +40,7 @@ from openwakeword_tpu_torch.utils import cuda_build
 WINDOW = config.CHUNK_SAMPLES + config.MEL_LOOKBACK_SAMPLES   # 1760
 FRAMES = config.MELS_PER_CHUNK                                # 8
 N_MELS = config.N_MELS                                        # 32
-DFTS = ("direct", "factored")
+DFTS = melspec.DFTS
 _ENTRY = {"direct": "owwt_melspec_frames", "factored": "owwt_melspec_frames_factored",
           "direct_1pass": "owwt_melspec_frames_1pass", "factored_1pass": "owwt_melspec_frames_factored_1pass",
           "direct_3pass": "owwt_melspec_frames_3pass", "factored_3pass": "owwt_melspec_frames_factored_3pass"}
@@ -70,9 +71,24 @@ def variant(dft: str, arith: str = "fp32") -> str:
 
 def melspectrogram_frames_plain(windows: torch.Tensor, dft: str = "direct",
                                 arith: str = "fp32") -> torch.Tensor:
-    """Plain PyTorch version: ``melspectrogram(apply_transform=False,
-    top_db=None, dft=dft, arith=arith)`` of each window, (S, 1760) ->
-    (S, 8, 32) dB."""
+    """Plain PyTorch version of the kernels, (S, 1760) -> (S, 8, 32) dB of
+    each window: at 'fp32' ``melspectrogram(apply_transform=False,
+    top_db=None, dft=dft)``; at '1pass' / '3pass' the bf16 kernels' own
+    arithmetic, both products in ``arith`` (``melspec._mel_bf16``)."""
+    melspec.check_mode(dft, arith)
+    if arith == "fp32":
+        return melspectrogram_frames_xla(windows, dft)
+    frames = melspec.frame_signal(windows.to(torch.float32))
+    return melspec.power_to_db(melspec._mel_bf16(frames, dft, arith), top_db=None)
+
+
+def melspectrogram_frames_xla(windows: torch.Tensor, dft: str = "direct",
+                              arith: str = "fp32") -> torch.Tensor:
+    """The counterpart of the JAX engine's XLA mel (``use_pallas_melspec=
+    False``), (S, 1760) -> (S, 8, 32) dB: ``melspectrogram(apply_transform=
+    False, top_db=None, dft=dft, arith=arith)``, the DFT product in
+    ``arith`` and the mel product in float32. Equal to
+    ``melspectrogram_frames_plain`` at 'fp32'."""
     return melspec.melspectrogram(windows, apply_transform=False, top_db=None, dft=dft, arith=arith)
 
 
@@ -84,12 +100,6 @@ def _kernel_fn(name: str):
     return fn
 
 
-def _filterbank() -> np.ndarray:
-    """The (N_FFT // 2 + 1, N_MELS) Slaney filterbank of ``config`` as it
-    stands now (float64)."""
-    return melspec.mel_filterbank(config.SAMPLE_RATE, config.N_FFT, config.N_MELS, config.FMIN, config.FMAX)
-
-
 def live_bins() -> Tuple[int, int, int]:
     """(first, count, padded count) of the DFT bins on which the float32
     filterbank has a non-zero weight: rows ``first .. first + count - 1``,
@@ -97,7 +107,7 @@ def live_bins() -> Tuple[int, int, int]:
     is checked to be exactly zero). ``padded`` rounds ``count`` up to
     ``BIN_TILE``. Kernel 1 computes only these bins; the rest add exact zeros
     to every mel band."""
-    fb = _filterbank().astype(np.float32)
+    fb = melspec.mel_filterbank().astype(np.float32)
     rows = np.flatnonzero((fb != 0).any(axis=1))
     first, stop = int(rows[0]), int(rows[-1]) + 1
     assert not fb[:first].any() and not fb[stop:].any()
@@ -132,7 +142,7 @@ def _kernel_melw(dft: str) -> np.ndarray:
     ``128 + first + i`` (half 1) at row ``half * padded + i``, zero past
     ``count``; then bin 256's row (read by the kernel only with
     ``nyquist``)."""
-    fb = _filterbank()
+    fb = melspec.mel_filterbank()
     if dft == "direct":
         first, count, padded = live_bins()
         melw = np.zeros((padded, config.N_MELS))
@@ -231,7 +241,7 @@ def _factored_mma_consts(arith: str):
     live = cols >= 0
     basis = np.zeros((2 * padded, config.N_FFT))
     basis[live] = melspec.factored_dft_bases()[:, :, cols[live]].transpose(2, 0, 1).reshape(int(live.sum()), -1)
-    fb = _filterbank()
+    fb = melspec.mel_filterbank()
     melw = np.zeros((2 if half1 else 1, config.N_MELS, padded))
     for half in range(melw.shape[0]):
         melw[half, :, :count] = fb[sub * half + first:sub * half + first + count].T
@@ -261,10 +271,7 @@ def _device_consts(device: torch.device, dft: str, arith: str = "fp32"):
 def melspectrogram_frames(windows: torch.Tensor, dft: str = "direct", arith: str = "fp32") -> torch.Tensor:
     """(S, 1760) float32 windows -> (S, 8, 32) float32 raw dB mel frames;
     ``arith`` ('fp32', '1pass', '3pass') picks the variant."""
-    if dft not in DFTS:
-        raise ValueError(f"unknown dft mode {dft!r} (expected 'direct' or 'factored')")
-    if arith not in config.ARITHS:
-        raise ValueError(f"unknown arithmetic {arith!r} (expected one of {config.ARITHS})")
+    melspec.check_mode(dft, arith)
     if windows.device.type == "cpu":
         return melspectrogram_frames_plain(windows, dft, arith)
     if windows.device.type != "cuda":

@@ -253,10 +253,11 @@ class MultiStreamEngine:
     ``use_pallas_melspec`` keeps the JAX engine's name for the choice of
     mel frontend: None (the default) or True runs the mel kernel of the
     tier (``ops.melspec_cuda.melspectrogram_frames``); False runs the plain
-    PyTorch mel (``ops.melspec``) in the tier's arithmetic, the counterpart
-    of the JAX engine's XLA mel. ``scan_unroll`` is stored and has no
-    effect: the port runs its frames in a Python loop, with no ``lax.scan``
-    to unroll.
+    PyTorch mel (``melspec_cuda.melspectrogram_frames_xla``), the
+    counterpart of the JAX engine's XLA mel: the DFT product in the mel
+    mode's arithmetic, the mel product in float32. ``scan_unroll`` is
+    stored and has no effect: the port runs its frames in a Python loop,
+    with no ``lax.scan`` to unroll.
     """
 
     def __init__(self,
@@ -298,7 +299,7 @@ class MultiStreamEngine:
         self.mel_dft = mel_dft
         self.use_pallas_melspec = use_pallas_melspec is None or bool(use_pallas_melspec)
         self._mel_frames = (melspec_cuda.melspectrogram_frames if self.use_pallas_melspec
-                            else melspec_cuda.melspectrogram_frames_plain)
+                            else melspec_cuda.melspectrogram_frames_xla)
         self.scan_unroll = int(scan_unroll)
         if mesh is not None and device is not None:
             raise ValueError("pass either a mesh or a device: the mesh names the devices")

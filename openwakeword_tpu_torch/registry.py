@@ -2,8 +2,9 @@
 
 The pretrained names, their published head architectures and the timer's
 class mapping are copied from the JAX package. Checkpoint paths point into
-the JAX package's ``resources/models`` directory, which the port reads and
-never writes.
+the JAX package's ``resources/models`` directory, which the port reads; its
+one writer there is ``utils.download.convert_local_models``, whose default
+target is that directory.
 """
 
 import os

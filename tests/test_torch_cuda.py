@@ -203,7 +203,8 @@ def test_mel_3pass_kernel_matches_plain(cuda, n_streams, dft):
 @pytest.mark.parametrize("arith", ["1pass", "3pass"])
 @pytest.mark.parametrize("n_streams", [15, 16, 17, 31, 32, 33])
 def test_mel_tensor_core_kernels_ragged_block(cuda, arith, n_streams, dft):
-    """K1-1pass, K1-3pass, K2-1pass and K2-3pass take 16 streams per block:
+    """K1-1pass, K1-3pass, K2-1pass and K2-3pass take 16 streams per block
+    at the default range:
     both sides of one and two whole blocks, with a silent stream in the last
     block, held to their plain versions as above (1-pass: MEL_1PASS_TOL_DB,
     the share and the bit-equality on rounded windows; 3-pass: 2e-3 dB and
@@ -280,33 +281,9 @@ def test_live_bin_kernel_other_live_range(cuda, wide_mel_range, n_streams):
 
 def _live_range_frames(x, arith, dft="direct"):
     """The plain version's function in ``arith`` ('fp32', '1pass', '3pass')
-    with the filterbank as ``config`` now sets it, with the plain version's
-    products (``bf16.product_1pass`` / ``product_3pass``): the plain version
-    itself keeps the default filterbank. 'direct' over kernel 1's live bins
-    and their mel weights (``_kernel_basis`` / ``_kernel_melw``); 'factored'
-    through the four branch products, the butterfly and the products of the
-    power of bins [0, 128) and [128, 256) with their mel weights, plus bin
-    256's power times its weights (``ops.melspec._mel_bf16``'s order)."""
-    from openwakeword_tpu_torch.ops import bf16, melspec
-    frames = melspec.frame_signal(x)
-    if arith == "fp32":
-        def product(op, a, b):
-            with bf16.fp32_matmul():
-                return op(a, b)
-    else:
-        product = bf16.product_1pass if arith == "1pass" else bf16.product_3pass
-    if dft == "factored":
-        z = product(lambda a, b: torch.einsum("...ba,bad->...bd", a, b), melspec.deinterleave_branches(frames),
-                    melspec.f32_const(melspec.factored_dft_bases(), x.device))
-        p0, p1, p2 = melspec._factored_power_parts(z)
-        fb = melspec.f32_const(melspec_cuda._filterbank(), x.device)
-        mel = product(torch.matmul, p0, fb[:128]) + product(torch.matmul, p1, fb[128:256]) + p2 * fb[256:]
-        return melspec.power_to_db(mel, top_db=None)
-    basis = melspec.f32_const(melspec_cuda._kernel_basis("direct"), x.device)
-    melw = melspec.f32_const(melspec_cuda._kernel_melw("direct"), x.device)
-    spec = product(torch.matmul, frames, basis)
-    power = spec[..., 0::2] ** 2 + spec[..., 1::2] ** 2
-    return melspec.power_to_db(product(torch.matmul, power, melw), top_db=None)
+    with the filterbank as ``config`` now sets it: the plain version follows
+    ``config`` as the kernels do."""
+    return melspec_cuda.melspectrogram_frames_plain(x, dft, arith)
 
 
 @pytest.mark.parametrize("dft", ["direct", "factored"])
@@ -317,7 +294,7 @@ def test_tensor_core_kernels_other_live_range(cuda, wide_mel_range, arith, n_str
     stream, held as in ``test_mel_1pass_kernel_matches_plain`` /
     ``test_mel_3pass_kernel_matches_plain`` to the plain products over that
     range (``_live_range_frames``): K1-1pass and K1-3pass over 224 bins (7
-    bin warps, 448 threads a block, 16-deep 3-pass K slices); K2-1pass and
+    bin warps, 8 streams and 224 threads a block, 32-deep 3-pass K slices); K2-1pass and
     K2-3pass over all 128 stage-1 columns with the c = 1 half live (bins
     128..223: D, F and p1 formed, 64-deep 3-pass K slices)."""
     if dft == "direct":
@@ -364,6 +341,63 @@ def test_factored_kernel_other_live_range(cuda, wide_mel_range, n_streams):
     assert got.shape == (n_streams, 8, 32)
     assert float((got - want).abs().max()) <= 2e-3
     assert float((got[-1] + 100.0).abs().max()) <= 1e-4
+
+
+@pytest.fixture(params=[8000.0, 9000.0], ids=["fmax8000", "fmax9000"])
+def full_band(request, monkeypatch):
+    """config.FMAX = 8000, the full band (bins 2..255, 254 live bins padded
+    to 256: K1-3pass loads its mel weights after the K loop), and 9000,
+    above half the sample rate (bin 256 live too). The library, kernel
+    entries and constants are rebuilt for it, and again for the default
+    afterwards."""
+    from openwakeword_tpu_torch import config
+    from openwakeword_tpu_torch.utils import cuda_build
+    caches = (cuda_build.load_library, melspec_cuda._kernel_fn, melspec_cuda._device_consts)
+    monkeypatch.setattr(config, "FMAX", request.param)
+    for cache in caches:
+        cache.cache_clear()
+    yield request.param
+    for cache in caches:
+        cache.cache_clear()
+
+
+@pytest.mark.parametrize("variant", melspec_cuda.VARIANTS)
+@pytest.mark.parametrize("n_streams", [1, 9, 1000])
+def test_mel_kernels_full_band(cuda, full_band, variant, n_streams):
+    """Every mel variant built for the full band and above it, held to its
+    plain version over that range (which follows ``config``) at phase 3's
+    limits: 2e-3 dB for the fp32 and 3-pass variants, a 3-pass variant
+    nearer its plain 3-pass version than the plain fp32 one, a 1-pass
+    variant within one flipped power rounding, beyond 2e-3 dB in at most 1%
+    of the values, away from the fp32 function and the same on windows
+    rounded beforehand; a silent stream at -100 dB."""
+    dft, _, arith = variant.partition("_")
+    arith = arith or "fp32"
+    assert melspec_cuda.live_bins() == (2, 254 if full_band == 8000.0 else 255, 256)
+    assert melspec_cuda.factored_columns() == (0, 128, 128, True, full_band > 8000.0)
+    w = (np.random.default_rng(n_streams).uniform(-1, 1, (n_streams, 1760)) * 25000).astype(np.float32)
+    if n_streams > 1:
+        w[-1] = 0.0
+    x = torch.from_numpy(w).to(cuda)
+    before = melspec_cuda.melspectrogram_frames.launches[variant]
+    got = melspec_cuda.melspectrogram_frames(x, dft, arith)
+    want = melspec_cuda.melspectrogram_frames_plain(x, dft, arith)
+    f32 = melspec_cuda.melspectrogram_frames_plain(x, dft)
+    torch.cuda.synchronize()
+    assert melspec_cuda.melspectrogram_frames.launches[variant] == before + 1
+    assert got.shape == (n_streams, 8, 32) and got.dtype == torch.float32
+    if n_streams > 1:
+        assert float((got[-1] + 100.0).abs().max()) <= 1e-4
+    sounding = slice(0, max(n_streams - 1, 1))
+    if arith == "1pass":
+        assert float((got - want).abs().max()) <= MEL_1PASS_TOL_DB
+        assert float(((got - want).abs() > 2e-3).float().mean()) <= MEL_1PASS_SHARE
+        assert float((got[sounding] - f32[sounding]).abs().max()) > 2e-3
+        assert torch.equal(melspec_cuda.melspectrogram_frames(round_bf16(x), dft, "1pass"), got)
+    else:
+        assert float((got - want).abs().max()) <= 2e-3
+        if arith == "3pass":
+            assert_nearer_3pass(got[sounding], want[sounding], f32[sounding], (variant, n_streams))
 
 
 def test_mel_kernel_rejects_bad_inputs(cuda):

@@ -132,11 +132,12 @@ def test_factored_layout_matches_jax(rng, n_streams):
 
 def _plain_over(x):
     """The plain factored function in float32 over the filterbank as
-    ``config`` now sets it (the plain version keeps the default one)."""
+    ``config`` now sets it, written out in the kernel's order (the plain
+    version follows ``config`` too)."""
     z = torch.einsum("...ba,bad->...bd", melspec.deinterleave_branches(melspec.frame_signal(x)),
                      melspec.f32_const(melspec.factored_dft_bases(), "cpu"))
     p0, p1, p2 = melspec._factored_power_parts(z)
-    fb = melspec.f32_const(melspec_cuda._filterbank(), "cpu")
+    fb = melspec.f32_const(melspec.mel_filterbank(), "cpu")
     return melspec.power_to_db(p0 @ fb[:SUB] + p1 @ fb[SUB:2 * SUB] + p2 * fb[2 * SUB:], top_db=None)
 
 
@@ -159,7 +160,7 @@ def test_factored_layout_other_live_range(rng, monkeypatch, fresh_consts, fmax, 
     monkeypatch.setattr(config, "FMAX", fmax)
     assert melspec_cuda.factored_columns() == columns and melspec_cuda.factored_padded() == 128
     basis, melw, w256 = _consts()
-    fb32 = melspec.f32_const(melspec_cuda._filterbank(), "cpu")
+    fb32 = melspec.f32_const(melspec.mel_filterbank(), "cpu")
     assert torch.equal(basis, melspec.f32_const(melspec.factored_dft_bases(), "cpu"))
     assert melw.shape == (2, 128, 32) and melw[1].any()
     assert torch.equal(melw[0], fb32[:SUB]) and torch.equal(melw[1], fb32[SUB:2 * SUB])

@@ -169,14 +169,15 @@ def test_factored_layout_matches_jax(rng, arith, n_streams):
 
 def _plain_over(x, arith):
     """The plain factored function in ``arith`` over the filterbank as
-    ``config`` now sets it (the plain version keeps the default one)."""
+    ``config`` now sets it, written out in the kernel's order (the plain
+    version follows ``config`` too)."""
     from openwakeword_tpu_torch.ops import bf16
     product = bf16.product_1pass if arith == "1pass" else bf16.product_3pass
     z = product(lambda a, b: torch.einsum("...ba,bad->...bd", a, b),
                 melspec.deinterleave_branches(melspec.frame_signal(x)),
                 melspec.f32_const(melspec.factored_dft_bases(), "cpu"))
     p0, p1, p2 = melspec._factored_power_parts(z)
-    fb = melspec.f32_const(melspec_cuda._filterbank(), "cpu")
+    fb = melspec.f32_const(melspec.mel_filterbank(), "cpu")
     mel = product(torch.matmul, p0, fb[:SUB]) + product(torch.matmul, p1, fb[SUB:2 * SUB]) + p2 * fb[2 * SUB:]
     return melspec.power_to_db(mel, top_db=None)
 
@@ -203,7 +204,7 @@ def test_factored_layout_other_live_range(rng, monkeypatch, fresh_consts, fmax, 
     basis, melw, w256 = _consts(arith)
     assert basis.shape[1:] == (256, 512) and melw.shape[1:] == (2, 32, 128)
     first, count, _ = melspec_cuda.live_bins()
-    fb32 = melspec.f32_const(melspec_cuda._filterbank(), "cpu")
+    fb32 = melspec.f32_const(melspec.mel_filterbank(), "cpu")
     assert melw[0, 1].any() and torch.equal(melw[0, 1].float().t(), round_bf16(fb32[SUB:2 * SUB])
                                             if arith == "1pass" else split_bf16(fb32[SUB:2 * SUB])[0])
     assert bool(w256.any()) == columns[4] and torch.equal(w256.float(), fb32[2 * SUB])

@@ -161,3 +161,48 @@ def test_tensor_core_entries_live_in_their_own_unit():
     for entry in ("owwt_melspec_frames", "owwt_melspec_frames_factored"):
         assert f'extern "C" int {entry}(' in fp32
     assert "_1pass(" not in fp32 and "_3pass(" not in fp32 and "ARITH" not in fp32
+
+
+@pytest.fixture()
+def fresh_consts():
+    """The device constants are cached per device: drop them before and
+    after a test that changes the live range."""
+    melspec_cuda._device_consts.cache_clear()
+    yield
+    melspec_cuda._device_consts.cache_clear()
+
+
+@pytest.mark.parametrize("arith", ["1pass", "3pass"])
+@pytest.mark.parametrize("fmax, count", [(8000.0, 254), (9000.0, 255)])
+def test_mma_layout_full_band(rng, monkeypatch, fresh_consts, fmax, count, arith):
+    """At the full band (FMAX = 8000: bins 2..255) and above it (9000: bin
+    256 live too) the live range pads to 256 bins, 8 whole 32-bin warp
+    tiles: the (planes, 512, 512) basis and (planes, 32, 256) mel weights
+    keep the layout, un-permute to the float32 kernel's constants, are zero
+    past the live bins, and, paired as the kernel pairs them, compute the
+    plain version over that range's filterbank (the plain version follows
+    ``config``), with a silent stream at -100 dB."""
+    monkeypatch.setattr(config, "FMAX", fmax)
+    assert melspec_cuda.live_bins() == (2, count, 256) and melspec_cuda.mma_bins() == 256
+    planes = 1 if arith == "1pass" else 2
+    basis, melw = melspec_cuda._device_consts(CPU, "direct", arith)
+    assert basis.shape == (planes, 512, 512) and melw.shape == (planes, 32, 256)
+    f32 = melspec.f32_const(melspec_cuda._kernel_basis("direct"), "cpu")
+    want = (round_bf16(f32),) if arith == "1pass" else split_bf16(f32)
+    cols = torch.from_numpy(melspec_cuda.mma_columns())
+    for plane in range(planes):
+        got = torch.zeros((512, 512))
+        got[:, cols] = basis[plane].float().t()
+        assert torch.equal(got, want[plane])
+    assert not melw[..., count:].any() and melw[0, :, count - 1].any()
+    fb32 = melspec.f32_const(melspec.mel_filterbank(), "cpu")
+    assert torch.equal(melw[0].float().t()[:count], (round_bf16(fb32) if arith == "1pass"
+                                                     else split_bf16(fb32)[0])[2:2 + count])
+    w = (rng.uniform(-1, 1, (9, 1760)) * 25000).astype(np.float32)
+    w[4] = 0.0
+    x = torch.from_numpy(w)
+    got = _layout_mel(x, arith)
+    err = (got - melspec_cuda.melspectrogram_frames_plain(x, "direct", arith)).abs()
+    assert float(err.max()) <= (MEL_TOL_DB if arith == "3pass" else MEL_1PASS_TOL_DB)
+    assert float((err > MEL_TOL_DB).float().mean()) <= 0.01
+    np.testing.assert_allclose(got[4].numpy(), -100.0, atol=1e-4)

@@ -157,3 +157,29 @@ def test_generated_mel_header_carries_the_live_range(monkeypatch):
     text = cuda_build.generated_headers()["mel_program.h"]
     assert f"constexpr int kLiveBins = {count};" in text and f"constexpr int kLiveBinsPad = {padded};" in text
     assert cuda_build._digest(cuda_build.generated_headers()) != digest
+
+
+@pytest.mark.parametrize("dft", ["direct", "factored"])
+@pytest.mark.parametrize("fmax", [8000.0, 9000.0])
+def test_filterbank_follows_config(rng, monkeypatch, fmax, dft):
+    """``mel_filterbank()`` resolves ``config.FMIN`` / ``FMAX`` at the call,
+    as the kernels do when they are built: at FMAX 8000 and 9000 it is JAX's
+    ``mel_filterbank(fmax=...)`` (the same float64 code, so equal after
+    rounding to float32), and the plain versions compute the 257-bin DFT
+    projected onto it. At the defaults it is the default filterbank."""
+    default = melspec.mel_filterbank()
+    np.testing.assert_array_equal(default, jax_melspec.mel_filterbank())
+    monkeypatch.setattr(config, "FMAX", fmax)
+    fb = melspec.mel_filterbank()
+    np.testing.assert_array_equal(fb.astype(np.float32), jax_melspec.mel_filterbank(fmax=fmax).astype(np.float32))
+    assert fb.shape == default.shape and not np.array_equal(fb, default)
+    windows = torch.from_numpy(_windows(rng, 5))
+    spec = melspec.frame_signal(windows.double()) @ torch.from_numpy(jax_melspec.stft_power_basis())
+    power = spec[..., 0::2] ** 2 + spec[..., 1::2] ** 2
+    want = 10.0 * torch.log10(torch.clamp_min(power @ torch.from_numpy(jax_melspec.mel_filterbank(fmax=fmax)),
+                                              1e-10))
+    for arith in ("fp32", "3pass"):
+        got = melspec_cuda.melspectrogram_frames_plain(windows, dft, arith)
+        np.testing.assert_allclose(got.double().numpy(), want.numpy(), rtol=0, atol=2e-3, err_msg=arith)
+    monkeypatch.setattr(config, "FMIN", 100.0)
+    np.testing.assert_array_equal(melspec.mel_filterbank(), jax_melspec.mel_filterbank(fmin=100.0, fmax=fmax))

@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
 """Times the port's mel kernels on one card, for comparing two trees in one call.
 
-    python3 tools/mel_times.py [--tree DIR] [--label NAME]
+    python3 tools/mel_times.py [--tree DIR] [--label NAME] [--fmax HZ]
 
 Imports ``openwakeword_tpu_torch`` from ``DIR`` (default: the checkout that
-holds this script), builds its CUDA library, holds each mel kernel variant
+holds this script), sets ``config.FMAX`` to ``HZ`` where given (the
+filterbank's upper edge, which sets the kernels' live range), builds its CUDA
+library for that range, holds each mel kernel variant
 (``melspec_cuda.VARIANTS``) against its plain version at S = 17 (one silent
 stream) and times it with CUDA events at S = 1 and S = 4096 (the better of
 two runs of 50 launches after 5 warm-up launches). Prints the card's name
 and power limit, the ptxas lines of the mel kernels, and one JSON line
-``{"label": ..., "tree": ..., "card": ..., "ms": {variant: {"1": t, "4096": t}},
+``{"label": ..., "tree": ..., "card": ..., "fmax": ..., "ms": {variant: {"1": t, "4096": t}},
 "max_abs_err": {variant: e}}``. To compare two commits, unpack the other one
 with ``git archive`` into a git-ignored directory (``dist/``) and run both
 trees in turns in one call: A, B, B, A.
@@ -45,20 +47,25 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--tree", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     ap.add_argument("--label", default=None)
+    ap.add_argument("--fmax", type=float, default=None)
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         sys.exit("mel_times: needs an NVIDIA GPU (torch.cuda.is_available() is false)")
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
+    from openwakeword_tpu_torch import config
     from openwakeword_tpu_torch.ops import melspec_cuda
     from openwakeword_tpu_torch.utils import cuda_build
+    if args.fmax is not None:
+        config.FMAX = args.fmax
     if not melspec_cuda.__file__.startswith(tree):
         sys.exit(f"mel_times: imported {melspec_cuda.__file__}, not the tree {tree}")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True, timeout=60).stdout.splitlines()[0].strip()
     built = cuda_build.load_library()
-    print(f"tree {tree}: built in {built.build_seconds:.1f} s, on {card}")
+    print(f"tree {tree}: FMAX {config.FMAX}, live bins {melspec_cuda.live_bins()}, built in "
+          f"{built.build_seconds:.1f} s, on {card}")
     keep = False
     for line in built.log.splitlines():
         if "Compiling entry" in line:
@@ -86,7 +93,8 @@ def main():
                                    for _ in range(2))
         print(f"{name}: {ms[name]['1']:.4f} ms at S=1, {ms[name]['4096']:.4f} ms at S=4096, "
               f"max |diff| {err:.3e} dB at S={CHECK_STREAMS}")
-    print(json.dumps({"label": args.label or tree, "tree": tree, "card": card, "ms": ms, "max_abs_err": errs}))
+    print(json.dumps({"label": args.label or tree, "tree": tree, "card": card, "fmax": config.FMAX, "ms": ms,
+                      "max_abs_err": errs}))
 
 
 if __name__ == "__main__":
