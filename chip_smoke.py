@@ -48,7 +48,9 @@ Phases, each of which exits nonzero on failure:
 8. CNN timing at S=4096: kernel 3 vs its plain version vs the engine's NHWC
    eager step, kernel 4 vs its plain version; then one call of each under
    ``torch.profiler`` (two calls per trace, a whole one kept), printed as
-   each conv's ms and TFLOP/s;
+   each conv's ms and TFLOP/s; the same for the 3-pass variants (K3-high
+   and K4-high, ``csrc/cnn_step_mma.cuh`` on the tensor cores), their
+   TFLOP/s counting one pass;
 9. Model golden: the port's single-stream ``Model`` on the card with the
    golden weights over ``testing.model_packets()``, against the JAX
    ``Model``'s committed scores (tests/fixtures/torch_serving_golden.npz),
@@ -480,13 +482,16 @@ def plain_flops(fn, *args) -> float:
     return float(counter.get_total_flops())
 
 
-def conv_profile(card: str, step, prime, n_streams: int) -> None:
+def conv_profile(card: str, step, prime, n_streams: int, kernel: str = "conv_layer_kernel",
+                 label: str = "") -> None:
     """Each conv's device time in one kernel 3 call (``step``) and one
     kernel 4 call (``prime``) under torch.profiler, printed as one JSON line
-    per call with each conv's ms and TFLOP/s. The i-th conv kernel launch of
-    a call is conv i: launch order is the key, since a template's
-    instantiations may share a name. The operations of conv i are its
-    products, 2 * Cout * kh * kw * Cin per output position and stream."""
+    per call with each conv's ms and TFLOP/s. The i-th launch of a call of a
+    kernel whose name holds ``kernel`` (the FFMA kernels' template, or
+    ``conv_mma_kernel``, the 3-pass one) is conv i: launch order is the key,
+    since a template's instantiations may share a name. The operations of
+    conv i are its products, 2 * Cout * kh * kw * Cin per output position
+    and stream (one pass)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -508,7 +513,7 @@ def conv_profile(card: str, step, prime, n_streams: int) -> None:
             filler.add_(1.0)
             torch.cuda.synchronize()
         launches = sorted((e for e in prof.events()
-                           if e.device_type == DeviceType.CUDA and "conv_layer_kernel" in e.name),
+                           if e.device_type == DeviceType.CUDA and kernel in e.name),
                           key=lambda e: e.time_range.start)
         calls, current = [], []
         for e in launches:
@@ -539,8 +544,8 @@ def conv_profile(card: str, step, prime, n_streams: int) -> None:
             convs.append({"ms": round(ms, 5), "tflops": round(flops / ms / 1e9, 2)})
             tx, wx = t_out // ph, wx // pw
         total = sum(c["ms"] for c in convs)
-        print(f"CNN {what} per conv at S={n_streams} ({total:.4f} ms of kernels), on {card}: "
-              + json.dumps({"call": what, "convs": convs}))
+        print(f"CNN {what}{label} per conv at S={n_streams} ({total:.4f} ms of kernels), on {card}: "
+              + json.dumps({"call": what + label, "convs": convs}))
 
 
 def nearer_3pass(what: str, got, want3, want32) -> float:
@@ -2652,6 +2657,8 @@ def main():
         print(f"CNN {what} kernel at S={SCALE_STREAMS}: {ms:.4f} ms, bound {cnn_bound[what][0]:.4f} ms "
               f"({cnn_bound[what][1]}, three times the 1-pass operations at the dense bf16 tensor-core rate; "
               f"{cnn_bound[what][0] / ms:.1%} of it), on {card}")
+    conv_profile(card, lambda: cnn_step_cuda.cnn_step(params3, caches_list, new),
+                 lambda: cnn_step_cuda.cnn_prime(params3, window), SCALE_STREAMS, "conv_mma_kernel", "_high")
 
     print(f"[{time.perf_counter() - t_start:.1f} s] phases 9-12")
     mel_launches["direct_3pass"] = serving(card)
@@ -2704,9 +2711,9 @@ def main():
         ("melspec_frames_factored_3pass", "melspec_factored_mma.cu", "openwakeword_tpu/ops/melspec_pallas.py:110",
          mel_launches["factored_3pass"], mel_err["factored_3pass"], mel_ms["factored_3pass"],
          mel_bound["factored_3pass"]),
-        ("cnn_step_high", "cnn_step_high.cu", "openwakeword_tpu/ops/cnn_pallas.py:167",
+        ("cnn_step_high", "cnn_step_mma.cuh", "openwakeword_tpu/ops/cnn_pallas.py:167",
          cnn_launches["step_high"], cnn_err["step_high"], step3_ms, cnn_bound["step_high"]),
-        ("cnn_prime_high", "cnn_step_high.cu", "openwakeword_tpu/ops/cnn_pallas.py:167",
+        ("cnn_prime_high", "cnn_step_mma.cuh", "openwakeword_tpu/ops/cnn_pallas.py:167",
          cnn_launches["prime_high"], cnn_err["prime_high"], prime3_ms, cnn_bound["prime_high"]),
     ]
     print(json.dumps({"kernels": [

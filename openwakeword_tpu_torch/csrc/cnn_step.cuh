@@ -1,8 +1,10 @@
 // Streaming embedding-CNN step and prime for Hopper (sm_90a), on the CUDA
 // cores' fp32 FFMA: the kernel and its launch plan, shared by cnn_step.cu
-// (the fp32 kernels, entry point owwt_cnn_forward), cnn_step_bf16.cu (the
-// 1-pass bf16 variants, owwt_cnn_forward_bf16) and cnn_step_high.cu (the
-// 3-pass bf16 variants, owwt_cnn_forward_high), which nvcc builds in parallel.
+// (the fp32 kernels, entry point owwt_cnn_forward) and cnn_step_bf16.cu (the
+// 1-pass bf16 variants, owwt_cnn_forward_bf16), which nvcc builds in
+// parallel. The walk over the program (Program, conv_io, run_forward) also
+// serves the 3-pass variants on the tensor cores (cnn_step_mma.cuh, built by
+// cnn_step_high.cu).
 //
 // Replaces the TPU kernel openwakeword_tpu/ops/cnn_pallas.py::_make_kernel,
 // launched by _run(prime=False) (CnnStepKernel.step) and _run(prime=True)
@@ -67,15 +69,6 @@
 // hold the inputs unrounded, as the TPU kernel's do. A bf16 x bf16 product is
 // exact in fp32, so the FFMA loop computes the 1-pass products exactly; only
 // the order of summation differs from the TPU's.
-//
-// The 3-pass variants (ARITH = kThreePass) replace the TPU kernel's "high"
-// mode, the default of its CnnStepKernel: each operand split into bf16
-// halves and each product taken as hi*hi + hi*lo + lo*hi with fp32 sums
-// (bf16_arith.cuh). The host passes the weights split once, as packed words,
-// so they move as the fp32 weights do; every staged input cell is split into
-// a word in shared memory by the thread that staged it, where the 1-pass
-// variants round. Epilogue, pools, caches and embedding stay fp32; the
-// caches hold the inputs unsplit, as the TPU kernel's do.
 
 #pragma once
 
@@ -151,7 +144,7 @@ __device__ __forceinline__ float clipped_leaky(float v) {
 // One conv for one block: 32 streams x G*NC positions x all COUT channels.
 // VEC: S % 4 == 0 and every pointer 16-byte aligned, so a stream quad moves
 // as one 16-byte copy; otherwise as four 4-byte copies masked per stream.
-// ARITH: fp32, or the 1-pass or 3-pass bf16 variant (see the top of this file).
+// ARITH: fp32, or the 1-pass bf16 variant (see the top of this file).
 template <int KH, int KW, int CIN, int COUT, int PH, int PW, int EPI, int G, int NC, int KS, bool VEC, int ARITH>
 __global__ void __launch_bounds__((COUT / kThreadChannels) * kStreamQuads * G,
                                   (COUT / kThreadChannels) * kStreamQuads * G <= 192 ? 2 : 1)
@@ -418,10 +411,10 @@ conv_layer_kernel(const float* __restrict__ x,        // (CIN, tx, wx, S) new ro
 #pragma unroll
                     for (int i = 0; i < TM; ++i) {
                         const float w = kk == 0 ? w4[i].x : kk == 1 ? w4[i].y : kk == 2 ? w4[i].z : w4[i].w;
-                        acc[i][j][0] = mac<ARITH>(b.x, w, acc[i][j][0]);
-                        acc[i][j][1] = mac<ARITH>(b.y, w, acc[i][j][1]);
-                        acc[i][j][2] = mac<ARITH>(b.z, w, acc[i][j][2]);
-                        acc[i][j][3] = mac<ARITH>(b.w, w, acc[i][j][3]);
+                        acc[i][j][0] = fmaf(w, b.x, acc[i][j][0]);
+                        acc[i][j][1] = fmaf(w, b.y, acc[i][j][1]);
+                        acc[i][j][2] = fmaf(w, b.z, acc[i][j][2]);
+                        acc[i][j][3] = fmaf(w, b.w, acc[i][j][3]);
                     }
                 }
             }
@@ -545,8 +538,55 @@ struct Program {
     cudaError_t err;
 };
 
+// Conv I's buffers in the walk: the old cache it reads (null for a prime or a
+// conv without one), the new cache it writes and its output.
+struct ConvIo {
+    const float* cache;
+    float* new_cache;
+    float* out;
+};
+
+// Conv I's geometry on the walk's input and its buffers; false (with p.err
+// set) if an earlier launch failed or the program does not fit the input.
+template <int I>
+bool conv_io(Program& p, Geometry* g, ConvIo* io) {
+    constexpr ConvSpec c = kConvs[I];
+    if (p.err != cudaSuccess) {
+        return false;
+    }
+    if (!conv_geometry(c, p.caches_in == nullptr, p.tx, p.wx, g)) {
+        p.err = cudaErrorInvalidValue;
+        return false;
+    }
+    io->cache = nullptr;
+    io->new_cache = nullptr;
+    if (c.kh > 1) {
+        io->cache = p.caches_in != nullptr ? p.caches_in[p.cache_i] : nullptr;
+        io->new_cache = p.caches_out[p.cache_i];
+        ++p.cache_i;
+    }
+    if (I == kNumConvs - 1) {
+        if (g->t_pooled * g->w_pooled * c.cout != kEmbDim) {
+            p.err = cudaErrorInvalidValue;
+            return false;
+        }
+        io->out = p.emb;
+    } else {
+        io->out = p.scratch[p.ping];
+        p.ping ^= 1;
+    }
+    return true;
+}
+
+// Moves the walk on: conv I's output is the next conv's input.
+void advance(Program& p, const ConvIo& io, const Geometry& g) {
+    p.x = io.out;
+    p.tx = g.t_pooled;
+    p.wx = g.w_pooled;
+}
+
 template <int I, bool VEC, int ARITH>
-cudaError_t launch_tile(const Program& p, const float* cache, float* new_cache, float* out, int position_tiles) {
+cudaError_t launch_tile(const Program& p, const ConvIo& io, int position_tiles) {
     constexpr ConvSpec c = kConvs[I];
     constexpr ConvTile t = kTiles[I];
     constexpr int threads = tile_threads(c, t);
@@ -568,48 +608,27 @@ cudaError_t launch_tile(const Program& p, const float* cache, float* new_cache, 
         return err;
     }
     const dim3 grid((p.n_streams + kStreamTile - 1) / kStreamTile, position_tiles);
-    kernel<<<grid, threads, smem, p.stream>>>(p.x, cache, new_cache, p.taps[I], p.biases[I], p.scale, p.shift, out,
-                                              p.tx, p.wx, p.n_streams);
+    kernel<<<grid, threads, smem, p.stream>>>(p.x, io.cache, io.new_cache, p.taps[I], p.biases[I], p.scale, p.shift,
+                                              io.out, p.tx, p.wx, p.n_streams);
     return cudaGetLastError();
 }
 
 template <int I, int ARITH>
 void launch_conv(Program& p) {
-    constexpr ConvSpec c = kConvs[I];
     constexpr ConvTile t = kTiles[I];
-    if (p.err != cudaSuccess) {
+    Geometry g;
+    ConvIo io;
+    if (!conv_io<I>(p, &g, &io)) {
         return;
     }
-    Geometry g;
     const int npt = t.groups * t.per_thread;
-    if (!conv_geometry(c, p.caches_in == nullptr, p.tx, p.wx, &g) || (g.n_pos + npt - 1) / npt > 65535) {
+    const int tiles = (g.n_pos + npt - 1) / npt;
+    if (tiles > 65535) {
         p.err = cudaErrorInvalidValue;
         return;
     }
-    const float* cache = nullptr;
-    float* new_cache = nullptr;
-    if (c.kh > 1) {
-        cache = p.caches_in != nullptr ? p.caches_in[p.cache_i] : nullptr;
-        new_cache = p.caches_out[p.cache_i];
-        ++p.cache_i;
-    }
-    float* out;
-    if (I == kNumConvs - 1) {
-        if (g.t_pooled * g.w_pooled * c.cout != kEmbDim) {
-            p.err = cudaErrorInvalidValue;
-            return;
-        }
-        out = p.emb;
-    } else {
-        out = p.scratch[p.ping];
-        p.ping ^= 1;
-    }
-    const int tiles = (g.n_pos + npt - 1) / npt;
-    p.err = p.vec ? launch_tile<I, true, ARITH>(p, cache, new_cache, out, tiles)
-                  : launch_tile<I, false, ARITH>(p, cache, new_cache, out, tiles);
-    p.x = out;
-    p.tx = g.t_pooled;
-    p.wx = g.w_pooled;
+    p.err = p.vec ? launch_tile<I, true, ARITH>(p, io, tiles) : launch_tile<I, false, ARITH>(p, io, tiles);
+    advance(p, io, g);
 }
 
 template <int ARITH, std::size_t... I>
@@ -621,10 +640,10 @@ bool aligned16(const void* ptr) {
     return reinterpret_cast<std::uintptr_t>(ptr) % 16 == 0;
 }
 
-// The whole program for `n_streams` streams, one launch per conv on `stream`
-// (see owwt_cnn_forward in cnn_step.cu).
-template <int ARITH>
-int cnn_forward(const float* mel, int t_in, const float* const* caches_in, float* const* caches_out,
+// The whole program for `n_streams` streams, one launch per conv on `stream`,
+// each by `launch(p)` in program order (see owwt_cnn_forward in cnn_step.cu).
+template <typename Launch>
+int run_forward(Launch launch, const float* mel, int t_in, const float* const* caches_in, float* const* caches_out,
                 const float* const* taps, const float* const* biases, const float* scale, const float* shift,
                 float* emb, float* scratch0, float* scratch1, int n_streams, void* stream) {
     if (n_streams <= 0) {
@@ -636,11 +655,19 @@ int cnn_forward(const float* mel, int t_in, const float* const* caches_in, float
     }
     Program p{caches_in, caches_out, taps, biases, scale, shift, emb, {scratch0, scratch1},
               n_streams, static_cast<cudaStream_t>(stream), vec, mel, t_in, 32, 0, 0, cudaSuccess};
-    run_program<ARITH>(p, std::make_index_sequence<kNumConvs>{});
+    launch(p);
     if (p.err == cudaSuccess && p.cache_i != kNumCaches) {
         p.err = cudaErrorInvalidValue;
     }
     return static_cast<int>(p.err);
+}
+
+template <int ARITH>
+int cnn_forward(const float* mel, int t_in, const float* const* caches_in, float* const* caches_out,
+                const float* const* taps, const float* const* biases, const float* scale, const float* shift,
+                float* emb, float* scratch0, float* scratch1, int n_streams, void* stream) {
+    return run_forward([](Program& p) { run_program<ARITH>(p, std::make_index_sequence<kNumConvs>{}); }, mel, t_in,
+                       caches_in, caches_out, taps, biases, scale, shift, emb, scratch0, scratch1, n_streams, stream);
 }
 
 }  // namespace

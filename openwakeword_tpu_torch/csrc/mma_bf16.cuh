@@ -1,8 +1,9 @@
-// Warp-level tensor-core helpers of the mel kernels' bf16 variants
-// (csrc/melspec_mma.cu, K1-1pass / K1-3pass, and csrc/melspec_factored_mma.cu,
-// K2-1pass / K2-3pass): ldmatrix, one mma.sync.m16n8k16 bf16 tile with fp32
-// sums, an fp32 pair as the variant's bf16 operand, and a product in the
-// variant's arithmetic (bf16_arith.cuh).
+// Warp-level tensor-core helpers of the bf16 variants on the tensor cores
+// (csrc/melspec_mma.cu, K1-1pass / K1-3pass; csrc/melspec_factored_mma.cu,
+// K2-1pass / K2-3pass; csrc/cnn_step_mma.cuh, K3-high / K4-high): ldmatrix,
+// one mma.sync.m16n8k16 bf16 tile with fp32 sums, an fp32 pair as the
+// variant's bf16 operand, and a product in the variant's arithmetic
+// (bf16_arith.cuh).
 
 #pragma once
 
@@ -17,6 +18,24 @@ namespace {
 __device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const __nv_bfloat16* p) {
     asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                  : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(smem_addr(p))
+                 : "memory");
+}
+
+// The same, each matrix transposed: lane l receives elements (2 (l % 4), l / 4)
+// and (2 (l % 4) + 1, l / 4) of the rows that lanes 8m .. 8m + 7 address.
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const __nv_bfloat16* p) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(smem_addr(p))
+                 : "memory");
+}
+
+// Two 8x8 bf16 matrices, row i of matrix m at the address lane 8m + i passes
+// (lanes 16-31 pass addresses that are not read).
+__device__ __forceinline__ void ldmatrix_x2(unsigned* r, const __nv_bfloat16* p) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+                 : "=r"(r[0]), "=r"(r[1])
                  : "r"(smem_addr(p))
                  : "memory");
 }

@@ -41,20 +41,6 @@ def split_bf16(x: torch.Tensor):
     return hi, round_bf16(x - hi)
 
 
-def pack_split(x: torch.Tensor) -> torch.Tensor:
-    """``split_bf16(x)`` as one int32 word per value, the layout the 3-pass
-    kernels read: hi's bf16 bits in the upper 16 bits, lo's in the lower."""
-    hi, lo = split_bf16(x)
-    return hi.view(torch.int32) | ((lo.view(torch.int32) >> 16) & 0xFFFF)
-
-
-def unpack_split(words: torch.Tensor):
-    """(hi, lo) float32 tensors from ``pack_split``'s words."""
-    w = words.to(torch.int64)
-    return ((w & 0xFFFF0000).to(torch.int32).view(torch.float32),
-            ((w & 0xFFFF) << 16).to(torch.int32).view(torch.float32))
-
-
 @contextlib.contextmanager
 def fp32_matmul():
     """Full fp32 products (TF32 off) for the duration, whatever the caller set."""

@@ -19,7 +19,7 @@ from openwakeword_tpu_torch import config, convert
 from openwakeword_tpu_torch.models import embedding as E
 from openwakeword_tpu_torch.models import embedding_stream
 from openwakeword_tpu_torch.ops import cnn_step_cuda
-from openwakeword_tpu_torch.ops.bf16 import pack_split, round_bf16
+from openwakeword_tpu_torch.ops.bf16 import round_bf16, split_bf16
 from openwakeword_tpu_torch.ops.cnn_step_cuda import CnnParams
 
 
@@ -97,6 +97,20 @@ def cache_shapes() -> List[Tuple[str, Tuple[int, int, int]]]:
     return shapes
 
 
+def three_pass_planes(tap: torch.Tensor) -> torch.Tensor:
+    """A conv's (kh*kw, Cout, Cin) float32 taps as the 3-pass kernels read
+    them (``csrc/cnn_step_mma.cuh``): a (2, Cout, K16) bf16 tensor, the hi
+    and the lo plane of ``bf16.split_bf16`` (JAX's ``_bf16_split``), row o
+    holding output channel o's weights over K = kh*kw*Cin in the tap order
+    (dt, dw, c) of the TPU kernel, zero from K up to K16, K rounded up to
+    16."""
+    taps, cout, cin = tap.shape
+    k = taps * cin
+    mat = torch.zeros((cout, -(-k // 16) * 16), dtype=torch.float32, device=tap.device)
+    mat[:, :k] = tap.to(torch.float32).permute(1, 0, 2).reshape(cout, k)
+    return torch.stack(split_bf16(mat)).to(torch.bfloat16).contiguous()
+
+
 def prep_params(folded: Dict, arith: str = "fp32") -> CnnParams:
     """The port's BN-folded params (OIHW convs) -> per conv a
     (kh*kw, Cout, Cin) tap stack and a (Cout, 1) bias, the stem affine as
@@ -104,8 +118,8 @@ def prep_params(folded: Dict, arith: str = "fp32") -> CnnParams:
     the plain version; all float32 and contiguous on the params' device.
     Weights may be float32 or bf16. ``arith`` (``config.ARITHS``) is the
     variant: '1pass' rounds the weights to bf16 (in float32 tensors); '3pass'
-    splits the taps once, on the host, into int32 words of bf16 (hi, lo)
-    halves (``bf16.pack_split``), and leaves the plain version's matrices
+    gives the kernels, in place of the taps, the weights split once on the
+    host (``three_pass_planes``), and leaves the plain version's matrices
     float32 (it splits them per product, at the same rounding points)."""
     if arith not in config.ARITHS:
         raise ValueError(f"unknown arithmetic {arith!r} (expected one of {config.ARITHS})")
@@ -121,7 +135,7 @@ def prep_params(folded: Dict, arith: str = "fp32") -> CnnParams:
         w = round_bf16(w) if arith == "1pass" else w.to(torch.float32)
         cout, cin, kh, kw = w.shape
         tap = w.permute(2, 3, 0, 1).reshape(kh * kw, cout, cin).contiguous()
-        taps.append(pack_split(tap.cpu()).to(tap.device) if arith == "3pass" else tap)
+        taps.append(three_pass_planes(tap) if arith == "3pass" else tap)
         biases.append(c["b"].to(torch.float32).reshape(cout, 1).contiguous())
         mats.append(embedding_stream._weight_mat(w).contiguous())
         conv_i += 1

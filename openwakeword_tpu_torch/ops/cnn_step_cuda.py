@@ -12,12 +12,14 @@ the kernel never writes a cache it reads. ``CnnParams.arith`` picks the
 variant, as the JAX kernel's ``_dot`` mode does: 'fp32' (``"highest"``),
 '1pass' (``csrc/cnn_step_bf16.cu``, ``"bf16"``: weights rounded by the
 host, every conv input rounded as the kernel stages it) or '3pass'
-(``csrc/cnn_step_high.cu``, ``"high"``: weights split by the host into
-packed bf16 (hi, lo) words, ``bf16.pack_split``, every conv input split as
-the kernel stages it); sums, epilogues and caches stay float32. Each
-wrapper counts its launches in ``.launches[params.arith]``.
-``conv_tiles`` picks each conv's block tile, which the build compiles in
-through the generated header ``cnn_tiles.h``.
+(``csrc/cnn_step_high.cu``, ``"high"``: the tensor-core kernels of
+``csrc/cnn_step_mma.cuh``, the weights split by the host into bf16 hi and
+lo planes, ``cnn_step.three_pass_planes``, every conv input split as the
+kernel stages it); sums, epilogues and caches stay float32. Each wrapper
+counts its launches in ``.launches[params.arith]``. ``conv_tiles`` picks
+each conv's block tile of the FFMA kernels and ``conv_mma_tiles`` that of
+the tensor-core ones, which the build compiles in through the generated
+headers ``cnn_tiles.h`` and ``cnn_mma_tiles.h``.
 """
 
 import ctypes
@@ -102,17 +104,143 @@ def tile_smem_bytes(conv: Tuple[int, ...], tile: ConvTile) -> int:
     return STAGES * (tile.k_slice * cells * 16 + cout * (tile.k_slice + 4) * 4) + k_pad * 16
 
 
+# The 3-pass kernels' block tiles, compiled into csrc/cnn_step_mma.cuh through
+# the generated cnn_mma_tiles.h: a block covers MMA_STREAMS streams x a
+# rectangle of output positions x Cout / n_blocks channels; an m16 tile is one
+# output position of the 16 streams, a warp holds warp_positions of them x
+# MMA_N_TILES n8 tiles (24 channels). The rest is what a search keeps within.
+MMA_STREAMS = 16
+MMA_N_TILES = 3
+MMA_MAX_POSITIONS = 16     # output positions per block
+MMA_MAX_WARPS = 16
+MMA_MIN_WARPS = 8          # resident warps per SM a tile needs first (latency hiding)
+MMA_WARPS_PER_SM = 16      # resident warps per SM a tile aims at after that
+MMA_REGISTERS = 128        # registers per thread assumed when counting the blocks an SM holds
+SM_SMEM = 228 * 1024       # shared memory of an H100 SM; a block also takes 1 KB of it
+SM_THREADS = 2048
+
+
+class MmaTile(NamedTuple):
+    pooled_rows: int       # pooled output rows per block (a block's rows: pooled_rows * pool_h)
+    pooled_cols: int       # pooled output columns per block
+    warp_positions: int    # MT: output positions (m16 tiles) per warp, whole pool windows
+    n_blocks: int          # NB: blocks that split Cout
+    chunk_channels: int    # CC: input channels per staged chunk of the patch
+    min_blocks: int        # blocks an SM is to hold (__launch_bounds__)
+
+
+class MmaLayout(NamedTuple):
+    """What ``csrc/cnn_step_mma.cuh::MmaPlan`` derives from a conv and its tile."""
+    rows: int              # TR: output rows per block
+    cols: int              # TC: output columns per block
+    positions: int         # P = TR * TC
+    warps: int
+    threads: int
+    patch_rows: int        # PR = TR + kh - 1 input rows the block stages
+    patch_cols: int        # PC = TC + kw - 1
+    cell_stride: int       # PCS: cells per staged row (PC, or for Cin = 1 the least >= PC that is 3 mod 8)
+    region: int            # 16-byte rows per (plane, stream half) region of a chunk buffer: cells x CC, a zero row
+    k_pad: int             # K = kh * kw * Cin rounded up to 16: the weight planes' row
+    w_stride: int          # bf16 per staged weight row: k_pad + 8
+    steps: int             # k16 steps per channel chunk
+    slots: int             # stream quads of a chunk per thread (its cp.async slots)
+    smem: int              # dynamic shared memory of a block
+
+
+def conv_widths(table: Sequence[Tuple[int, ...]]) -> List[int]:
+    """Each conv's input (and output) width: 32, halved by every 2-wide pool."""
+    wx, out = MEL_WIDTH, []
+    for row in table:
+        out.append(wx)
+        wx //= row[5]
+    return out
+
+
+def mma_layout(conv: Tuple[int, ...], tile: MmaTile) -> MmaLayout:
+    """The geometry ``csrc/cnn_step_mma.cuh`` derives for ``conv`` (a row of
+    ``ops.cnn_step.conv_table()``) and its tile. A chunk buffer is four
+    regions (hi and lo plane x streams 0-7 and 8-15) of 16-byte rows, row
+    (cell * CC + c) holding channel c of a cell for 8 streams, with a
+    trailing zero row, each 4 mod 8 rows long so that the two stream halves
+    of one split store land 64 bytes apart in the banks. Shared memory holds
+    two chunk buffers, two rings of 16-byte cp.async slots (a chunk's fp32
+    cells) and two weight planes of [Cout / n_blocks][k_pad + 8] bf16."""
+    kh, kw, cin, cout, ph, pw, _ = conv
+    tr, tc = tile.pooled_rows * ph, tile.pooled_cols * pw
+    p = tr * tc
+    warps = p // tile.warp_positions * (cout // tile.n_blocks // (8 * MMA_N_TILES))
+    pr, pc = tr + kh - 1, tc + kw - 1
+    pcs = pc if cin % 8 == 0 else pc + (3 - pc) % 8
+    cc = tile.chunk_channels
+    region = pr * pcs * cc + 1
+    region += (4 - region) % 8
+    k_pad = -(-kh * kw * cin // 16) * 16
+    threads = 32 * warps
+    slots = -(-pr * pc * cc * (MMA_STREAMS // 4) // threads)
+    return MmaLayout(tr, tc, p, warps, threads, pr, pc, pcs, region, k_pad, k_pad + 8, -(-kh * kw * cc // 16),
+                     slots, 2 * (4 * region * 16 + slots * threads * 16)
+                     + 2 * (cout // tile.n_blocks) * (k_pad + 8) * 2)
+
+
+def _resident_blocks(layout: MmaLayout) -> int:
+    return max(1, min(SM_SMEM // (layout.smem + 1024), 65536 // (layout.threads * MMA_REGISTERS),
+                      SM_THREADS // layout.threads))
+
+
+def conv_mma_tiles(table: Sequence[Tuple[int, ...]]) -> List[MmaTile]:
+    """Each conv's 3-pass block tile. Among rectangles of whole pool windows
+    of at most MMA_MAX_POSITIONS positions (a step's rows at most), Cout
+    splits into n_blocks of 24-channel warps, 1, 2 or 4 positions per warp
+    (whole windows) and channel chunks of whole 8-channel groups dividing
+    Cin (Cin itself below 8), within MMA_MAX_WARPS warps and SMEM_LIMIT
+    bytes: the one an SM holds at least MMA_MIN_WARPS warps of, then the
+    most positions per warp (fewer shared loads per MMA), the fewest Cout
+    splits (each stages the patch again), the most resident warps up to
+    MMA_WARPS_PER_SM, the most positions (fewer weight loads per output),
+    the least input staged per output, the fewest chunks (fewer barriers,
+    fewer padded k16 steps). Timed on an H100 (PERF.md), positions per warp
+    and Cout splits outweighed occupancy past 8 warps, and occupancy
+    outweighed the chunk count."""
+    tiles = []
+    for conv, wx, n_pos in zip(table, conv_widths(table), conv_positions(table, STEP_ROWS, False)):
+        kh, kw, cin, cout, ph, pw, _ = conv
+        t_step = n_pos // wx
+        chunks = [c for c in range(8, cin + 1, 8) if cin % c == 0] or [cin]
+        best = None
+        for nb in (n for n in range(1, 5) if cout % (8 * MMA_N_TILES * n) == 0):
+            for tqr in (1, 2, 4, 8):
+                for tqc in (1, 2, 4, 8, 16, 32):
+                    tr, tc = tqr * ph, tqc * pw
+                    if tr > max(t_step, ph) or wx % tc or tr * tc > MMA_MAX_POSITIONS:
+                        continue
+                    for mt in (m for m in (1, 2, 4) if (tr * tc) % m == 0 and m % (ph * pw) == 0):
+                        for cc in chunks:
+                            tile = MmaTile(tqr, tqc, mt, nb, cc, 1)
+                            lay = mma_layout(conv, tile)
+                            if lay.warps > MMA_MAX_WARPS or lay.smem > SMEM_LIMIT:
+                                continue
+                            resident = _resident_blocks(lay)
+                            halo = lay.patch_rows * lay.patch_cols / lay.positions
+                            warps = resident * lay.warps
+                            key = (min(warps, MMA_MIN_WARPS), mt, -nb, min(warps, MMA_WARPS_PER_SM),
+                                   lay.positions, -halo, cc)
+                            if best is None or key > best[0]:
+                                best = (key, tile._replace(min_blocks=resident))
+        tiles.append(best[1])
+    return tiles
+
+
 class CnnParams(NamedTuple):
     """The BN-folded CNN as the kernels and their plain versions take it
     (built by ``ops.cnn_step.prep_params``)."""
-    taps: Tuple[torch.Tensor, ...]      # per conv: (kh*kw, Cout, Cin), the kernels' (int32 split words at 3-pass)
+    taps: Tuple[torch.Tensor, ...]      # per conv: (kh*kw, Cout, Cin); 3-pass: (2, Cout, K16) bf16 planes
     biases: Tuple[torch.Tensor, ...]    # per conv: (Cout, 1)
     scale: torch.Tensor                 # the stem's affine, (24, 1)
     shift: torch.Tensor                 # (24, 1)
     mats: Tuple[torch.Tensor, ...]      # per conv: (Cout, kh*kw*Cin), the plain versions'
     folded: Dict                        # the folded params (biases and affine of the plain versions)
     cache_shapes: Tuple[Tuple[str, Tuple[int, int, int]], ...]   # (name, (C, 2, W)), program order
-    arith: str = "fp32"                 # the variant: '1pass' rounds taps and mats, '3pass' splits the taps
+    arith: str = "fp32"                 # the variant: '1pass' rounds taps and mats, '3pass' splits the taps into planes
 
 
 def _plain(params: CnnParams, x: torch.Tensor, caches: Optional[Sequence[torch.Tensor]]):

@@ -585,8 +585,9 @@ def _check_3pass_run(p3, p32, window, steps):
         ref = cnn_step_cuda.cnn_step_plain(p32, caches, steps[i])
 
 
-# 4-byte copies (S = 1, 5, 33) and 16-byte ones (S = 100, a ragged tile, and 4096)
-@pytest.mark.parametrize("n_streams", [1, 5, 33, 100, 4096])
+# 4-byte loads (S % 4 != 0) and 16-byte ones, on both sides of the 16-stream
+# block tile and of the FFMA kernels' 32-stream tile, and at 4096
+@pytest.mark.parametrize("n_streams", [1, 5, 7, 8, 9, 15, 16, 17, 33, 63, 64, 65, 100, 127, 128, 129, 4096])
 def test_cnn_3pass_kernels_match_plain(cuda, cnn_params, n_streams):
     on_card = {k: {n: t.to(cuda) for n, t in v.items()} for k, v in cnn_params.items()}
     p3, p32 = cnn_step.prep_params(on_card, arith="3pass"), cnn_step.prep_params(on_card)
@@ -614,6 +615,31 @@ def test_cnn_3pass_kernels_take_misaligned_rows(cuda, cnn_params):
     window = misaligned(rng.uniform(-2, 8, (76, 32, 8)).astype(np.float32))
     steps = [misaligned(rng.uniform(-2, 8, (8, 32, 8)).astype(np.float32)) for _ in range(2)]
     _check_3pass_run(cnn_step.prep_params(on_card, arith="3pass"), cnn_step.prep_params(on_card), window, steps)
+
+
+@pytest.mark.parametrize("n_streams", [21, 24])
+def test_cnn_3pass_kernels_zero_stream_in_ragged_tile(cuda, cnn_params, n_streams):
+    """As test_cnn_kernels_zero_stream_in_ragged_tile, for the 3-pass
+    variants, whose block tile is 16 streams: the last stream, in the ragged
+    last tile (5 or 8 of 16 streams; the 4-byte and the 16-byte loads), gets
+    all-zero mel rows. The run holds to the plain 3-pass version as
+    ``_check_3pass_run`` does, and the last stream to the same stream run
+    alone, within 1e-4 of each tensor's scale."""
+    on_card = {k: {n: t.to(cuda) for n, t in v.items()} for k, v in cnn_params.items()}
+    p3, p32 = cnn_step.prep_params(on_card, arith="3pass"), cnn_step.prep_params(on_card)
+    rng = np.random.default_rng(n_streams)
+    window = torch.from_numpy(rng.uniform(-2, 8, (76, 32, n_streams)).astype(np.float32)).to(cuda)
+    steps = [torch.from_numpy(rng.uniform(-2, 8, (8, 32, n_streams)).astype(np.float32)).to(cuda)
+             for _ in range(3)]
+    for x in [window] + steps:
+        x[..., -1] = 0.0
+    _check_3pass_run(p3, p32, window, steps)
+    runs = _cnn_prime_and_steps(p3, window, steps)
+    alone = _cnn_prime_and_steps(p3, window[..., -1:].contiguous(), [x[..., -1:].contiguous() for x in steps])
+    for (emb, caches, _, want_caches), (one_emb, one_caches, _, _) in zip(runs, alone):
+        assert float((emb[:, -1:] - one_emb).abs().max()) <= 1e-4 * float(one_emb.abs().max())
+        for a, b in zip(caches, one_caches):
+            assert float((a[..., -1:] - b).abs().max()) <= 1e-4 * max(float(b.abs().max()), 1e-30)
 
 
 def test_cnn_kernel_rejects_bad_inputs(cuda, cnn_params):

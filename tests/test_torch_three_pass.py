@@ -92,20 +92,6 @@ def test_split_matches_jax_bf16_split(rng):
     assert rel.max() <= 2.0 ** -16
 
 
-def test_pack_split_layout(rng):
-    """A packed word holds hi's bf16 bits above lo's; ``unpack_split``
-    inverts ``pack_split``."""
-    x = (rng.standard_normal(5000) * 100).astype(np.float32)
-    words = bf16.pack_split(torch.from_numpy(x))
-    assert words.dtype == torch.int32
-    hi, lo = bf16.split_bf16(torch.from_numpy(x))
-    w = words.numpy().view(np.uint32)
-    np.testing.assert_array_equal(w >> 16, hi.numpy().view(np.uint32) >> 16)
-    np.testing.assert_array_equal(w & 0xFFFF, lo.numpy().view(np.uint32) >> 16)
-    u_hi, u_lo = bf16.unpack_split(words)
-    assert torch.equal(u_hi, hi) and torch.equal(u_lo, lo)
-
-
 def test_product_3pass_is_jax_three_dots(rng):
     """``product_3pass(matmul)`` is JAX's three-dot ``_dot`` at HIGH."""
     a = rng.standard_normal((16, 64)).astype(np.float32)
@@ -156,26 +142,56 @@ def test_mel_device_constants_are_host_split():
     assert torch.equal(melw[-64:].view(torch.float32), fb32[-1])
 
 
+def _assert_planes_are_jax_split(t3, t32, j_tap):
+    """``t3``, a conv's 3-pass weight planes, against the float32 taps ``t32``
+    ((kh*kw, Cout, Cin)) and JAX's tap stack of the same conv: a (2, Cout,
+    K16) bf16 tensor whose hi and lo planes over K = kh*kw*Cin, in the tap
+    order (dt, dw, c), are ``split_bf16`` of the taps and, bit for bit,
+    JAX's ``_bf16_split`` of them; zero from K to K16."""
+    taps, cout, cin = t32.shape
+    k = taps * cin
+    assert t3.dtype == torch.bfloat16 and t3.shape == (2, cout, -(-k // 16) * 16) and t3.is_contiguous()
+    assert not t3[:, :, k:].float().any()
+    hi, lo = (t3[plane, :, :k].float().reshape(cout, taps, cin).permute(1, 0, 2) for plane in range(2))
+    want_hi, want_lo = bf16.split_bf16(t32)
+    assert torch.equal(hi, want_hi) and torch.equal(lo, want_lo)
+    assert t32.shape == j_tap.shape
+    j_hi, j_lo = jax_mel._bf16_split(jnp.asarray(t32.numpy()))
+    np.testing.assert_array_equal(hi.numpy(), np.asarray(j_hi.astype(jnp.float32)))
+    np.testing.assert_array_equal(lo.numpy(), np.asarray(j_lo.astype(jnp.float32)))
+
+
 def test_cnn_weights_are_host_split_once(folded):
-    """``prep_params(arith='3pass')`` splits each conv's taps into words
-    equal to the split of the float32 taps, bit for bit as JAX's
-    ``_bf16_split`` splits them (JAX's ``_dot`` splits the same (Cout, Cin)
-    tap matrices, in the same layout as ``cnn_pallas._prep_params``), and
-    keeps the plain version's matrices and the biases float32."""
+    """``prep_params(arith='3pass')`` gives the 3-pass kernels each conv's
+    taps split once on the host, as bf16 hi and lo planes laid [Cout][K16]
+    (``_assert_planes_are_jax_split``), bit for bit as JAX's ``_bf16_split``
+    splits them (JAX's ``_dot`` splits the same (Cout, Cin) tap matrices, in
+    the same layout as ``cnn_pallas._prep_params``), and keeps the plain
+    version's matrices and the biases float32."""
     p3, p32 = cnn_step.prep_params(folded[1], "3pass"), cnn_step.prep_params(folded[1])
     j_params = cnn_pallas._prep_params(folded[0], np.float32)
     assert p3.arith == "3pass" and p32.arith == "fp32"
     for i, (t3, t32) in enumerate(zip(p3.taps, p32.taps)):
-        assert t3.dtype == torch.int32 and t3.shape == t32.shape and t3.is_contiguous()
-        hi, lo = bf16.unpack_split(t3)
-        want_hi, want_lo = bf16.split_bf16(t32)
-        assert torch.equal(hi, want_hi) and torch.equal(lo, want_lo)
-        assert t32.shape == j_params[2 * i].shape
-        j_hi, j_lo = jax_mel._bf16_split(jnp.asarray(t32.numpy()))
-        np.testing.assert_array_equal(hi.numpy(), np.asarray(j_hi.astype(jnp.float32)))
-        np.testing.assert_array_equal(lo.numpy(), np.asarray(j_lo.astype(jnp.float32)))
+        _assert_planes_are_jax_split(t3, t32, j_params[2 * i])
     for a, b in zip(p3.mats + p3.biases, p32.mats + p32.biases):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("conv", range(20))
+def test_cnn_weight_planes_per_conv(folded, conv):
+    """``cnn_step.three_pass_planes`` of each conv's taps on their own, as
+    ``prep_params`` stores them, bit for bit JAX's split; bf16 weights go in
+    as their float32 values (their lo plane is zero)."""
+    t32 = cnn_step.prep_params(folded[1]).taps[conv]
+    j_tap = cnn_pallas._prep_params(folded[0], np.float32)[2 * conv]
+    planes = cnn_step.three_pass_planes(t32)
+    assert torch.equal(planes, cnn_step.prep_params(folded[1], "3pass").taps[conv])
+    _assert_planes_are_jax_split(planes, t32, j_tap)
+    rounded = t32.to(torch.bfloat16)
+    planes16 = cnn_step.three_pass_planes(rounded)
+    assert torch.equal(planes16[0, :, :t32.shape[0] * t32.shape[2]].float(),
+                       rounded.float().permute(1, 0, 2).reshape(t32.shape[1], -1))
+    assert not planes16[1].float().any()
 
 
 @pytest.mark.parametrize("arith", ["high", "3-pass", None])
