@@ -7,9 +7,8 @@
 // x * w taken as hi*hi + hi*lo + lo*hi with fp32 sums, lo*lo dropped; see
 // melspec_pallas.py::_bf16_split and cnn_pallas.py::_dot).
 //
-// The FFMA kernels (cnn_step.cuh) take fp32 and 1-pass operands as floats
-// (operand); the tensor-core kernels (mma_bf16.cuh) take 1-pass and
-// 3-pass operands as bf16 pairs.
+// The tensor-core kernels (mma_bf16.cuh) take 1-pass and 3-pass operands as
+// bf16 pairs; the FFMA kernels (csrc/melspec.cu, cnn_step.cuh) are fp32 only.
 
 #pragma once
 
@@ -18,16 +17,5 @@
 namespace {
 
 enum Arith { kFp32 = 0, kOnePass = 1, kThreePass = 2 };
-
-// v as an FFMA operand of the variant: as it is, or rounded to bf16.
-template <int ARITH>
-__device__ __forceinline__ float operand(float v) {
-    static_assert(ARITH != kThreePass, "3-pass operands are bf16 pairs (mma_bf16.cuh)");
-    if constexpr (ARITH == kOnePass) {
-        return __bfloat162float(__float2bfloat16_rn(v));
-    } else {
-        return v;
-    }
-}
 
 }  // namespace

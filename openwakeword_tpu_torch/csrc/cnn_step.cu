@@ -1,5 +1,6 @@
 // The fp32 CNN step and prime (kernels 3 and 4) of the port: the kernel is in
-// cnn_step.cuh, which this file, cnn_step_bf16.cu and cnn_step_high.cu share.
+// cnn_step.cuh, whose walk over the program cnn_step_bf16.cu and
+// cnn_step_high.cu share (through cnn_step_mma.cuh).
 
 #include "cnn_step.cuh"
 
@@ -38,6 +39,6 @@ extern "C" int owwt_cnn_forward(const float* mel, int t_in, const float* const* 
                                 const float* const* biases, const float* scale, const float* shift,
                                 float* emb, float* scratch0, float* scratch1, int n_streams,
                                 void* stream) {
-    return cnn_forward<kFp32>(mel, t_in, caches_in, caches_out, taps, biases, scale, shift, emb, scratch0,
-                              scratch1, n_streams, stream);
+    return cnn_forward(mel, t_in, caches_in, caches_out, taps, biases, scale, shift, emb, scratch0, scratch1,
+                       n_streams, stream);
 }

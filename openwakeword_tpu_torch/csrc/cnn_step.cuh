@@ -1,10 +1,9 @@
 // Streaming embedding-CNN step and prime for Hopper (sm_90a), on the CUDA
-// cores' fp32 FFMA: the kernel and its launch plan, shared by cnn_step.cu
-// (the fp32 kernels, entry point owwt_cnn_forward) and cnn_step_bf16.cu (the
-// 1-pass bf16 variants, owwt_cnn_forward_bf16), which nvcc builds in
-// parallel. The walk over the program (Program, conv_io, run_forward) also
-// serves the 3-pass variants on the tensor cores (cnn_step_mma.cuh, built by
-// cnn_step_high.cu).
+// cores' fp32 FFMA: the kernel and its launch plan, built by cnn_step.cu (the
+// fp32 kernels, entry point owwt_cnn_forward). The walk over the program
+// (Program, conv_io, run_forward) also serves the 1-pass and 3-pass bf16
+// variants on the tensor cores (cnn_step_mma.cuh, built by cnn_step_bf16.cu
+// and cnn_step_high.cu).
 //
 // Replaces the TPU kernel openwakeword_tpu/ops/cnn_pallas.py::_make_kernel,
 // launched by _run(prime=False) (CnnStepKernel.step) and _run(prime=True)
@@ -18,7 +17,7 @@
 // What bounds it: 11.2 MFLOP per stream per step (83.9 per prime) against
 // ~38 KB of cache and 1 KB of mel, so on this card the work is compute on the
 // fp32 pipes (TF32 would break the 'highest' budget, so every product is an
-// fp32 FFMA, in every variant); the inter-layer activations (~300 KB per stream per step) go
+// fp32 FFMA); the inter-layer activations (~300 KB per stream per step) go
 // through L2 and device memory, one launch per conv. The FFMAs run at the
 // pipes' rate only if their operands come from registers and shared memory
 // at well under one 16-byte load per 16 FFMAs, and if staging stays off the
@@ -57,18 +56,6 @@
 //     the rows of its own stream tile, 8 loads in flight per thread, so no
 //     block reads a cache row that another writes.
 // No tensor cores, no cross-layer fusion.
-//
-// The bf16 variants (ARITH = kOnePass) replace the TPU kernel's "bf16" mode
-// (cnn_pallas.py::_dot): each product's operands rounded to bf16, the sums
-// in f32. The weights come rounded from the host (ops/cnn_step.py::
-// prep_params); every input cell is rounded in shared memory by the thread
-// that staged it, right after its cp.async group lands (cp.async cannot
-// convert), so the mel rows, the cache rows and the activations are all
-// rounded where they become an operand, whatever the caller passes. The
-// epilogue, the pools, the new caches and the embedding stay f32: the caches
-// hold the inputs unrounded, as the TPU kernel's do. A bf16 x bf16 product is
-// exact in fp32, so the FFMA loop computes the 1-pass products exactly; only
-// the order of summation differs from the TPU's.
 
 #pragma once
 
@@ -79,7 +66,6 @@
 #include <cstdint>
 #include <utility>
 
-#include "bf16_arith.cuh"
 #include "smem.cuh"
 
 namespace {
@@ -144,8 +130,7 @@ __device__ __forceinline__ float clipped_leaky(float v) {
 // One conv for one block: 32 streams x G*NC positions x all COUT channels.
 // VEC: S % 4 == 0 and every pointer 16-byte aligned, so a stream quad moves
 // as one 16-byte copy; otherwise as four 4-byte copies masked per stream.
-// ARITH: fp32, or the 1-pass bf16 variant (see the top of this file).
-template <int KH, int KW, int CIN, int COUT, int PH, int PW, int EPI, int G, int NC, int KS, bool VEC, int ARITH>
+template <int KH, int KW, int CIN, int COUT, int PH, int PW, int EPI, int G, int NC, int KS, bool VEC>
 __global__ void __launch_bounds__((COUT / kThreadChannels) * kStreamQuads * G,
                                   (COUT / kThreadChannels) * kStreamQuads * G <= 192 ? 2 : 1)
 conv_layer_kernel(const float* __restrict__ x,        // (CIN, tx, wx, S) new rows
@@ -380,19 +365,6 @@ conv_layer_kernel(const float* __restrict__ x,        // (CIN, tx, wx, S) new ro
         }
         cp_async_wait<kStages - 1>();
         const int buf = sl % kStages;
-        if constexpr (ARITH != kFp32) {
-            // slice sl's copies of this thread have landed and are visible
-            // to it: round or split them in place before the barrier
-            // publishes them
-            if (copier) {
-                float4* xd = xs + buf * KS * NCELL + cell;
-                for (int kk = tid / NCELL; kk < KS; kk += COPIERS) {
-                    const float4 v = xd[kk * NCELL];
-                    xd[kk * NCELL] = make_float4(operand<ARITH>(v.x), operand<ARITH>(v.y), operand<ARITH>(v.z),
-                                                 operand<ARITH>(v.w));
-                }
-            }
-        }
         __syncthreads();
         const float4* xb = xs + buf * KS * NCELL + tn;
         const float* wb = ws + buf * COUT * WKS + mg * WKS;
@@ -585,7 +557,7 @@ void advance(Program& p, const ConvIo& io, const Geometry& g) {
     p.wx = g.w_pooled;
 }
 
-template <int I, bool VEC, int ARITH>
+template <int I, bool VEC>
 cudaError_t launch_tile(const Program& p, const ConvIo& io, int position_tiles) {
     constexpr ConvSpec c = kConvs[I];
     constexpr ConvTile t = kTiles[I];
@@ -602,7 +574,7 @@ cudaError_t launch_tile(const Program& p, const ConvIo& io, int position_tiles) 
     static_assert(smem <= kSmemLimit, "the block's shared memory fits an SM");
     static std::atomic<unsigned long long> allowed{0};
     auto kernel =
-        conv_layer_kernel<c.kh, c.kw, c.cin, c.cout, c.ph, c.pw, c.epi, t.groups, t.per_thread, t.k_slice, VEC, ARITH>;
+        conv_layer_kernel<c.kh, c.kw, c.cin, c.cout, c.ph, c.pw, c.epi, t.groups, t.per_thread, t.k_slice, VEC>;
     const cudaError_t err = allow_smem(kernel, smem, &allowed);
     if (err != cudaSuccess) {
         return err;
@@ -613,7 +585,7 @@ cudaError_t launch_tile(const Program& p, const ConvIo& io, int position_tiles) 
     return cudaGetLastError();
 }
 
-template <int I, int ARITH>
+template <int I>
 void launch_conv(Program& p) {
     constexpr ConvTile t = kTiles[I];
     Geometry g;
@@ -627,13 +599,13 @@ void launch_conv(Program& p) {
         p.err = cudaErrorInvalidValue;
         return;
     }
-    p.err = p.vec ? launch_tile<I, true, ARITH>(p, io, tiles) : launch_tile<I, false, ARITH>(p, io, tiles);
+    p.err = p.vec ? launch_tile<I, true>(p, io, tiles) : launch_tile<I, false>(p, io, tiles);
     advance(p, io, g);
 }
 
-template <int ARITH, std::size_t... I>
+template <std::size_t... I>
 void run_program(Program& p, std::index_sequence<I...>) {
-    (launch_conv<I, ARITH>(p), ...);
+    (launch_conv<I>(p), ...);
 }
 
 bool aligned16(const void* ptr) {
@@ -662,11 +634,10 @@ int run_forward(Launch launch, const float* mel, int t_in, const float* const* c
     return static_cast<int>(p.err);
 }
 
-template <int ARITH>
 int cnn_forward(const float* mel, int t_in, const float* const* caches_in, float* const* caches_out,
                 const float* const* taps, const float* const* biases, const float* scale, const float* shift,
                 float* emb, float* scratch0, float* scratch1, int n_streams, void* stream) {
-    return run_forward([](Program& p) { run_program<ARITH>(p, std::make_index_sequence<kNumConvs>{}); }, mel, t_in,
+    return run_forward([](Program& p) { run_program(p, std::make_index_sequence<kNumConvs>{}); }, mel, t_in,
                        caches_in, caches_out, taps, biases, scale, shift, emb, scratch0, scratch1, n_streams, stream);
 }
 

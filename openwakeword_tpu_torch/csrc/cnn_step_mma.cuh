@@ -1,52 +1,57 @@
-// The 3-pass bf16 CNN step and prime (K3-high, K4-high) for Hopper (sm_90a)
-// on the tensor cores: one implicit-GEMM kernel per conv whose products are
-// mma.sync.m16n8k16 bf16 tiles with fp32 sums, built by cnn_step_high.cu.
+// The bf16 CNN step and prime for Hopper (sm_90a) on the tensor cores: one
+// implicit-GEMM kernel per conv whose products are mma.sync.m16n8k16 bf16
+// tiles with fp32 sums, in either bf16 arithmetic (ARITH): 1-pass (K3-bf16,
+// K4-bf16, built by cnn_step_bf16.cu) and 3-pass (K3-high, K4-high, built by
+// cnn_step_high.cu).
 //
 // Replaces the TPU kernel openwakeword_tpu/ops/cnn_pallas.py::_make_kernel in
-// its "high" mode (_dot, cnn_pallas.py:120-128), the default of its
-// CnnStepKernel: the 20-conv program of cnn_step.cuh (the same layouts, caches,
-// epilogues and pools, the same walk, one launch per conv), with every product
-// taken as JAX takes it at Precision.HIGH: each operand x split into bf16
-// halves hi = bf16(x), lo = bf16(x - hi), the product hi*hi + hi*lo + lo*hi
-// with fp32 sums, lo*lo dropped (bf16_arith.cuh). The host splits the weights
-// once into a hi and a lo bf16 plane per conv (ops/cnn_step.py::prep_params),
-// laid [Cout][K padded to 16] in the TPU kernel's tap order (dt, dw, c), zero
-// past K; the kernel splits every staged input as it stages it. Sums,
-// epilogue, pools, caches and embedding stay fp32; the caches hold the inputs
-// unsplit, as the TPU kernel's do.
+// its "bf16" and "high" modes (_dot, cnn_pallas.py:116-128; "high" is the
+// default of its CnnStepKernel): the 20-conv program of cnn_step.cuh (the same
+// layouts, caches, epilogues and pools, the same walk, one launch per conv),
+// with every product taken as JAX takes it (bf16_arith.cuh). 1-pass: each
+// operand rounded to bf16, the product exact, the sums fp32. 3-pass
+// (Precision.HIGH): each operand x split into bf16 halves hi = bf16(x), lo =
+// bf16(x - hi), the product hi*hi + hi*lo + lo*hi with fp32 sums, lo*lo
+// dropped. The host prepares the weights once as bf16 planes per conv
+// (ops/cnn_step.py::weight_planes: the rounded plane, or the hi and the lo
+// plane), laid [Cout][K padded to 16] in the TPU kernel's tap order (dt, dw,
+// c), zero past K; the kernel rounds or splits every staged input as it
+// stages it. Sums, epilogue, pools, caches and embedding stay fp32; the
+// caches hold the inputs unrounded, as the TPU kernel's do.
 //
-// What bounds it: 3 x 45.98 GFLOP per step at S = 4096 (3 x 343.7 per prime),
-// 0.139 ms at the dense bf16 rate, against 1.18 GB of activations that each
-// conv writes and the next reads (9.78 GB per prime), 0.353 ms at the HBM
-// rate; L2 holds part of the later convs'. The early convs, with 24 channels
-// and 8-32 columns, move the most bytes per product, the middle ones do most
-// of the products. The design:
+// What bounds it: 45.98 GFLOP per step at S = 4096 (343.7 per prime), three
+// passes of them at 3-pass: 0.046 / 0.139 ms at the dense bf16 rate, against
+// 1.18 GB of activations that each conv writes and the next reads (9.78 GB
+// per prime), 0.353 ms at the HBM rate; L2 holds part of the later convs'.
+// The early convs, with 24 channels and 8-32 columns, move the most bytes per
+// product, the middle ones do most of the products. The design:
 //   * M = output positions x streams, N = Cout, K = kh*kw*Cin. An item is 16
 //     streams x a rectangle of output positions (whole pool windows) x Cout /
 //     n_blocks channels; an m16 tile is one output position of the 16
 //     streams, a warp holds warp_positions such tiles (whole pool windows) x
-//     3 n8 tiles (24 channels). Tiles per conv from the generated
-//     cnn_mma_tiles.h (ops/cnn_step_cuda.py::conv_mma_tiles);
+//     3 n8 tiles (24 channels). Tiles per conv and arithmetic from the
+//     generated cnn_mma_tiles.h (ops/cnn_step_cuda.py::conv_mma_tiles);
 //   * no im2col: an item's input patch is staged once, the tile's rows plus
 //     kh - 1 and columns plus kw - 1 (the width padding, rows past the input
-//     and streams past S as zeros), split into a hi and a lo bf16 plane, each
-//     as two regions (streams 0-7 and 8-15) of 16-byte rows, row (cell * CC +
-//     c) holding channel c of a cell for 8 streams. ldmatrix.x4.trans takes
-//     one row address per lane, so a lane points straight at its (tap,
-//     channel) row: the A fragment of a k16 step is gathered from the patch
-//     with no copy. The 8 rows of one 8x8 matrix are 8 consecutive channels
-//     of one cell, 128 contiguous bytes (for the stem, Cin = 1, 8 taps whose
-//     cells a row stride of 3 mod 8 cells spreads over the bank quads);
+//     and streams past S as zeros), as PLANES bf16 planes (the rounded
+//     operand, or hi and lo), each as two regions (streams 0-7 and 8-15) of
+//     16-byte rows, row (cell * CC + c) holding channel c of a cell for 8
+//     streams. ldmatrix.x4.trans takes one row address per lane, so a lane
+//     points straight at its (tap, channel) row: the A fragment of a k16
+//     step is gathered from the patch with no copy. The 8 rows of one 8x8
+//     matrix are 8 consecutive channels of one cell, 128 contiguous bytes
+//     (for the stem, Cin = 1, 8 taps whose cells a row stride of 3 mod 8
+//     cells spreads over the bank quads);
 //   * the patch goes through in chunks of CC input channels: cp.async copies
 //     each chunk's fp32 cells (16 bytes along S, or 4 bytes masked per stream
 //     where S % 4 or a pointer's alignment rules the 16-byte copies out: a
 //     variant the host picks; zero-fill for the padding) into a 2-deep ring
-//     of per-thread slots, and the thread that copied a cell splits it into a
-//     2-deep ring of bf16 chunk buffers once its group lands (cp.async cannot
-//     convert). Two chunks are in flight while the warps multiply a third,
-//     and no register holds a load across the products. K runs chunk by
-//     chunk, tap by tap within a chunk; a chunk's last k16 step points its
-//     missing rows at a zero row;
+//     of per-thread slots, and the thread that copied a cell rounds or splits
+//     it into a 2-deep ring of bf16 chunk buffers once its group lands
+//     (cp.async cannot convert). Two chunks are in flight while the warps
+//     multiply a third, and no register holds a load across the products. K
+//     runs chunk by chunk, tap by tap within a chunk; a chunk's last k16 step
+//     points its missing rows at a zero row;
 //   * persistent blocks: as many as the card holds at once, each on one Cout
 //     split with its weights loaded once, walking items (stream tile,
 //     position tile); the chunk pipeline runs on across items, so an item's
@@ -54,9 +59,11 @@
 //   * the weights of the block's channels stay in shared memory for all its
 //     items ([plane][Cout / n_blocks][K + 8]: 8 rows of an ldmatrix in
 //     distinct bank quads), copied by cp.async while the first chunk stages;
-//   * each k16 step takes lo*hi, hi*lo and hi*hi into a fresh tile that FADD
-//     adds to the accumulators (mma_bf16.cuh::product), so the tensor cores'
-//     own summation rounds a step's three terms against each other only;
+//   * 1-pass: each k16 step is one ldmatrix per operand fragment and one MMA
+//     into the accumulators. 3-pass: each k16 step takes lo*hi, hi*lo and
+//     hi*hi into a fresh tile that FADD adds to the accumulators
+//     (mma_bf16.cuh::product), so the tensor cores' own summation rounds a
+//     step's three terms against each other only;
 //   * epilogue in registers: bias, then for the stem ReLU -> affine ->
 //     clipped leaky, for the other convs but the last the clipped leaky, then
 //     the max pool over the warp's m16 tiles of a window (a thread holds the
@@ -64,8 +71,8 @@
 //     32-byte sectors (8 consecutive streams per channel);
 //   * the new caches (the virtual input's last 2 rows) go to separate
 //     buffers, written from the fp32 slots of the last row tile's patch as it
-//     is split: no extra reads, and no block reads a cache row that another
-//     writes.
+//     is converted: no extra reads, and no block reads a cache row that
+//     another writes.
 // No cross-layer fusion, no wgmma.
 
 #pragma once
@@ -82,23 +89,32 @@
 
 namespace {
 
-// Each conv's tile (ops/cnn_step_cuda.py::conv_mma_tiles). The generated
-// cnn_mma_tiles.h defines kMmaStreams (streams per block), kMmaNTiles (n8
-// tiles per warp) and kMmaTiles.
+// Each conv's tile per arithmetic (ops/cnn_step_cuda.py::conv_mma_tiles). The
+// generated cnn_mma_tiles.h defines kMmaStreams (streams per block), kMmaNTiles
+// (n8 tiles per warp), kMmaTilesOnePass and kMmaTilesThreePass.
 struct MmaTile {
     int pooled_rows, pooled_cols, warp_positions, n_blocks, chunk_channels, min_blocks;
 };
 
 #include "cnn_mma_tiles.h"
 
-static_assert(sizeof(kMmaTiles) / sizeof(kMmaTiles[0]) == kNumConvs, "one tile per conv");
+static_assert(sizeof(kMmaTilesOnePass) / sizeof(kMmaTilesOnePass[0]) == kNumConvs, "one 1-pass tile per conv");
+static_assert(sizeof(kMmaTilesThreePass) / sizeof(kMmaTilesThreePass[0]) == kNumConvs, "one 3-pass tile per conv");
 static_assert(kMmaStreams == 16, "an m16 tile is one position of 16 streams");
 
-// The compile-time geometry of conv I's tile (ops/cnn_step_cuda.py::mma_layout).
-template <int I>
+template <int ARITH>
+constexpr MmaTile mma_tile(int i) {
+    static_assert(ARITH == kOnePass || ARITH == kThreePass, "the tensor-core kernels take bf16 arithmetic");
+    return ARITH == kThreePass ? kMmaTilesThreePass[i] : kMmaTilesOnePass[i];
+}
+
+// The compile-time geometry of conv I's tile in arithmetic ARITH
+// (ops/cnn_step_cuda.py::mma_layout).
+template <int I, int ARITH>
 struct MmaPlan {
     static constexpr ConvSpec c = kConvs[I];
-    static constexpr MmaTile t = kMmaTiles[I];
+    static constexpr MmaTile t = mma_tile<ARITH>(I);
+    static constexpr int PLANES = ARITH == kThreePass ? 2 : 1;   // the rounded operand, or hi and lo
     static constexpr int KH = c.kh, KW = c.kw, CIN = c.cin, COUT = c.cout, PH = c.ph, PW = c.pw;
     static constexpr int WIN = PH * PW;
     static constexpr int PAD_W = KW / 2;
@@ -123,12 +139,12 @@ struct MmaPlan {
     static constexpr int PCS = CIN % 8 == 0 ? PC : PC + ((3 - PC) % 8 + 8) % 8;   // cells per patch row
     static constexpr int ZERO = PR * PCS * CC;             // the zero row of a region
     static constexpr int REGION = ZERO + 1 + ((4 - (ZERO + 1)) % 8 + 8) % 8;       // 16-byte rows, 4 mod 8
-    static constexpr int CHUNK = 4 * REGION * 8;           // bf16 of a chunk buffer: [plane][half][REGION][8]
+    static constexpr int CHUNK = 2 * PLANES * REGION * 8;  // bf16 of a chunk buffer: [plane][half][REGION][8]
     static constexpr int WSTRIDE = KPAD + 8;               // bf16 per staged weight row
     static constexpr int UNITS = PR * PC * CC * (kMmaStreams / 4);                 // stream quads per chunk
     static constexpr int UPT = (UNITS + THREADS - 1) / THREADS;                    // per thread
     static constexpr size_t SMEM = 2 * (static_cast<size_t>(CHUNK) * 2 + static_cast<size_t>(UPT) * THREADS * 16) +
-                                   2 * static_cast<size_t>(NBLK) * WSTRIDE * 2;
+                                   PLANES * static_cast<size_t>(NBLK) * WSTRIDE * 2;
 
     static_assert(COUT % (8 * NT * NB) == 0 && WN >= 1, "whole 24-channel warps in each block's channels");
     static_assert(P % MT == 0 && MT % WIN == 0, "a warp holds whole pool windows");
@@ -142,13 +158,17 @@ struct MmaPlan {
     static_assert(SMEM <= kSmemLimit, "the block's shared memory fits an SM");
 };
 
-// 4 streams of a patch cell's channel as the 3-pass operand: hi and lo pairs.
-__device__ __forceinline__ void store_split(__nv_bfloat16* hi, __nv_bfloat16* lo, float4 v) {
+// 4 streams of a patch cell's channel as the variant's operand: the rounded
+// pairs at hi, and for 3-pass the residual pairs at lo.
+template <int ARITH>
+__device__ __forceinline__ void store_operand(__nv_bfloat16* hi, __nv_bfloat16* lo, float4 v) {
     unsigned h0, l0, h1, l1;
-    pair_operand<kThreePass>(h0, l0, v.x, v.y);
-    pair_operand<kThreePass>(h1, l1, v.z, v.w);
+    pair_operand<ARITH>(h0, l0, v.x, v.y);
+    pair_operand<ARITH>(h1, l1, v.z, v.w);
     *reinterpret_cast<uint2*>(hi) = make_uint2(h0, h1);
-    *reinterpret_cast<uint2*>(lo) = make_uint2(l0, l1);
+    if constexpr (ARITH == kThreePass) {
+        *reinterpret_cast<uint2*>(lo) = make_uint2(l0, l1);
+    }
 }
 
 // One conv. The work is items (stream tile of 16 streams, position tile) for
@@ -161,18 +181,18 @@ __device__ __forceinline__ void store_split(__nv_bfloat16* hi, __nv_bfloat16* lo
 // VEC: S % 4 == 0 and every activation pointer 16-byte aligned, so a stream
 // quad moves as one 16-byte copy; otherwise as four 4-byte copies masked per
 // stream.
-template <int I, bool VEC>
-__global__ void __launch_bounds__(MmaPlan<I>::THREADS, kMmaTiles[I].min_blocks)
+template <int I, bool VEC, int ARITH>
+__global__ void __launch_bounds__(MmaPlan<I, ARITH>::THREADS, mma_tile<ARITH>(I).min_blocks)
 conv_mma_kernel(const float* __restrict__ x,               // (CIN, tx, wx, S) new rows
                 const float* __restrict__ cache,           // (CIN, 2, wv, S) or null: no rows before x
                 float* __restrict__ new_cache,             // (CIN, 2, wv, S) or null: not a time conv
-                const __nv_bfloat16* __restrict__ planes,  // (2, COUT, KPAD): hi, lo
+                const __nv_bfloat16* __restrict__ planes,  // (PLANES, COUT, KPAD): rounded, or hi and lo
                 const float* __restrict__ bias,            // (COUT)
                 const float* __restrict__ scale,           // (COUT), the stem's affine
                 const float* __restrict__ shift,           // (COUT)
                 float* __restrict__ out,                   // (COUT, t_out/PH, w_out/PW, S)
                 int tx, int wx, int n_streams) {
-    using L = MmaPlan<I>;
+    using L = MmaPlan<I, ARITH>;
     constexpr int EPI = L::c.epi;
     extern __shared__ __align__(16) unsigned char smem[];
     __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem);      // [2][plane][half][REGION][8 streams]
@@ -221,10 +241,10 @@ conv_mma_kernel(const float* __restrict__ x,               // (CIN, tx, wx, S) n
         return it;
     };
 
-    // the block's weights: both planes, rows nb * NBLK .., one cp.async group
+    // the block's weights: every plane, rows nb * NBLK .., one cp.async group
     {
         constexpr int kChunks = L::KPAD / 8;
-        for (int i = tid; i < 2 * L::NBLK * kChunks; i += L::THREADS) {
+        for (int i = tid; i < L::PLANES * L::NBLK * kChunks; i += L::THREADS) {
             const int row = i / kChunks;                 // plane * NBLK + o
             const int ch = i - row * kChunks;
             const int plane = row / L::NBLK;
@@ -234,15 +254,15 @@ conv_mma_kernel(const float* __restrict__ x,               // (CIN, tx, wx, S) n
         }
         cp_async_commit();
     }
-    if (tid < 8) {                                       // the zero row of each region of both buffers
+    if (tid < 4 * L::PLANES) {                           // the zero row of each region of both buffers
         *reinterpret_cast<uint4*>(ring + (tid * L::REGION + L::ZERO) * 8) = make_uint4(0u, 0u, 0u, 0u);
     }
 
     // Patch unit u of a stage: stream quad u % 4 of channel j * CC + (u / 4) % CC
     // of cell u / (4 CC), the cell (pr, pc) = virtual input row t_a + pr,
     // padded column w_a + pc. Thread tid copies units tid, tid + THREADS, ...
-    // into its slots of ring buffer st % 2, then splits them into chunk buffer
-    // st % 2; no other thread touches its slots.
+    // into its slots of ring buffer st % 2, then rounds or splits them into
+    // chunk buffer st % 2; no other thread touches its slots.
     auto issue_stage = [&](int st) {
         const Item it = item_of(st);
         const int j = st % L::NCH;
@@ -281,7 +301,7 @@ conv_mma_kernel(const float* __restrict__ x,               // (CIN, tx, wx, S) n
             }
         }
     };
-    auto split_stage = [&](int st) {
+    auto convert_stage = [&](int st) {
         const Item it = item_of(st);
         const int j = st % L::NCH;
         const bool cache_tile = new_cache != nullptr && nb == 0 && it.row_tile == last_row_tile;
@@ -303,7 +323,7 @@ conv_mma_kernel(const float* __restrict__ x,               // (CIN, tx, wx, S) n
             const int row = (pr * L::PCS + pc) * L::CC + c_local;
             const float4 v = slot[e * L::THREADS];
             __nv_bfloat16* hi = buf + ((sq >> 1) * L::REGION + row) * 8 + 4 * (sq & 1);
-            store_split(hi, hi + 2 * L::REGION * 8, v);
+            store_operand<ARITH>(hi, hi + 2 * L::REGION * 8, v);
             const int rr = it.t_a + pr - cache_row0;
             const int s0 = it.s_tile + 4 * sq;
             if (cache_tile && rr >= 0 && rr < kCacheRows && pc < cols_here && s0 < S) {
@@ -322,7 +342,7 @@ conv_mma_kernel(const float* __restrict__ x,               // (CIN, tx, wx, S) n
     };
 
     // cp.async groups: the weights, then one per stage (empty past the last),
-    // so that before stage st + 1 is split exactly one later group is pending
+    // so that before stage st + 1 is converted exactly one later group is pending
     if (stages > 0) {
         issue_stage(0);
     }
@@ -333,7 +353,7 @@ conv_mma_kernel(const float* __restrict__ x,               // (CIN, tx, wx, S) n
     cp_async_commit();
     cp_async_wait<1>();                                  // the weights and stage 0 (this thread's copies)
     if (stages > 0) {
-        split_stage(0);
+        convert_stage(0);
     }
     if (stages > 2) {
         issue_stage(2);
@@ -363,7 +383,7 @@ conv_mma_kernel(const float* __restrict__ x,               // (CIN, tx, wx, S) n
     const int a_k = 8 * (lane >> 4) + (lane & 7);
     const int b_k = 8 * ((lane >> 3) & 1);
     const __nv_bfloat16* b_hi = wts + (wn * 8 * L::NT + (lane & 7) + 8 * (lane >> 4)) * L::WSTRIDE;
-    const __nv_bfloat16* b_lo = b_hi + L::NBLK * L::WSTRIDE;
+    const __nv_bfloat16* b_lo = b_hi + L::NBLK * L::WSTRIDE;    // 3-pass only
     const int g = lane >> 2;
     const int o0 = nb * L::NBLK + wn * 8 * L::NT + 2 * (lane & 3);   // this lane's first output channel
 
@@ -381,10 +401,10 @@ conv_mma_kernel(const float* __restrict__ x,               // (CIN, tx, wx, S) n
 
 #pragma unroll 1
     for (int st = 0; st < stages; ++st) {
-        __syncthreads();                                 // stage st is split; every warp is done with stage st - 1
+        __syncthreads();                                 // stage st is converted; every warp is done with st - 1
         const int j = st % L::NCH;
         const __nv_bfloat16* a_hi = ring + (st & 1) * L::CHUNK + a_half * L::REGION * 8;
-        const __nv_bfloat16* a_lo = a_hi + 2 * L::REGION * 8;
+        const __nv_bfloat16* a_lo = a_hi + 2 * L::REGION * 8;     // 3-pass only
 #pragma unroll
         for (int ks = 0; ks < L::STEPS; ++ks) {
             // A: this lane's k of the chunk, (tap, channel) with the tap outer;
@@ -398,7 +418,7 @@ conv_mma_kernel(const float* __restrict__ x,               // (CIN, tx, wx, S) n
             const int kb = 16 * ks + b_k;
             const int col_b = kb < L::KC ? (kb / L::CC) * L::CIN + j * L::CC + kb % L::CC : 0;
             unsigned bh[L::NT][2];
-            unsigned bl[L::NT][2];
+            unsigned bl[L::NT][2];                       // 3-pass only
 #pragma unroll
             for (int n = 0; n + 1 < L::NT; n += 2) {
                 unsigned r[4];
@@ -407,27 +427,33 @@ conv_mma_kernel(const float* __restrict__ x,               // (CIN, tx, wx, S) n
                 bh[n][1] = r[1];
                 bh[n + 1][0] = r[2];
                 bh[n + 1][1] = r[3];
-                ldmatrix_x4(r, b_lo + 8 * n * L::WSTRIDE + col_b);
-                bl[n][0] = r[0];
-                bl[n][1] = r[1];
-                bl[n + 1][0] = r[2];
-                bl[n + 1][1] = r[3];
+                if constexpr (L::PLANES == 2) {
+                    ldmatrix_x4(r, b_lo + 8 * n * L::WSTRIDE + col_b);
+                    bl[n][0] = r[0];
+                    bl[n][1] = r[1];
+                    bl[n + 1][0] = r[2];
+                    bl[n + 1][1] = r[3];
+                }
             }
             if constexpr (L::NT % 2 == 1) {
                 // lanes 16-31 address channels 8 on, which x2 does not read
                 ldmatrix_x2(bh[L::NT - 1], b_hi + 8 * (L::NT - 1) * L::WSTRIDE + col_b);
-                ldmatrix_x2(bl[L::NT - 1], b_lo + 8 * (L::NT - 1) * L::WSTRIDE + col_b);
+                if constexpr (L::PLANES == 2) {
+                    ldmatrix_x2(bl[L::NT - 1], b_lo + 8 * (L::NT - 1) * L::WSTRIDE + col_b);
+                }
             }
 #pragma unroll
             for (int i = 0; i < L::MT; ++i) {
                 const int row = ka < L::KC ? a_base[i] + off_a : L::ZERO;
                 unsigned ah[4];
-                unsigned al[4];
+                unsigned al[4];                          // 3-pass only
                 ldmatrix_x4_trans(ah, a_hi + row * 8);
-                ldmatrix_x4_trans(al, a_lo + row * 8);
+                if constexpr (L::PLANES == 2) {
+                    ldmatrix_x4_trans(al, a_lo + row * 8);
+                }
 #pragma unroll
                 for (int n = 0; n < L::NT; ++n) {
-                    product<kThreePass>(acc[i][n], ah, al, bh[n], bl[n]);
+                    product<ARITH>(acc[i][n], ah, al, bh[n], bl[n]);
                 }
             }
         }
@@ -484,10 +510,10 @@ conv_mma_kernel(const float* __restrict__ x,               // (CIN, tx, wx, S) n
             }
         }
         if (st + 1 < stages) {
-            // stage st + 1 lands and is split into the buffer that stage st - 1
+            // stage st + 1 lands and is converted into the buffer that stage st - 1
             // left; stage st + 3 takes its slots
             cp_async_wait<1>();
-            split_stage(st + 1);
+            convert_stage(st + 1);
             if (st + 3 < stages) {
                 issue_stage(st + 3);
             }
@@ -496,12 +522,12 @@ conv_mma_kernel(const float* __restrict__ x,               // (CIN, tx, wx, S) n
     }
 }
 
-template <int I, bool VEC>
+template <int I, bool VEC, int ARITH>
 cudaError_t launch_mma_tile(const Program& p, const ConvIo& io, int items) {
-    using L = MmaPlan<I>;
+    using L = MmaPlan<I, ARITH>;
     static std::atomic<unsigned long long> allowed{0};
     static std::atomic<int> resident[64];                // blocks the card holds at once, per device
-    auto kernel = conv_mma_kernel<I, VEC>;
+    auto kernel = conv_mma_kernel<I, VEC, ARITH>;
     cudaError_t err = allow_smem(kernel, L::SMEM, &allowed);
     if (err != cudaSuccess) {
         return err;
@@ -535,9 +561,9 @@ cudaError_t launch_mma_tile(const Program& p, const ConvIo& io, int items) {
     return cudaGetLastError();
 }
 
-template <int I>
+template <int I, int ARITH>
 void launch_mma_conv(Program& p) {
-    using L = MmaPlan<I>;
+    using L = MmaPlan<I, ARITH>;
     Geometry g;
     ConvIo io;
     if (!conv_io<I>(p, &g, &io)) {
@@ -550,24 +576,25 @@ void launch_mma_conv(Program& p) {
         p.err = cudaErrorInvalidValue;
         return;
     }
-    p.err = p.vec ? launch_mma_tile<I, true>(p, io, static_cast<int>(items))
-                  : launch_mma_tile<I, false>(p, io, static_cast<int>(items));
+    p.err = p.vec ? launch_mma_tile<I, true, ARITH>(p, io, static_cast<int>(items))
+                  : launch_mma_tile<I, false, ARITH>(p, io, static_cast<int>(items));
     advance(p, io, g);
 }
 
-template <std::size_t... I>
+template <int ARITH, std::size_t... I>
 void run_mma_program(Program& p, std::index_sequence<I...>) {
-    (launch_mma_conv<I>(p), ...);
+    (launch_mma_conv<I, ARITH>(p), ...);
 }
 
-// The whole 3-pass program: as cnn_step.cuh::cnn_forward, for `planes`, per
-// conv the (2, Cout, K padded to 16) bf16 hi and lo weight planes.
+// The whole program in arithmetic ARITH: as cnn_step.cuh::cnn_forward, for
+// `planes`, per conv the (PLANES, Cout, K padded to 16) bf16 weight planes.
+template <int ARITH>
 int cnn_forward_mma(const float* mel, int t_in, const float* const* caches_in, float* const* caches_out,
                     const __nv_bfloat16* const* planes, const float* const* biases, const float* scale,
                     const float* shift, float* emb, float* scratch0, float* scratch1, int n_streams, void* stream) {
-    return run_forward([](Program& p) { run_mma_program(p, std::make_index_sequence<kNumConvs>{}); }, mel, t_in,
-                       caches_in, caches_out, reinterpret_cast<const float* const*>(planes), biases, scale, shift,
-                       emb, scratch0, scratch1, n_streams, stream);
+    return run_forward([](Program& p) { run_mma_program<ARITH>(p, std::make_index_sequence<kNumConvs>{}); }, mel,
+                       t_in, caches_in, caches_out, reinterpret_cast<const float* const*>(planes), biases, scale,
+                       shift, emb, scratch0, scratch1, n_streams, stream);
 }
 
 }  // namespace

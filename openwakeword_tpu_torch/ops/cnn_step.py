@@ -6,8 +6,9 @@ rows arrive as (8, 32, S) and the embedding leaves as (96, S). On a CUDA
 tensor ``CnnStepKernel.step`` runs kernel 3 and ``prime`` kernel 4
 (``ops.cnn_step_cuda``, ``csrc/cnn_step.cu``; at ``precision="high"``
 their 3-pass variants, ``csrc/cnn_step_high.cu``, at ``precision="bf16"``
-their 1-pass variants, ``csrc/cnn_step_bf16.cu``); on a CPU tensor both run
-their plain PyTorch versions. The stream tile is the kernels' own
+their 1-pass variants, ``csrc/cnn_step_bf16.cu``, both the tensor-core
+kernels of ``csrc/cnn_step_mma.cuh``); on a CPU tensor both run their plain
+PyTorch versions. The stream tile is the kernels' own
 choice, so any S >= 1 works.
 """
 
@@ -97,18 +98,23 @@ def cache_shapes() -> List[Tuple[str, Tuple[int, int, int]]]:
     return shapes
 
 
-def three_pass_planes(tap: torch.Tensor) -> torch.Tensor:
-    """A conv's (kh*kw, Cout, Cin) float32 taps as the 3-pass kernels read
-    them (``csrc/cnn_step_mma.cuh``): a (2, Cout, K16) bf16 tensor, the hi
-    and the lo plane of ``bf16.split_bf16`` (JAX's ``_bf16_split``), row o
-    holding output channel o's weights over K = kh*kw*Cin in the tap order
-    (dt, dw, c) of the TPU kernel, zero from K up to K16, K rounded up to
-    16."""
+def weight_planes(tap: torch.Tensor, arith: str) -> torch.Tensor:
+    """A conv's (kh*kw, Cout, Cin) float32 or bf16 taps as the tensor-core
+    kernels read them (``csrc/cnn_step_mma.cuh``): a (planes, Cout, K16) bf16
+    tensor, row o holding output channel o's weights over K = kh*kw*Cin in
+    the tap order (dt, dw, c) of the TPU kernel, zero from K up to K16, K
+    rounded up to 16. '1pass': one plane, the weights rounded to bf16 (JAX's
+    ``astype(bfloat16)``); '3pass': the hi and the lo plane of
+    ``bf16.split_bf16`` (JAX's ``_bf16_split``), whose hi plane is the
+    1-pass plane."""
+    if arith not in ("1pass", "3pass"):
+        raise ValueError(f"weight planes are bf16 arithmetic: '1pass' or '3pass', got {arith!r}")
     taps, cout, cin = tap.shape
     k = taps * cin
     mat = torch.zeros((cout, -(-k // 16) * 16), dtype=torch.float32, device=tap.device)
     mat[:, :k] = tap.to(torch.float32).permute(1, 0, 2).reshape(cout, k)
-    return torch.stack(split_bf16(mat)).to(torch.bfloat16).contiguous()
+    hi, lo = split_bf16(mat)
+    return torch.stack((hi,) if arith == "1pass" else (hi, lo)).to(torch.bfloat16).contiguous()
 
 
 def prep_params(folded: Dict, arith: str = "fp32") -> CnnParams:
@@ -117,10 +123,12 @@ def prep_params(folded: Dict, arith: str = "fp32") -> CnnParams:
     (24, 1) scale and shift, and the (Cout, kh*kw*Cin) weight matrices of
     the plain version; all float32 and contiguous on the params' device.
     Weights may be float32 or bf16. ``arith`` (``config.ARITHS``) is the
-    variant: '1pass' rounds the weights to bf16 (in float32 tensors); '3pass'
-    gives the kernels, in place of the taps, the weights split once on the
-    host (``three_pass_planes``), and leaves the plain version's matrices
-    float32 (it splits them per product, at the same rounding points)."""
+    variant: the bf16 ones give the kernels, in place of the taps, the
+    weights prepared once on the host as bf16 planes (``weight_planes``):
+    '1pass' one rounded plane, with the plain version's matrices rounded to
+    bf16 (in float32 tensors); '3pass' the hi and lo planes, with the plain
+    version's matrices float32 (it splits them per product, at the same
+    rounding points)."""
     if arith not in config.ARITHS:
         raise ValueError(f"unknown arithmetic {arith!r} (expected one of {config.ARITHS})")
     taps, biases, mats = [], [], []
@@ -135,7 +143,7 @@ def prep_params(folded: Dict, arith: str = "fp32") -> CnnParams:
         w = round_bf16(w) if arith == "1pass" else w.to(torch.float32)
         cout, cin, kh, kw = w.shape
         tap = w.permute(2, 3, 0, 1).reshape(kh * kw, cout, cin).contiguous()
-        taps.append(three_pass_planes(tap) if arith == "3pass" else tap)
+        taps.append(tap if arith == "fp32" else weight_planes(tap, arith))
         biases.append(c["b"].to(torch.float32).reshape(cout, 1).contiguous())
         mats.append(embedding_stream._weight_mat(w).contiguous())
         conv_i += 1
@@ -159,7 +167,8 @@ class CnnStepKernel:
     as it does (``config.kernel_arith``): 'highest' runs the float32 kernels,
     'high' (the default, as in JAX) their 3-pass bf16 variants (weights split
     here, inputs as the kernels stage them), 'bf16' their 1-pass bf16
-    variants (weights rounded here, inputs as the kernels stage them). The
+    variants (weights rounded here, inputs as the kernels stage them); both
+    bf16 variants run on the tensor cores. The
     caches stay float32 and hold the inputs unrounded and unsplit, as JAX's
     do when it is given float32 caches. Any other value raises ValueError:
     'fast' and 'mixed' are engine tiers, not modes of this kernel (JAX's

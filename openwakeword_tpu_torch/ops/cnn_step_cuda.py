@@ -9,17 +9,18 @@ the plain PyTorch version (``cnn_step_plain`` / ``cnn_prime_plain``, built on
 ``models.embedding_stream._forward_t``); a CUDA tensor goes through
 ``csrc/cnn_step.cu`` or the call raises. The new caches are fresh tensors:
 the kernel never writes a cache it reads. ``CnnParams.arith`` picks the
-variant, as the JAX kernel's ``_dot`` mode does: 'fp32' (``"highest"``),
-'1pass' (``csrc/cnn_step_bf16.cu``, ``"bf16"``: weights rounded by the
-host, every conv input rounded as the kernel stages it) or '3pass'
-(``csrc/cnn_step_high.cu``, ``"high"``: the tensor-core kernels of
-``csrc/cnn_step_mma.cuh``, the weights split by the host into bf16 hi and
-lo planes, ``cnn_step.three_pass_planes``, every conv input split as the
-kernel stages it); sums, epilogues and caches stay float32. Each wrapper
-counts its launches in ``.launches[params.arith]``. ``conv_tiles`` picks
-each conv's block tile of the FFMA kernels and ``conv_mma_tiles`` that of
-the tensor-core ones, which the build compiles in through the generated
-headers ``cnn_tiles.h`` and ``cnn_mma_tiles.h``.
+variant, as the JAX kernel's ``_dot`` mode does: 'fp32' (``"highest"``,
+the FFMA kernels of ``csrc/cnn_step.cuh``), '1pass' (``csrc/cnn_step_bf16.cu``,
+``"bf16"``) or '3pass' (``csrc/cnn_step_high.cu``, ``"high"``). Both bf16
+variants are the tensor-core kernels of ``csrc/cnn_step_mma.cuh``, the
+weights prepared once by the host as bf16 planes
+(``cnn_step.weight_planes``: rounded, or split into hi and lo), every conv
+input rounded or split as the kernel stages it; sums, epilogues and caches
+stay float32. Each wrapper counts its launches in
+``.launches[params.arith]``. ``conv_tiles`` picks each conv's block tile of
+the FFMA kernels and ``conv_mma_tiles`` that of the tensor-core ones, per
+arithmetic, which the build compiles in through the generated headers
+``cnn_tiles.h`` and ``cnn_mma_tiles.h``.
 """
 
 import ctypes
@@ -104,13 +105,15 @@ def tile_smem_bytes(conv: Tuple[int, ...], tile: ConvTile) -> int:
     return STAGES * (tile.k_slice * cells * 16 + cout * (tile.k_slice + 4) * 4) + k_pad * 16
 
 
-# The 3-pass kernels' block tiles, compiled into csrc/cnn_step_mma.cuh through
-# the generated cnn_mma_tiles.h: a block covers MMA_STREAMS streams x a
-# rectangle of output positions x Cout / n_blocks channels; an m16 tile is one
-# output position of the 16 streams, a warp holds warp_positions of them x
-# MMA_N_TILES n8 tiles (24 channels). The rest is what a search keeps within.
+# The tensor-core kernels' block tiles, one table per bf16 arithmetic
+# (MMA_ARITHS), compiled into csrc/cnn_step_mma.cuh through the generated
+# cnn_mma_tiles.h: a block covers MMA_STREAMS streams x a rectangle of output
+# positions x Cout / n_blocks channels; an m16 tile is one output position of
+# the 16 streams, a warp holds warp_positions of them x MMA_N_TILES n8 tiles
+# (24 channels). The rest is what a search keeps within.
 MMA_STREAMS = 16
 MMA_N_TILES = 3
+MMA_ARITHS = ("1pass", "3pass")
 MMA_MAX_POSITIONS = 16     # output positions per block
 MMA_MAX_WARPS = 16
 MMA_MIN_WARPS = 8          # resident warps per SM a tile needs first (latency hiding)
@@ -130,7 +133,8 @@ class MmaTile(NamedTuple):
 
 
 class MmaLayout(NamedTuple):
-    """What ``csrc/cnn_step_mma.cuh::MmaPlan`` derives from a conv and its tile."""
+    """What ``csrc/cnn_step_mma.cuh::MmaPlan`` derives from a conv, its tile
+    and the arithmetic."""
     rows: int              # TR: output rows per block
     cols: int              # TC: output columns per block
     positions: int         # P = TR * TC
@@ -139,6 +143,7 @@ class MmaLayout(NamedTuple):
     patch_rows: int        # PR = TR + kh - 1 input rows the block stages
     patch_cols: int        # PC = TC + kw - 1
     cell_stride: int       # PCS: cells per staged row (PC, or for Cin = 1 the least >= PC that is 3 mod 8)
+    planes: int            # bf16 planes of every operand: 1 (1-pass, rounded) or 2 (3-pass, hi and lo)
     region: int            # 16-byte rows per (plane, stream half) region of a chunk buffer: cells x CC, a zero row
     k_pad: int             # K = kh * kw * Cin rounded up to 16: the weight planes' row
     w_stride: int          # bf16 per staged weight row: k_pad + 8
@@ -156,15 +161,19 @@ def conv_widths(table: Sequence[Tuple[int, ...]]) -> List[int]:
     return out
 
 
-def mma_layout(conv: Tuple[int, ...], tile: MmaTile) -> MmaLayout:
+def mma_layout(conv: Tuple[int, ...], tile: MmaTile, arith: str) -> MmaLayout:
     """The geometry ``csrc/cnn_step_mma.cuh`` derives for ``conv`` (a row of
-    ``ops.cnn_step.conv_table()``) and its tile. A chunk buffer is four
-    regions (hi and lo plane x streams 0-7 and 8-15) of 16-byte rows, row
-    (cell * CC + c) holding channel c of a cell for 8 streams, with a
-    trailing zero row, each 4 mod 8 rows long so that the two stream halves
-    of one split store land 64 bytes apart in the banks. Shared memory holds
-    two chunk buffers, two rings of 16-byte cp.async slots (a chunk's fp32
-    cells) and two weight planes of [Cout / n_blocks][k_pad + 8] bf16."""
+    ``ops.cnn_step.conv_table()``), its tile and ``arith`` ('1pass' or
+    '3pass'). A chunk buffer is 2 x planes regions (the rounded plane, or
+    the hi and lo plane, x streams 0-7 and 8-15) of 16-byte rows, row (cell *
+    CC + c) holding channel c of a cell for 8 streams, with a trailing zero
+    row, each 4 mod 8 rows long so that the two stream halves of one store
+    land 64 bytes apart in the banks. Shared memory holds two chunk buffers,
+    two rings of 16-byte cp.async slots (a chunk's fp32 cells) and the
+    weight planes, each [Cout / n_blocks][k_pad + 8] bf16."""
+    if arith not in MMA_ARITHS:
+        raise ValueError(f"the tensor-core kernels take {MMA_ARITHS}, got {arith!r}")
+    planes = 2 if arith == "3pass" else 1
     kh, kw, cin, cout, ph, pw, _ = conv
     tr, tc = tile.pooled_rows * ph, tile.pooled_cols * pw
     p = tr * tc
@@ -177,9 +186,9 @@ def mma_layout(conv: Tuple[int, ...], tile: MmaTile) -> MmaLayout:
     k_pad = -(-kh * kw * cin // 16) * 16
     threads = 32 * warps
     slots = -(-pr * pc * cc * (MMA_STREAMS // 4) // threads)
-    return MmaLayout(tr, tc, p, warps, threads, pr, pc, pcs, region, k_pad, k_pad + 8, -(-kh * kw * cc // 16),
-                     slots, 2 * (4 * region * 16 + slots * threads * 16)
-                     + 2 * (cout // tile.n_blocks) * (k_pad + 8) * 2)
+    return MmaLayout(tr, tc, p, warps, threads, pr, pc, pcs, planes, region, k_pad, k_pad + 8,
+                     -(-kh * kw * cc // 16), slots, 2 * (2 * planes * region * 16 + slots * threads * 16)
+                     + planes * (cout // tile.n_blocks) * (k_pad + 8) * 2)
 
 
 def _resident_blocks(layout: MmaLayout) -> int:
@@ -187,20 +196,24 @@ def _resident_blocks(layout: MmaLayout) -> int:
                       SM_THREADS // layout.threads))
 
 
-def conv_mma_tiles(table: Sequence[Tuple[int, ...]]) -> List[MmaTile]:
-    """Each conv's 3-pass block tile. Among rectangles of whole pool windows
-    of at most MMA_MAX_POSITIONS positions (a step's rows at most), Cout
-    splits into n_blocks of 24-channel warps, 1, 2 or 4 positions per warp
-    (whole windows) and channel chunks of whole 8-channel groups dividing
-    Cin (Cin itself below 8), within MMA_MAX_WARPS warps and SMEM_LIMIT
-    bytes: the one an SM holds at least MMA_MIN_WARPS warps of, then the
+def conv_mma_tiles(table: Sequence[Tuple[int, ...]], arith: str) -> List[MmaTile]:
+    """Each conv's block tile in ``arith`` ('1pass' or '3pass'), whose
+    planes set the shared memory a tile takes. Among rectangles of whole
+    pool windows of at most MMA_MAX_POSITIONS positions (a step's rows at
+    most), Cout splits into n_blocks of 24-channel warps, 1, 2 or 4
+    positions per warp (whole windows) and channel chunks of whole 8-channel
+    groups dividing Cin (Cin itself below 8), within MMA_MAX_WARPS warps and
+    SMEM_LIMIT bytes: the one an SM holds at least MMA_MIN_WARPS warps of, then the
     most positions per warp (fewer shared loads per MMA), the fewest Cout
     splits (each stages the patch again), the most resident warps up to
     MMA_WARPS_PER_SM, the most positions (fewer weight loads per output),
     the least input staged per output, the fewest chunks (fewer barriers,
     fewer padded k16 steps). Timed on an H100 (PERF.md), positions per warp
     and Cout splits outweighed occupancy past 8 warps, and occupancy
-    outweighed the chunk count."""
+    outweighed the chunk count (3-pass). The 1-pass tiles take the same
+    key: two others, which cap the blocks an SM is counted to hold at what
+    a step's items at S = 4096 fill (one also ranking fewer chunks above
+    occupancy), ran the 1-pass step slower."""
     tiles = []
     for conv, wx, n_pos in zip(table, conv_widths(table), conv_positions(table, STEP_ROWS, False)):
         kh, kw, cin, cout, ph, pw, _ = conv
@@ -216,7 +229,7 @@ def conv_mma_tiles(table: Sequence[Tuple[int, ...]]) -> List[MmaTile]:
                     for mt in (m for m in (1, 2, 4) if (tr * tc) % m == 0 and m % (ph * pw) == 0):
                         for cc in chunks:
                             tile = MmaTile(tqr, tqc, mt, nb, cc, 1)
-                            lay = mma_layout(conv, tile)
+                            lay = mma_layout(conv, tile, arith)
                             if lay.warps > MMA_MAX_WARPS or lay.smem > SMEM_LIMIT:
                                 continue
                             resident = _resident_blocks(lay)
@@ -233,14 +246,14 @@ def conv_mma_tiles(table: Sequence[Tuple[int, ...]]) -> List[MmaTile]:
 class CnnParams(NamedTuple):
     """The BN-folded CNN as the kernels and their plain versions take it
     (built by ``ops.cnn_step.prep_params``)."""
-    taps: Tuple[torch.Tensor, ...]      # per conv: (kh*kw, Cout, Cin); 3-pass: (2, Cout, K16) bf16 planes
+    taps: Tuple[torch.Tensor, ...]      # per conv: (kh*kw, Cout, Cin) fp32; bf16: (1 or 2, Cout, K16) planes
     biases: Tuple[torch.Tensor, ...]    # per conv: (Cout, 1)
     scale: torch.Tensor                 # the stem's affine, (24, 1)
     shift: torch.Tensor                 # (24, 1)
     mats: Tuple[torch.Tensor, ...]      # per conv: (Cout, kh*kw*Cin), the plain versions'
     folded: Dict                        # the folded params (biases and affine of the plain versions)
     cache_shapes: Tuple[Tuple[str, Tuple[int, int, int]], ...]   # (name, (C, 2, W)), program order
-    arith: str = "fp32"                 # the variant: '1pass' rounds taps and mats, '3pass' splits the taps into planes
+    arith: str = "fp32"                 # the variant: '1pass' rounds the weights, '3pass' splits them into planes
 
 
 def _plain(params: CnnParams, x: torch.Tensor, caches: Optional[Sequence[torch.Tensor]]):

@@ -62,9 +62,10 @@ def generated_headers() -> Dict[str, str]:
     ``kConvs``; ``cnn_tiles.h``, the tile constants of
     ``ops.cnn_step_cuda`` and each conv's block tile from its
     ``conv_tiles()``, as ``csrc/cnn_step.cuh``'s ``kTiles``;
-    ``cnn_mma_tiles.h``, the 3-pass kernels' tile constants and each conv's
-    tile from ``conv_mma_tiles()``, as ``csrc/cnn_step_mma.cuh``'s
-    ``kMmaTiles``;
+    ``cnn_mma_tiles.h``, the tensor-core kernels' tile constants and each
+    conv's tile from ``conv_mma_tiles()`` per bf16 arithmetic, as
+    ``csrc/cnn_step_mma.cuh``'s ``kMmaTilesOnePass`` and
+    ``kMmaTilesThreePass``;
     ``mel_program.h``, the mel frontend's geometry from
     ``config``, kernel 1's live DFT bins from
     ``ops.melspec_cuda.live_bins()`` and its warp tiles, and kernel 2's
@@ -77,7 +78,9 @@ def generated_headers() -> Dict[str, str]:
     tiles = "".join("{%s},\n" % ", ".join(map(str, tile)) for tile in cnn_step_cuda.conv_tiles(table))
     tile_consts = {"kStreamQuads": cnn_step_cuda.STREAM_QUADS, "kThreadChannels": cnn_step_cuda.THREAD_CHANNELS,
                    "kStages": cnn_step_cuda.STAGES}
-    mma_tiles = "".join("{%s},\n" % ", ".join(map(str, tile)) for tile in cnn_step_cuda.conv_mma_tiles(table))
+    mma_tiles = {arith: "".join("{%s},\n" % ", ".join(map(str, tile))
+                                for tile in cnn_step_cuda.conv_mma_tiles(table, arith))
+                 for arith in cnn_step_cuda.MMA_ARITHS}
     mma_consts = {"kMmaStreams": cnn_step_cuda.MMA_STREAMS, "kMmaNTiles": cnn_step_cuda.MMA_N_TILES}
     first, count, padded = melspec_cuda.live_bins()
     col0, cols, cols_pad, half1, nyquist = melspec_cuda.factored_columns()
@@ -95,12 +98,13 @@ def generated_headers() -> Dict[str, str]:
                            "// K slice) per conv.\n"
                            + "".join(f"constexpr int {k} = {v};\n" for k, v in tile_consts.items())
                            + "constexpr ConvTile kTiles[] = {\n" + tiles + "};\n",
-            "cnn_mma_tiles.h": "// Written by utils/cuda_build.py from ops/cnn_step_cuda.py: the 3-pass\n"
-                               "// kernels' tile constants, and conv_mma_tiles as (pooled rows, pooled\n"
-                               "// columns, positions per warp, Cout splits, channels per chunk, blocks\n"
-                               "// per SM) per conv.\n"
+            "cnn_mma_tiles.h": "// Written by utils/cuda_build.py from ops/cnn_step_cuda.py: the tensor-core\n"
+                               "// kernels' tile constants, and conv_mma_tiles of each bf16 arithmetic as\n"
+                               "// (pooled rows, pooled columns, positions per warp, Cout splits, channels\n"
+                               "// per chunk, blocks per SM) per conv.\n"
                                + "".join(f"constexpr int {k} = {v};\n" for k, v in mma_consts.items())
-                               + "constexpr MmaTile kMmaTiles[] = {\n" + mma_tiles + "};\n",
+                               + "constexpr MmaTile kMmaTilesOnePass[] = {\n" + mma_tiles["1pass"] + "};\n"
+                               + "constexpr MmaTile kMmaTilesThreePass[] = {\n" + mma_tiles["3pass"] + "};\n",
             "mel_program.h": "// Written by utils/cuda_build.py from config and ops/melspec_cuda.py::live_bins:\n"
                              "// the frame geometry, and the DFT bins [kLiveBin0, kLiveBin0 + kLiveBins) on\n"
                              "// which the mel filterbank has a non-zero weight, padded to kLiveBinsPad,\n"

@@ -1,13 +1,15 @@
-"""The 3-pass CNN kernels' tiles and index arithmetic (``csrc/cnn_step_mma.cuh``,
-K3-high and K4-high on the tensor cores), on the CPU: the generated header
-is ``conv_mma_tiles()``, each tile fits the kernel, and a Python mirror of
-the kernel's index arithmetic (tile -> positions and pool windows, lane ->
-patch row and weight column, output -> channel, pooled position and stream)
+"""The tensor-core CNN kernels' tiles and index arithmetic
+(``csrc/cnn_step_mma.cuh``: K3-bf16 and K4-bf16 in 1-pass, K3-high and
+K4-high in 3-pass), on the CPU, for each arithmetic: the generated header
+holds ``conv_mma_tiles()`` of both, each tile fits the kernel (its planes'
+regions and weights within shared memory), and a Python mirror of the
+kernel's index arithmetic (tile -> positions and pool windows, lane -> patch
+row and weight column, output -> channel, pooled position and stream)
 covers every output exactly once, keeps every pool window inside one warp
 and reads every product's input from the staged patch cell it needs. The
 kernels themselves run on the card (``tests/test_torch_cuda.py``); their
-numbers are held against JAX through the plain 3-pass version
-(``tests/test_torch_three_pass.py``)."""
+numbers are held against JAX through the plain 1-pass and 3-pass versions
+(``tests/test_torch_tiers.py``, ``tests/test_torch_three_pass.py``)."""
 
 import math
 
@@ -17,7 +19,9 @@ from openwakeword_tpu_torch.ops import cnn_step, cnn_step_cuda
 from openwakeword_tpu_torch.utils import cuda_build
 
 TABLE = cnn_step.conv_table()
-TILES = cnn_step_cuda.conv_mma_tiles(TABLE)
+ARITHS = cnn_step_cuda.MMA_ARITHS
+TILES = {arith: cnn_step_cuda.conv_mma_tiles(TABLE, arith) for arith in ARITHS}
+TABLE_NAMES = {"1pass": "kMmaTilesOnePass", "3pass": "kMmaTilesThreePass"}
 MODES = {"step": (cnn_step_cuda.STEP_ROWS, False), "prime": (cnn_step_cuda.WINDOW_ROWS, True)}
 
 
@@ -59,31 +63,43 @@ def _b_col(conv, tile, j, st, group):
     return (kb // cc) * cin + j * cc + kb % cc if kb < kh * kw * cc else 0
 
 
+@pytest.mark.parametrize("arith", ARITHS)
 @pytest.mark.parametrize("conv", range(20))
-def test_mma_tile_header_is_conv_mma_tiles(conv):
-    """The build compiles in conv_mma_tiles() through cnn_mma_tiles.h, with
-    the tile constants, and csrc/cnn_step_mma.cuh includes it."""
+def test_mma_tile_header_is_conv_mma_tiles(conv, arith):
+    """The build compiles in conv_mma_tiles() of each arithmetic through
+    cnn_mma_tiles.h, one table each, with the tile constants, and
+    csrc/cnn_step_mma.cuh includes it; cnn_step_bf16.cu builds its 1-pass
+    and cnn_step_high.cu its 3-pass kernels."""
     text = cuda_build.generated_headers()["cnn_mma_tiles.h"]
-    rows = [line.rstrip(",") for line in text.splitlines() if line.startswith("{")]
-    assert len(rows) == len(TILES) == len(TABLE)
-    assert tuple(int(v) for v in rows[conv].strip("{}").split(",")) == tuple(TILES[conv])
+    body = text.split(f"constexpr MmaTile {TABLE_NAMES[arith]}[] = {{\n", 1)[1].split("};", 1)[0]
+    rows = [line.rstrip(",") for line in body.splitlines() if line.startswith("{")]
+    assert len(rows) == len(TILES[arith]) == len(TABLE)
+    assert tuple(int(v) for v in rows[conv].strip("{}").split(",")) == tuple(TILES[arith][conv])
+    assert text.count("constexpr MmaTile kMmaTiles") == len(ARITHS)
     assert f"constexpr int kMmaStreams = {cnn_step_cuda.MMA_STREAMS};" in text
     assert f"constexpr int kMmaNTiles = {cnn_step_cuda.MMA_N_TILES};" in text
     assert '#include "cnn_mma_tiles.h"' in (cuda_build.CSRC / "cnn_step_mma.cuh").read_text()
-    assert '#include "cnn_step_mma.cuh"' in (cuda_build.CSRC / "cnn_step_high.cu").read_text()
+    unit, entry = {"1pass": ("cnn_step_bf16.cu", "kOnePass"), "3pass": ("cnn_step_high.cu", "kThreePass")}[arith]
+    source = (cuda_build.CSRC / unit).read_text()
+    assert '#include "cnn_step_mma.cuh"' in source and f"cnn_forward_mma<{entry}>" in source
 
 
+@pytest.mark.parametrize("arith", ARITHS)
 @pytest.mark.parametrize("conv", range(20))
-def test_mma_tile_fits_the_kernel(conv):
+def test_mma_tile_fits_the_kernel(conv, arith):
     """Whole warps within one block; each block's channels whole 24-channel
     warps (N a multiple of 8); whole pool windows per warp; K padded to 16;
     the rows of every ldmatrix of the weights in distinct bank quads; the
     patch regions 4 mod 8 rows long; channel chunks of whole 8-channel
-    groups; the block within 227 KB of shared memory and the tile's blocks
-    within what an SM holds; the tile's rows within a step's."""
-    spec, tile = TABLE[conv], TILES[conv]
+    groups; the arithmetic's planes (1 rounded, or hi and lo) in the chunk
+    buffers and the weights; the block within 227 KB of shared memory and
+    the tile's blocks within what an SM holds; the tile's rows within a
+    step's."""
+    spec, tile = TABLE[conv], TILES[arith][conv]
     kh, kw, cin, cout, ph, pw, _ = spec
-    lay = cnn_step_cuda.mma_layout(spec, tile)
+    lay = cnn_step_cuda.mma_layout(spec, tile, arith)
+    planes = {"1pass": 1, "3pass": 2}[arith]
+    assert lay.planes == planes
     assert lay.threads == 32 * lay.warps and 1 <= lay.warps <= cnn_step_cuda.MMA_MAX_WARPS
     assert cout % tile.n_blocks == 0 and (cout // tile.n_blocks) % (8 * cnn_step_cuda.MMA_N_TILES) == 0
     assert lay.positions % tile.warp_positions == 0 and tile.warp_positions % (ph * pw) == 0
@@ -97,24 +113,25 @@ def test_mma_tile_fits_the_kernel(conv):
     assert 1 <= tile.min_blocks and tile.min_blocks * (lay.smem + 1024) <= cnn_step_cuda.SM_SMEM
     assert tile.min_blocks * lay.threads <= cnn_step_cuda.SM_THREADS
     assert lay.slots == math.ceil(lay.patch_rows * lay.patch_cols * tile.chunk_channels * 4 / lay.threads)
-    assert lay.smem == 2 * (4 * lay.region * 16 + lay.slots * lay.threads * 16) + \
-        2 * (cout // tile.n_blocks) * lay.w_stride * 2
+    assert lay.smem == 2 * (2 * planes * lay.region * 16 + lay.slots * lay.threads * 16) + \
+        planes * (cout // tile.n_blocks) * lay.w_stride * 2
     t_step = cnn_step_cuda.conv_positions(TABLE, cnn_step_cuda.STEP_ROWS, False)[conv] // \
         cnn_step_cuda.conv_widths(TABLE)[conv]
     assert lay.rows <= max(t_step, ph) and cnn_step_cuda.conv_widths(TABLE)[conv] % lay.cols == 0
 
 
+@pytest.mark.parametrize("arith", ARITHS)
 @pytest.mark.parametrize("conv", range(20))
-def test_mma_k_order_reads_each_product_once(conv):
+def test_mma_k_order_reads_each_product_once(conv, arith):
     """Over the chunks and k16 steps, the A rows the lanes address cover every
     (tap, channel) of K exactly once; a row past its chunk's k reads the zero
     row; each valid row's weight column (the B lane's 8-group start plus the
     row in it) is that (tap, channel)'s column in the planes' (dt, dw, c)
     order; and the 8 rows of each A matrix start in distinct bank quads (or
     are the one zero row)."""
-    spec, tile = TABLE[conv], TILES[conv]
+    spec, tile = TABLE[conv], TILES[arith][conv]
     kh, kw, cin = spec[:3]
-    lay = cnn_step_cuda.mma_layout(spec, tile)
+    lay = cnn_step_cuda.mma_layout(spec, tile, arith)
     seen = []
     for j in range(cin // tile.chunk_channels):
         for st in range(lay.steps):
@@ -144,10 +161,11 @@ def _blocks(items, tile, held):
     return [(b % tile.n_blocks, list(range(b // tile.n_blocks, items, stride))) for b in range(blocks)]
 
 
+@pytest.mark.parametrize("arith", ARITHS)
 @pytest.mark.parametrize("conv", range(20))
 @pytest.mark.parametrize("n_streams", [1, 5, 100, 4096])
 @pytest.mark.parametrize("mode", ["step", "prime"])
-def test_mma_index_map_covers_each_output_once(mode, n_streams, conv):
+def test_mma_index_map_covers_each_output_once(mode, n_streams, conv, arith):
     """The kernel's work split and index arithmetic, mirrored: persistent
     blocks (a Cout split each) walking items (stream tile, position tile),
     warps (positions x 24 channels), each warp's pool windows, each lane's
@@ -159,9 +177,9 @@ def test_mma_index_map_covers_each_output_once(mode, n_streams, conv):
     a window's positions are one warp's m16 tiles and lie in one pool window;
     each position's tap rows lie in the staged patch, on the cell (row + dt,
     column + dw) of the tile."""
-    spec, tile = TABLE[conv], TILES[conv]
+    spec, tile = TABLE[conv], TILES[arith][conv]
     kh, kw, cin, cout, ph, pw, _ = spec
-    lay = cnn_step_cuda.mma_layout(spec, tile)
+    lay = cnn_step_cuda.mma_layout(spec, tile, arith)
     tx, wx, rc = _inputs(mode)[conv]
     t_out = rc + tx - kh + 1
     t_pooled, w_pooled = t_out // ph, wx // pw
@@ -232,10 +250,13 @@ def test_mma_index_map_covers_each_output_once(mode, n_streams, conv):
 
 
 def test_mma_tiles_fill_the_card_at_scale():
-    """At S = 4096 every conv of a step has work for every block the card
-    holds at once (132 SMs x min_blocks), so the persistent grid is full."""
+    """At S = 4096 every conv of a 3-pass step has work for every block the
+    card holds at once (132 SMs x min_blocks), so the persistent grid is
+    full. (The 1-pass tiles of convs 11-19 ask for more blocks than a step's
+    256 items fill; a search key that capped them at what the items fill
+    ran the 1-pass step slower on an H100, PERF.md.)"""
     for conv, (tx, wx, rc) in enumerate(_inputs("step")):
-        kh, tile = TABLE[conv][0], TILES[conv]
-        lay = cnn_step_cuda.mma_layout(TABLE[conv], tile)
+        kh, tile = TABLE[conv][0], TILES["3pass"][conv]
+        lay = cnn_step_cuda.mma_layout(TABLE[conv], tile, "3pass")
         items = math.ceil((rc + tx - kh + 1) / lay.rows) * (wx // lay.cols) * 4096 // 16
         assert items * tile.n_blocks >= 132 * tile.min_blocks, conv

@@ -258,6 +258,9 @@ def test_weight_dtypes(folded, dtype):
     got = cnn_step.CnnStepKernel(cast, precision="bf16").params
     want = cnn_step.CnnStepKernel(folded[1], precision="bf16").params
     assert got.arith == want.arith == "1pass"
-    for a, b in zip(got.taps + got.mats, want.taps + want.mats):
+    for a, b in zip(got.taps, want.taps):
+        assert a.dtype == torch.bfloat16
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    for a, b in zip(got.mats, want.mats):
         assert a.dtype == torch.float32
         torch.testing.assert_close(a, b, rtol=0, atol=0)

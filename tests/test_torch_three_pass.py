@@ -179,19 +179,47 @@ def test_cnn_weights_are_host_split_once(folded):
 
 @pytest.mark.parametrize("conv", range(20))
 def test_cnn_weight_planes_per_conv(folded, conv):
-    """``cnn_step.three_pass_planes`` of each conv's taps on their own, as
-    ``prep_params`` stores them, bit for bit JAX's split; bf16 weights go in
-    as their float32 values (their lo plane is zero)."""
+    """``cnn_step.weight_planes(..., '3pass')`` of each conv's taps on their
+    own, as ``prep_params`` stores them, bit for bit JAX's split; bf16
+    weights go in as their float32 values (their lo plane is zero)."""
     t32 = cnn_step.prep_params(folded[1]).taps[conv]
     j_tap = cnn_pallas._prep_params(folded[0], np.float32)[2 * conv]
-    planes = cnn_step.three_pass_planes(t32)
+    planes = cnn_step.weight_planes(t32, "3pass")
     assert torch.equal(planes, cnn_step.prep_params(folded[1], "3pass").taps[conv])
     _assert_planes_are_jax_split(planes, t32, j_tap)
     rounded = t32.to(torch.bfloat16)
-    planes16 = cnn_step.three_pass_planes(rounded)
+    planes16 = cnn_step.weight_planes(rounded, "3pass")
     assert torch.equal(planes16[0, :, :t32.shape[0] * t32.shape[2]].float(),
                        rounded.float().permute(1, 0, 2).reshape(t32.shape[1], -1))
     assert not planes16[1].float().any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("conv", range(20))
+def test_cnn_one_pass_plane_per_conv(folded, conv, dtype):
+    """``prep_params(..., '1pass')`` gives the 1-pass kernels (K3-bf16,
+    K4-bf16) each conv's weights as one (1, Cout, K16) bf16 plane: bit for
+    bit JAX's ``_prep_params(folded, np.float32)`` taps cast to bf16 (as its
+    ``_dot`` casts them in mode 'bf16'), row o over K = kh*kw*Cin in the
+    tap order (dt, dw, c), zero from K to K16; the hi plane of the 3-pass
+    planes; and the same from float32 weights and from bf16 ones (which
+    JAX's ``_prep_params`` takes as their float32 values)."""
+    j_folded, t_folded = folded
+    if dtype == torch.bfloat16:
+        t_folded = {k: {n: t.to(dtype) if n == "w" else t for n, t in v.items()} for k, v in t_folded.items()}
+        j_folded = {k: {n: jnp.asarray(a, jnp.bfloat16) if n == "w" else a for n, a in v.items()}
+                    for k, v in j_folded.items()}
+    j_tap = cnn_pallas._prep_params(j_folded, np.float32)[2 * conv]        # (kh*kw, Cout, Cin)
+    taps, cout, cin = j_tap.shape
+    k = taps * cin
+    plane = cnn_step.prep_params(t_folded, "1pass").taps[conv]
+    assert plane.dtype == torch.bfloat16 and plane.shape == (1, cout, -(-k // 16) * 16) and plane.is_contiguous()
+    assert not plane[:, :, k:].float().any()
+    want = np.asarray(jnp.asarray(j_tap).astype(jnp.bfloat16)).transpose(1, 0, 2).reshape(cout, k)
+    np.testing.assert_array_equal(plane[0, :, :k].view(torch.int16).numpy(), want.view(np.int16))
+    t32 = cnn_step.prep_params(t_folded).taps[conv]
+    assert torch.equal(plane[0], cnn_step.weight_planes(t32, "3pass")[0])
+    assert torch.equal(plane, cnn_step.weight_planes(t32, "1pass"))
 
 
 @pytest.mark.parametrize("arith", ["high", "3-pass", None])

@@ -12,14 +12,16 @@ caches: within 1e-4 (fp32), 1e-4 + 2 E (1-pass, E the plain 1-pass
 version's distance from the plain fp32 one) or 1e-4 of each tensor's scale
 (3-pass). Then it times each variant's step and prime at S = 4096 with CUDA
 events (the better of two runs of 50 steps or 10 primes after warm-up
-calls) and traces one 3-pass step and prime under ``torch.profiler`` for
-each conv's device time. Prints the card's name and power limit, the ptxas
-register and spill lines of the CNN kernels, and one JSON line ``{"label":
+calls) and traces one 1-pass and one 3-pass step and prime under
+``torch.profiler`` for each conv's device time. Prints the card's name and
+power limit, the ptxas register and spill lines of the CNN kernels (the
+fp32 ones from ``cnn_step.cu``, the 1-pass ones from ``cnn_step_bf16.cu``,
+the 3-pass ones from ``cnn_step_high.cu``), and one JSON line ``{"label":
 ..., "tree": ..., "card": ..., "ms": {variant: {"step": t, "prime": t}},
-"max_err": {variant: e}, "convs_3pass": {"step": [ms per conv], "prime":
-[...]}}``. To compare two commits, unpack the other one with ``git
-archive`` into a git-ignored directory (``dist/``) and run both trees in
-turns in one call: A, B, B, A.
+"max_err": {variant: e}, "convs_1pass": {"step": [ms per conv], "prime":
+[...]}, "convs_3pass": {...}}``. To compare two commits, unpack the other
+one with ``git archive`` into a git-ignored directory (``dist/``) and run
+both trees in turns in one call: A, B, B, A.
 """
 
 import argparse
@@ -175,11 +177,11 @@ def main():
                      "prime": min(cuda_ms(prime, 10) for _ in range(2))}
         print(f"{arith}: step {ms[arith]['step']:.4f} ms, prime {ms[arith]['prime']:.4f} ms at S={STREAMS}, "
               f"max error vs plain {errs[arith]:.3e} at S={CHECK_STREAMS}", flush=True)
-        if arith == "3pass":
-            convs = {"step": conv_ms(step, n_convs), "prime": conv_ms(prime, n_convs)}
-            print(f"3pass per conv: {json.dumps(convs)}")
+        if arith != "fp32":
+            convs[arith] = {"step": conv_ms(step, n_convs), "prime": conv_ms(prime, n_convs)}
+            print(f"{arith} per conv: {json.dumps(convs[arith])}")
     print(json.dumps({"label": args.label or tree, "tree": tree, "card": card, "ms": ms, "max_err": errs,
-                      "convs_3pass": convs}))
+                      "convs_1pass": convs["1pass"], "convs_3pass": convs["3pass"]}))
 
 
 if __name__ == "__main__":
