@@ -1,0 +1,8 @@
+"""Share of the streaming window with no kernel, copy or set on the card.
+None when the trace holds no device operation."""
+
+
+def read(ctx):
+    if not ctx.trace.ops:
+        return None
+    return ctx.trace.idle_pct()
