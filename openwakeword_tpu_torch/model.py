@@ -30,6 +30,7 @@ from openwakeword_tpu_torch.features import AudioFeatures
 from openwakeword_tpu_torch.io import loaders
 from openwakeword_tpu_torch.models import heads as heads_lib
 from openwakeword_tpu_torch.ops import bf16
+from openwakeword_tpu_torch.tracing import span
 from openwakeword_tpu_torch.utils.args import re_arg
 
 
@@ -203,25 +204,33 @@ class Model():
         device call per head); <1280 -> recycle the previous score; 5-call
         warm-up zeroing; verifiers; patience XOR debounce; the VAD gate over
         scores 0.4-0.56 s back.
+
+        With ``timing=True`` it also returns the seconds each stage took
+        (``{"models": {"preprocessor": s, <model>: s, ..., "vad": s}}``),
+        read with ``time.perf_counter`` after waiting for the device, so a
+        stage's time holds its device work; without it, no call waits.
         """
         if not isinstance(x, np.ndarray):
             raise ValueError(f"predict expects int16 PCM as a numpy array; got {type(x)}")
 
         timing_dict: Dict[str, Dict] = {"models": {}}
-        t0 = time.time()
-        pcm = self.speex_ns.process_frames(x) if self.speex_ns else x
-        n_prepared = self.preprocessor(pcm)
-        timing_dict["models"]["preprocessor"] = time.time() - t0
+        t0 = self._clock(timing)
+        with span("model.preprocess"):
+            pcm = self.speex_ns.process_frames(x) if self.speex_ns else x
+            n_prepared = self.preprocessor(pcm)
+        timing_dict["models"]["preprocessor"] = self._clock(timing) - t0
 
-        scores = self._score_heads(n_prepared, timing_dict["models"])
+        with span("model.heads"):
+            scores = self._score_heads(n_prepared, timing_dict["models"], timing)
         scores = self._apply_verifiers(scores)
         scores = self._postprocess(scores, n_prepared, patience, threshold, debounce_time)
 
         if self.vad_threshold > 0:
             # the VAD hears the raw audio; the gate reads its buffer [-7:-4]
-            t0 = time.time()
-            self.vad(x)
-            timing_dict["models"]["vad"] = time.time() - t0
+            t0 = self._clock(timing)
+            with span("model.vad"):
+                self.vad(x)
+            timing_dict["models"]["vad"] = self._clock(timing) - t0
             gate = np.asarray(list(self.vad.prediction_buffer)[config.VAD_GATE_LO:config.VAD_GATE_HI],
                               dtype=np.float32)
             if gate.size == 0:
@@ -231,7 +240,14 @@ class Model():
         predictions = {lbl: float(s) for lbl, s in zip(self._labels, scores)}
         return (predictions, timing_dict) if timing else predictions
 
-    def _score_heads(self, n_prepared: int, model_timing: Dict) -> np.ndarray:
+    def _clock(self, timing: bool) -> float:
+        """``time.perf_counter()``, after the device has finished its work
+        when ``timing`` is set and the model runs on CUDA."""
+        if timing and self.preprocessor.device.type == "cuda":
+            torch.cuda.synchronize(self.preprocessor.device)
+        return time.perf_counter()
+
+    def _score_heads(self, n_prepared: int, model_timing: Dict, timing: bool) -> np.ndarray:
         """Raw per-label scores for this call, ordered as self._labels.
 
         More than one frame prepared -> max over all sub-frame windows
@@ -242,7 +258,7 @@ class Model():
         cursor = 0
         n_sub = n_prepared // config.CHUNK_SAMPLES
         for mdl in self.models:
-            t0 = time.time()
+            t0 = self._clock(timing)
             n_in = self.model_inputs[mdl]
             width = 1 if self.model_outputs[mdl] == 1 else len(self.class_mapping[mdl])
             if n_sub >= 1:
@@ -269,7 +285,7 @@ class Model():
                 cols = [int(i) for i in self.class_mapping[mdl].keys()]
                 out[cursor:cursor + width] = row[cols]
             cursor += width
-            model_timing[mdl] = time.time() - t0
+            model_timing[mdl] = self._clock(timing) - t0
         return out
 
     def _apply_verifiers(self, scores: np.ndarray) -> np.ndarray:

@@ -52,9 +52,24 @@ import torch
 from openwakeword_tpu_torch import config
 from openwakeword_tpu_torch.parallel import ingest
 from openwakeword_tpu_torch.parallel.engine import MultiStreamEngine
+from openwakeword_tpu_torch.tracing import span
 
 
 class StreamServer:
+    """A fixed pool of stream slots over one ``MultiStreamEngine`` (see the
+    module docstring).
+
+    Counters, plain ints on the host that only grow, for an operator:
+    ``overflow_drops`` counts frames dropped from full slot queues (clients
+    pushing faster than the server ticks); ``queued_frames`` counts frames
+    that took the per-slot queue instead of the zero-copy stage (packets
+    that are not one whole 80 ms frame, a slot's second packet in a tick,
+    bursts), which shows clients whose packet sizes cost the fast path;
+    ``pipeline_waits`` counts ``step_async`` calls that blocked on the
+    oldest fetch because ``PIPELINE_DEPTH`` ticks were in flight, which a
+    server near its knee shows first.
+    """
+
     def __init__(self, wakeword_models=(), capacity: int = 256,
                  threshold=0.5, engine: Optional[MultiStreamEngine] = None,
                  queue_frames: int = 16, warm_compile: bool = False,
@@ -147,6 +162,10 @@ class StreamServer:
         #: frame at the next step) and lives outside the queue, so only
         #: queued frames participate in — and are counted by — overflow.
         self.overflow_drops = 0
+        #: frames that went through the per-slot queue, not the stage
+        self.queued_frames = 0
+        #: step_async calls that waited on the oldest fetch
+        self.pipeline_waits = 0
 
     def _stage_buffer(self) -> np.ndarray:
         """A zeroed (capacity, 1280) int16 staging buffer; in pinned host
@@ -323,12 +342,10 @@ class StreamServer:
             # duplicate slot ids: the vectorized scatters would collapse the
             # duplicates (fancy-index += counts once; same-slot rows
             # overwrite); per-slot push coalesces them correctly
-            for i, sid in enumerate(sids):
-                self.push(int(sid), packets[i])
+            self._push_each(sids, packets)
             return
         if rem or k == 0 or self._tail_len[sids].any():
-            for i, sid in enumerate(sids):
-                self.push(int(sid), packets[i])
+            self._push_each(sids, packets)
             return
         if k == 1:
             # steady fast path: stage rows contiguously (memcpy), let the
@@ -339,7 +356,8 @@ class StreamServer:
                 n1 = n0 + sids.size
                 # threaded native copy when available (ingest.cpp);
                 # numpy memcpy otherwise — the tick's dominant host cost
-                ingest.copy_rows(self._stage[n0:n1], packets)
+                with span("serve.ingest"):
+                    ingest.copy_rows(self._stage[n0:n1], packets)
                 self._stage_ids[n0:n1] = sids
                 self._staged_mask[sids] = True
                 self._n_staged = n1
@@ -347,13 +365,14 @@ class StreamServer:
             good = np.where(ok)[0]
             if good.size:
                 n1 = n0 + good.size
-                ingest.gather_rows(self._stage[n0:n1], packets, good)
+                with span("serve.ingest"):
+                    ingest.gather_rows(self._stage[n0:n1], packets, good)
                 self._stage_ids[n0:n1] = sids[good]
                 self._staged_mask[sids[good]] = True
                 self._n_staged = n1
-            for i in np.where(~ok)[0]:
-                self.push(int(sids[i]), packets[i])
+            self._push_each(sids[~ok], packets[~ok])
             return
+        self.queued_frames += k * sids.size
         lens = self._q_len[sids]
         overflow = lens + k - self.queue_frames
         if (overflow > 0).any():
@@ -367,6 +386,12 @@ class StreamServer:
                + np.arange(k)[None, :]) % self.queue_frames        # (N, k)
         self._queue[pos, sids[:, None]] = packets.reshape(-1, k, F)
         self._q_len[sids] += k
+
+    def _push_each(self, sids: np.ndarray, packets: np.ndarray):
+        """``push_block``'s per-slot fallback: each row through ``push``."""
+        with span("serve.ingest"):
+            for sid, pcm in zip(sids, packets):
+                self.push(int(sid), pcm)
 
     def pending_frames(self, sid: int) -> int:
         self._check_active(sid)
@@ -397,51 +422,52 @@ class StreamServer:
         completes (the pinned stage is copied to the card without
         blocking), so the stage rotates to a fresh buffer pair
         (_rotate_stage) and the aligned-slab chunk is copied."""
-        self._check_no_reservation()
-        heads = self._q_head
-        queued = self._active_mask & (self._q_len > 0) & ~self._staged_mask
-        if self._n_staged:
-            # staged path: append the (few) queued slots' frames to the
-            # stage and let the device scatter everything to slot order
-            qidx = np.where(queued)[0]
-            if qidx.size:
-                n0, n1 = self._n_staged, self._n_staged + qidx.size
-                self._stage[n0:n1] = self._queue[heads[qidx], qidx]
-                self._stage_ids[n0:n1] = qidx
-                self._n_staged = n1
-                self._q_head[qidx] = (heads[qidx] + 1) % self.queue_frames
-                self._q_len[qidx] -= 1
-            valid = self._staged_mask | queued
-            scores = self.engine.predict_packets(self._stage, self._stage_ids,
-                                                 sync=False)
-            ids = self._stage_ids[:self._n_staged]
-            self._staged_mask[ids] = False
-            self._n_staged = 0
-            if async_:
-                self._rotate_stage()   # dispatched pair stays frozen
-            else:
-                self._stage_ids[:ids.size] = -1
-        else:
-            valid = queued
-            h0 = int(heads[valid][0]) if valid.any() else 0
-            if (heads[valid] == h0).all():
-                # aligned cursors: the tick's chunks are one contiguous slab
-                chunk = self._queue[h0]                             # (C, 1280) view
+        with span("serve.dispatch", self._frame_counter + 1):
+            self._check_no_reservation()
+            heads = self._q_head
+            queued = self._active_mask & (self._q_len > 0) & ~self._staged_mask
+            if self._n_staged:
+                # staged path: append the (few) queued slots' frames to the
+                # stage and let the device scatter everything to slot order
+                qidx = np.where(queued)[0]
+                if qidx.size:
+                    n0, n1 = self._n_staged, self._n_staged + qidx.size
+                    self._stage[n0:n1] = self._queue[heads[qidx], qidx]
+                    self._stage_ids[n0:n1] = qidx
+                    self._n_staged = n1
+                    self._q_head[qidx] = (heads[qidx] + 1) % self.queue_frames
+                    self._q_len[qidx] -= 1
+                valid = self._staged_mask | queued
+                scores = self.engine.predict_packets(self._stage, self._stage_ids,
+                                                     sync=False)
+                ids = self._stage_ids[:self._n_staged]
+                self._staged_mask[ids] = False
+                self._n_staged = 0
                 if async_:
-                    # a queued burst could wrap onto this depth while the
-                    # step is in flight
-                    chunk = chunk.copy()
-                # re-align empty slots to where the consumers will be next
-                # tick, keeping the fast path alive across starvation/churn
-                self._q_head[self._q_len == 0] = (h0 + 1) % self.queue_frames
-                self._align_head = (h0 + 1) % self.queue_frames
+                    self._rotate_stage()   # dispatched pair stays frozen
+                else:
+                    self._stage_ids[:ids.size] = -1
             else:
-                chunk = self._queue[heads, self._slot_ids]          # (C, 1280) gather
-            self._q_head[valid] = (heads[valid] + 1) % self.queue_frames
-            self._q_len[valid] -= 1
-            scores = self.engine.predict_masked(chunk, valid, sync=False)
-        self._frame_counter += 1
-        return scores, valid.copy(), self._frame_counter
+                valid = queued
+                h0 = int(heads[valid][0]) if valid.any() else 0
+                if (heads[valid] == h0).all():
+                    # aligned cursors: the tick's chunks are one contiguous slab
+                    chunk = self._queue[h0]                             # (C, 1280) view
+                    if async_:
+                        # a queued burst could wrap onto this depth while the
+                        # step is in flight
+                        chunk = chunk.copy()
+                    # re-align empty slots to where the consumers will be next
+                    # tick, keeping the fast path alive across starvation/churn
+                    self._q_head[self._q_len == 0] = (h0 + 1) % self.queue_frames
+                    self._align_head = (h0 + 1) % self.queue_frames
+                else:
+                    chunk = self._queue[heads, self._slot_ids]          # (C, 1280) gather
+                self._q_head[valid] = (heads[valid] + 1) % self.queue_frames
+                self._q_len[valid] -= 1
+                scores = self.engine.predict_masked(chunk, valid, sync=False)
+            self._frame_counter += 1
+            return scores, valid.copy(), self._frame_counter
 
     def _rotate_stage(self):
         """Swap in the next of 3 (stage, ids) buffer pairs. With
@@ -460,17 +486,18 @@ class StreamServer:
 
     def _extract_activations(self, scores: np.ndarray, valid: np.ndarray,
                              frame_index: int):
-        # Python work is per *activation* (sparse), never per slot
-        hits = np.argwhere((scores >= self.threshold) & valid[:, None])
-        with self._act_lock:
-            for sid, k in hits:
-                sid = int(sid)
-                acts = self._activations.get(sid)
-                if acts is None:       # slot removed while the step was in flight
-                    continue
-                acts.append(
-                    (self.labels[k], frame_index, float(scores[sid, k])))
-                self._dirty.add(sid)
+        with span("serve.extract", frame_index):
+            # Python work is per *activation* (sparse), never per slot
+            hits = np.argwhere((scores >= self.threshold) & valid[:, None])
+            with self._act_lock:
+                for sid, k in hits:
+                    sid = int(sid)
+                    acts = self._activations.get(sid)
+                    if acts is None:       # slot removed while the step was in flight
+                        continue
+                    acts.append(
+                        (self.labels[k], frame_index, float(scores[sid, k])))
+                    self._dirty.add(sid)
         self.fetch_log.append((frame_index, time.perf_counter()))
 
     def step(self) -> np.ndarray:
@@ -479,7 +506,8 @@ class StreamServer:
         are untouched. Returns the full (capacity, L) score matrix."""
         self.drain()                   # keep sync/async activation order
         scores_dev, valid, frame_index = self._dispatch()
-        scores = scores_dev.numpy()
+        with span("serve.fetch", frame_index):
+            scores = scores_dev.numpy()
         self._extract_activations(scores, valid, frame_index)
         return scores
 
@@ -500,7 +528,11 @@ class StreamServer:
         """
         self._ensure_fetcher()
         if len(self._inflight) >= self.PIPELINE_DEPTH:
-            self._inflight[0][3].wait()     # bound the pipeline
+            _, _, oldest, fetched = self._inflight[0]
+            if not fetched.is_set():         # bound the pipeline
+                self.pipeline_waits += 1
+                with span("serve.pipeline_wait", oldest):
+                    fetched.wait()
             self._reap_done()
         scores_dev, valid, frame_index = self._dispatch(async_=True)
         done = threading.Event()
@@ -539,7 +571,9 @@ class StreamServer:
                 try:
                     # waits on this tick's score copy only; the CUDA event
                     # wait releases the GIL
-                    self._extract_activations(scores_dev.numpy(), valid, frame_index)
+                    with span("serve.fetch", frame_index):
+                        scores = scores_dev.numpy()
+                    self._extract_activations(scores, valid, frame_index)
                 except Exception as e:     # reported by the next drain()
                     logging.exception("StreamServer fetch of frame %d failed", frame_index)
                     self._fetch_error = e
@@ -590,6 +624,7 @@ class StreamServer:
 
     def _enqueue_frames(self, sid: int, frames: np.ndarray):
         n = frames.shape[0]
+        self.queued_frames += n
         if n > self.queue_frames:
             # a single burst larger than the whole ring: keep the newest
             self.overflow_drops += n - self.queue_frames
