@@ -34,7 +34,9 @@ Phases, each of which exits nonzero on failure:
    seeded random weights, the default tier 'high') at 4096 streams,
    ``predict_frames`` over 50 frames twice (the first warms up); scores must
    be finite, in [0, 1], shaped (50, 4096, 11), and K1-3pass must have
-   launched once per step of the timed run. Then the same with
+   launched once per step of the timed run; over both runs K4-high must
+   have launched once per prime block of the first step and K3-high once on
+   each of the other 99 (the engine's CNN stage at 'high'). Then the same with
    ``mel_dft="factored"`` (K2-3pass must launch), whose scores must agree
    with the direct run's within 1e-3;
 6. CNN kernels vs plain: kernel 4 (prime) and kernel 3 (step) of
@@ -258,10 +260,15 @@ of each tensor's scale (max |value|) of the plain 3-pass version, with conv
 1's output (the second cache) nearer it than the plain fp32 version's by
 the same margin; phase 7c runs ``CnnStepKernel(precision="high")`` at
 scale, phase 8 times the variants. The 3-pass bound is three times the
-1-pass operations at the dense bf16 rate.
+1-pass operations at the dense bf16 rate. K3-high and K4-high are also the
+engine's CNN stage at 'high' on CUDA: phase 5 counts them in its two engine
+runs (a warm-up and a timed run of 50 frames each), and fails unless each
+run made ceil(4096 / PRIME_BLOCK_STREAMS) K4-high launches on its one
+priming step and one K3-high launch on each of the 99 other steps.
 
 Then it prints one JSON line describing each kernel (its launches on the
-main path, its error against its plain version, its time, its plain
+main path: phase 5's for K3-high and K4-high, those of the phases that run
+the others, its error against its plain version, its time, its plain
 version's time and its bound: the larger of the operations over the fp32
 peak, or the dense bf16 tensor-core peak for a 1-pass variant (three times
 the operations for a 3-pass one), and the bytes over the memory rate, both
@@ -2211,7 +2218,7 @@ def main():
         fail("torch.cuda.is_available() is false: this smoke run needs an NVIDIA GPU")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
-        from openwakeword_tpu_torch import convert, testing
+        from openwakeword_tpu_torch import config, convert, testing
         from openwakeword_tpu_torch.models import embedding_stream
         from openwakeword_tpu_torch.ops import cnn_step, cnn_step_cuda, melspec_cuda
         from openwakeword_tpu_torch.ops.bf16 import round_bf16
@@ -2356,16 +2363,21 @@ def main():
         del engine
 
     print(f"[{time.perf_counter() - t_start:.1f} s] phase 5")
-    # 5. scale: the bench configuration at 4096 streams, both mel DFTs
+    # 5. scale: the bench configuration at 4096 streams, both mel DFTs; at
+    # 'high' the engine's CNN stage runs K4-high once per prime block on the
+    # warm-up's first step and K3-high on every other step
     frames = np.random.default_rng(1).integers(-2000, 2000, (SCALE_FRAMES, SCALE_STREAMS, 1280),
                                                dtype=np.int16)
     scale_scores = {}
+    engine_cnn = {"prime_high": 0, "step_high": 0}
+    cnn_want = (-(-SCALE_STREAMS // config.PRIME_BLOCK_STREAMS), 2 * SCALE_FRAMES - 1)
     for dft in melspec_cuda.DFTS:
         name = melspec_cuda.variant(dft, "3pass")           # the default tier 'high' runs K1-3pass / K2-3pass
         t0 = time.perf_counter()
         engine = MultiStreamEngine(n_streams=SCALE_STREAMS, mel_dft=dft, device=dev)
         torch.cuda.synchronize()
         print(f"scale ({dft}): engine with {len(engine.labels)} labels built in {time.perf_counter() - t0:.2f} s")
+        cnn_step_cuda.cnn_prime.launches["3pass"] = cnn_step_cuda.cnn_step.launches["3pass"] = 0
         t0 = time.perf_counter()
         engine.predict_frames(frames)                        # warm-up, includes the prime
         warm_s = time.perf_counter() - t0
@@ -2377,6 +2389,12 @@ def main():
         wall = time.perf_counter() - t0
         used = {k: v for k, v in mel.launches.items() if v}
         mel_launches[name] = mel.launches[name]
+        cnn_used = (cnn_step_cuda.cnn_prime.launches["3pass"], cnn_step_cuda.cnn_step.launches["3pass"])
+        if cnn_used != cnn_want:
+            fail(f"the engine at 'high' ({dft}) launched K4-high {cnn_used[0]} and K3-high {cnn_used[1]} times "
+                 f"over one prime and {cnn_want[1]} steady steps, expected {cnn_want[0]} and {cnn_want[1]}")
+        engine_cnn["prime_high"] += cnn_used[0]
+        engine_cnn["step_high"] += cnn_used[1]
         if scores.shape != (SCALE_FRAMES, SCALE_STREAMS, 11):
             fail(f"scale scores ({dft}) have shape {scores.shape}")
         if not (np.isfinite(scores).all() and scores.min() >= 0.0 and scores.max() <= 1.0):
@@ -2387,7 +2405,8 @@ def main():
         rt = SCALE_STREAMS * SCALE_FRAMES * 0.08 / wall
         print(f"scale ({dft}): {SCALE_FRAMES} frames x {SCALE_STREAMS} streams in {wall:.4f} s "
               f"({wall / SCALE_FRAMES * 1e3:.3f} ms per step; warm-up run {warm_s:.2f} s), "
-              f"{rt:.0f} streams in real time, {mel_launches[name]} {name} mel launches, on {card}")
+              f"{rt:.0f} streams in real time, {mel_launches[name]} {name} mel launches, K4-high {cnn_used[0]} and "
+              f"K3-high {cnn_used[1]} launches, on {card}")
         scale_scores[dft] = scores
         del engine, scores
     dft_err = float(np.abs(scale_scores["factored"] - scale_scores["direct"]).max())
@@ -2730,9 +2749,9 @@ def main():
          mel_launches["factored_3pass"], mel_err["factored_3pass"], mel_ms["factored_3pass"],
          mel_bound["factored_3pass"]),
         ("cnn_step_high", "cnn_step_mma.cuh", "openwakeword_tpu/ops/cnn_pallas.py:167",
-         cnn_launches["step_high"], cnn_err["step_high"], step3_ms, cnn_bound["step_high"]),
+         engine_cnn["step_high"], cnn_err["step_high"], step3_ms, cnn_bound["step_high"]),
         ("cnn_prime_high", "cnn_step_mma.cuh", "openwakeword_tpu/ops/cnn_pallas.py:167",
-         cnn_launches["prime_high"], cnn_err["prime_high"], prime3_ms, cnn_bound["prime_high"]),
+         engine_cnn["prime_high"], cnn_err["prime_high"], prime3_ms, cnn_bound["prime_high"]),
     ]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"openwakeword_tpu_torch/csrc/{src}", "replaces": replaces,

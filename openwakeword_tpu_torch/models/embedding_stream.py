@@ -11,6 +11,13 @@ time conv lets a step compute only the 8 new mel rows. ``init_caches`` and
 weights, are 1-pass bf16 products, on float32 weights rounded once by
 ``embedding.product_params``. The caches hold each time conv's input
 tail as computed, in float32 (the engine stores them in its state dtype).
+
+The engine's incremental CNN stage runs ``init_caches`` and ``step`` on the
+CPU and at every tier but 'high' on CUDA. At 'high' on CUDA it runs the
+hand-written 3-pass kernels instead (``parallel.engine.cnn_kernel_route``:
+K3-high and K4-high of ``ops.cnn_step_cuda``, on these caches permuted to
+the kernels' (C, 2, W, S) layout and back); ``_forward_t`` below is their
+plain version.
 """
 
 from typing import Dict, List, Optional, Tuple

@@ -13,10 +13,15 @@ one device with a leading stream axis. One step advances every stream by
    on CUDA: the direct DFT, or the factored one with ``mel_dft="factored"``);
    then the top_db clamp over the valid frames, the /10+2 affine
    and the 76-row mel ring with the first-frame 5-row rule;
-2. incremental embedding CNN (``models.embedding_stream``), re-primed from
-   the mel ring in blocks of PRIME_BLOCK_STREAMS when a stream starts; with
-   ``embedding="student"`` the student network (``models.embedding_student``),
-   whose streaming state is a (S, 19, 256) block ring;
+2. incremental embedding CNN, re-primed from the mel ring in blocks of
+   PRIME_BLOCK_STREAMS when a stream starts. On a CUDA device at 'high'
+   (``cnn_kernel_route``) the step runs K3-high and the prime K4-high, the
+   hand-written 3-pass kernels (``ops.cnn_step_cuda``), on the caches
+   permuted to their (C, 2, W, S) layout and back inside the stage; every
+   other tier, the student and the CPU run ``models.embedding_stream``
+   eagerly. With ``embedding="student"`` the student network
+   (``models.embedding_student``), whose streaming state is a (S, 19, 256)
+   block ring;
 3. the feature ring, the heads (same-architecture dnn/mlp heads stacked;
    an rnn head or an imported graph head alone), the folded speaker verifiers, the gating and the VAD
    gate (``models.vad_net`` on the raw chunk).
@@ -26,14 +31,14 @@ run on the TPU (``config.check_precision``): 'highest' runs every product
 in float32, where scores agree with the JAX engine's 'highest' within
 reassociation of float32 sums; 'high' (the default) runs the mel stage
 through the 3-pass variant of the mel kernel, as the JAX engine runs its
-Pallas mel kernel at ``Precision.HIGH`` on the TPU, and the CNN and the
-heads in float32 (in JAX those are XLA ops, not Pallas bodies; the one
-difference left at 'high', until the CNN step kernels take over the CNN
-stage); 'fast' runs 1-pass bf16 products in every stage (the mel kernels'
-1-pass variants, rounded operands in the CNN and heads); 'bf16' does too,
-on bf16 weights, with the mel ring, feature ring and conv caches stored in
-bf16; 'mixed' and per-stage dicts set each stage (and each conv), a mel
-mode through ``config.kernel_arith``. Whether a step primes is decided from
+Pallas mel kernel at ``Precision.HIGH`` on the TPU, the CNN through the
+3-pass CNN kernels on CUDA (as JAX's ``CnnStepKernel`` runs it at 'high')
+and eagerly in float32 on the CPU, and the heads in float32 (an XLA op in
+JAX, not a Pallas body); 'fast' runs 1-pass bf16 products in every stage
+(the mel kernels' 1-pass variants, rounded operands in the CNN and heads);
+'bf16' does too, on bf16 weights, with the mel ring, feature ring and conv
+caches stored in bf16; 'mixed' and per-stage dicts set each stage (and each
+conv), a mel mode through ``config.kernel_arith``. Whether a step primes is decided from
 a host-side mirror of ``frames_seen``, which host-known inputs fully
 determine (resets, per-stream resets, the ``valid`` masks and the slot ids
 of ``predict_packets``), so no step reads the device; ``load_state``
@@ -53,6 +58,7 @@ shard reads another's rows; each shard primes when one of its own streams
 starts.
 """
 
+import functools
 import logging
 import time
 from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
@@ -69,6 +75,7 @@ from openwakeword_tpu_torch.models import embedding_student
 from openwakeword_tpu_torch.models import heads as heads_lib
 from openwakeword_tpu_torch.models import vad_net
 from openwakeword_tpu_torch.ops import bf16
+from openwakeword_tpu_torch.ops import cnn_step, cnn_step_cuda
 from openwakeword_tpu_torch.ops import melspec as melspec_ops
 from openwakeword_tpu_torch.ops import melspec_cuda
 from openwakeword_tpu_torch.ops import ns_torch
@@ -88,6 +95,40 @@ def seed_embeddings(emb_folded: Dict, noise: torch.Tensor, n_frames: int,
     n_windows = (spec.shape[0] - MEL_RING) // 8 + 1
     wins = torch.stack([spec[i * 8:i * 8 + MEL_RING] for i in range(n_windows)])
     return emb_apply(emb_folded, wins)[-n_frames:]
+
+
+def cnn_kernel_route(device, embedding: str, cnn_mode, state_dtype: torch.dtype, incremental: bool) -> bool:
+    """Whether the incremental CNN stage on ``device`` runs K3-high and
+    K4-high (``ops.cnn_step_cuda``) in place of the eager
+    ``models.embedding_stream``: a CUDA device, the default embedding, one
+    mode for every conv whose arithmetic is 3-pass ('high'; not 'mixed' or a
+    per-conv sequence) and float32 caches, the one arithmetic and cache
+    dtype those kernels take."""
+    return (torch.device(device).type == "cuda" and embedding == "default" and incremental
+            and isinstance(cnn_mode, str) and config.kernel_arith(cnn_mode) == "3pass"
+            and state_dtype == torch.float32)
+
+
+def _swap_stream_axis(cache: torch.Tensor) -> torch.Tensor:
+    """(S, 2, W, C) <-> (C, 2, W, S), contiguous: the engine's cache layout
+    (JAX's) and the CNN kernels'."""
+    return cache.permute(3, 1, 2, 0).contiguous()
+
+
+def _kernel_step(params: cnn_step_cuda.CnnParams, caches: Dict, new_mel: torch.Tensor) -> Tuple[Dict, torch.Tensor]:
+    """``embedding_stream.step`` through K3-high: (S, 8, 32) new mel rows and
+    the (S, 2, W, C) caches -> (new caches, embedding (S, 96))."""
+    names = [name for name, _ in params.cache_shapes]
+    emb, new = cnn_step_cuda.cnn_step(params, [_swap_stream_axis(caches[n]) for n in names],
+                                      new_mel.permute(1, 2, 0).contiguous())
+    return {n: _swap_stream_axis(c) for n, c in zip(names, new)}, emb.t()
+
+
+def _kernel_prime(params: cnn_step_cuda.CnnParams, mel_window: torch.Tensor) -> Tuple[Dict, torch.Tensor]:
+    """``embedding_stream.init_caches`` through K4-high: (S, 76, 32) mel
+    window -> ((S, 2, W, C) caches, embedding (S, 96))."""
+    emb, caches = cnn_step_cuda.cnn_prime(params, mel_window.permute(1, 2, 0).contiguous())
+    return {name: _swap_stream_axis(c) for (name, _), c in zip(params.cache_shapes, caches)}, emb.t()
 
 
 class _Embedding(NamedTuple):
@@ -164,12 +205,14 @@ def _check_layout(layout: Mesh):
 
 class _Replica(NamedTuple):
     """What a step reads on one device: the params as its products read
-    them and the gating vectors."""
+    them, the gating vectors, and the CNN kernels' params where the CNN
+    stage runs them there (``cnn_kernel_route``), else None."""
     step_params: Dict
     patience: torch.Tensor
     threshold: torch.Tensor
     recycle: torch.Tensor
     verifier_mask: Optional[torch.Tensor]
+    cnn_kernel: Optional[cnn_step_cuda.CnnParams] = None
 
 
 class HostScores:
@@ -260,7 +303,10 @@ class MultiStreamEngine:
     shards. ``prime_steps`` against the steps served is the share of steps
     that paid for a prime, each about 7.5 steps' worth of CNN work (the
     whole 76-row window): the slow steps an operator looks for in the tail
-    of the score latency.
+    of the score latency. Where the CNN stage runs the CNN kernels
+    (``cnn_kernel_route``: CUDA, 'high', the default embedding),
+    ``ops.cnn_step_cuda.cnn_step.launches["3pass"]`` counts its steady
+    shard steps and ``cnn_prime.launches["3pass"]`` its prime blocks.
 
     ``use_pallas_melspec`` keeps the JAX engine's name for the choice of
     mel frontend: None (the default) or True runs the mel kernel of the
@@ -507,9 +553,9 @@ class MultiStreamEngine:
         self._rng_seed = rng_seed
         self._seed_rings: Dict[int, torch.Tensor] = {}
         self._fresh_rows: Dict[torch.device, Dict] = {}
-        self._replicas = {self.device: _Replica(
-            self._step_params, *(None if v is None else torch.from_numpy(v).to(self.device)
-                                 for v in (patience_vec, threshold_vec, recycle, ver_mask)))}
+        self._home = _Replica(self._step_params, *(None if v is None else torch.from_numpy(v).to(self.device)
+                                                   for v in (patience_vec, threshold_vec, recycle, ver_mask)))
+        self._replicas: Dict[torch.device, _Replica] = {}
         self._lay_out(layout)
         self.reset()
         #: shard steps that primed, rows those primes computed, and rows among
@@ -587,18 +633,28 @@ class MultiStreamEngine:
     # -- layout: one shard per owned mesh entry ------------------------------
 
     def _lay_out(self, layout: Mesh):
-        """Each owned shard's rows and device, and the params on each of
-        their devices (copied from ``self.device``'s, once per device)."""
+        """Each owned shard's rows and device, and the replica of each of
+        their devices and of ``self.device`` (the params copied from
+        ``self.device``'s and the CNN kernels' params built there, once per
+        device)."""
         spans = layout.rows(self.n_streams)
         self._layout = layout
         self._shard_rows = [spans[i] for i in layout.owned]
         self._shard_devices = [layout.devices[i] for i in layout.owned]
         #: the distinct devices of the owned shards
         self.devices = list(dict.fromkeys(self._shard_devices))
-        home = self._replicas[self.device]
-        for dev in self.devices:
+        for dev in dict.fromkeys([self.device, *self.devices]):
             if dev not in self._replicas:
-                self._replicas[dev] = _Replica(*(None if v is None else convert.to_device(v, dev) for v in home))
+                rep = _Replica(*(None if v is None else convert.to_device(v, dev) for v in self._home))
+                self._replicas[dev] = rep._replace(cnn_kernel=self._cnn_kernel_params(rep, dev))
+
+    def _cnn_kernel_params(self, rep: _Replica, dev: torch.device) -> Optional[cnn_step_cuda.CnnParams]:
+        """The CNN kernels' params on ``dev``, built from ``rep``'s, where the
+        CNN stage runs the kernels there (``cnn_kernel_route``); else None."""
+        if not cnn_kernel_route(dev, self.embedding, self._stage_modes["cnn"], self._state_dtype,
+                                self.incremental):
+            return None
+        return cnn_step.prep_params(rep.step_params["embedding"], "3pass")
 
     def _split(self, tree: Dict) -> List[Dict]:
         """A state tree in the global layout (tensors on any device, or on
@@ -712,16 +768,19 @@ class MultiStreamEngine:
 
     # ------------------------------------------------------------------
 
-    def _prime(self, folded: Dict, mel_ring: torch.Tensor) -> Tuple[Dict, torch.Tensor]:
+    def _prime(self, rep: _Replica, mel_ring: torch.Tensor) -> Tuple[Dict, torch.Tensor]:
         """Caches and embeddings of every stream from its 76-row mel ring, in
-        blocks of PRIME_BLOCK_STREAMS streams to bound the stem's temporaries."""
-        mode = self._stage_modes["cnn"]
-        init_caches = self._emb.init_caches
+        blocks of PRIME_BLOCK_STREAMS streams to bound the stem's temporaries
+        (K4-high's scratch where ``rep`` runs the CNN kernels)."""
+        if rep.cnn_kernel is None:
+            block = functools.partial(self._emb.init_caches, rep.step_params["embedding"],
+                                      precision=self._stage_modes["cnn"])
+        else:
+            block = functools.partial(_kernel_prime, rep.cnn_kernel)
         blk = int(config.PRIME_BLOCK_STREAMS)
         if mel_ring.shape[0] <= blk:
-            return init_caches(folded, mel_ring, mode)
-        parts = [init_caches(folded, mel_ring[i:i + blk], mode)
-                 for i in range(0, mel_ring.shape[0], blk)]
+            return block(mel_ring)
+        parts = [block(mel_ring[i:i + blk]) for i in range(0, mel_ring.shape[0], blk)]
         caches = {k: torch.cat([c[k] for c, _ in parts]) for k in parts[0][0]}
         return caches, torch.cat([e for _, e in parts])
 
@@ -762,7 +821,9 @@ class MultiStreamEngine:
                 emb = self._emb.apply(rep.step_params["embedding"], mel_ring, modes["cnn"])  # (S, 96)
             else:
                 if prime:
-                    conv_caches, emb = self._prime(rep.step_params["embedding"], mel_ring)
+                    conv_caches, emb = self._prime(rep, mel_ring)
+                elif rep.cnn_kernel is not None:
+                    conv_caches, emb = _kernel_step(rep.cnn_kernel, st["conv_caches"], mel)
                 else:
                     conv_caches, emb = self._emb.step(rep.step_params["embedding"], st["conv_caches"], mel,
                                                       modes["cnn"])

@@ -921,3 +921,100 @@ def test_mesh_engine_on_card_matches_unsharded(cuda):
     mesh.save_state(path)
     whole.load_state(path)
     assert np.abs(mesh.predict(pcm[0]) - whole.predict(pcm[0])).max() <= 1e-5
+
+
+# ---------------------------------------------------------------------------
+# the engine's CNN stage on K3-high / K4-high at 'high'
+
+
+def _engine_pcm(frames, streams, seed):
+    rng = np.random.default_rng(seed)
+    amp = np.geomspace(200.0, 25000.0, streams)[None, :, None]
+    return np.round((rng.random((frames, streams, 1280)) * 2 - 1) * amp).astype(np.int16)
+
+
+def test_engine_cnn_kernel_launches_at_high(cuda, monkeypatch):
+    """At 'high' the engine's CNN stage launches K3-high once per shard per
+    steady step and K4-high once per prime block of PRIME_BLOCK_STREAMS
+    streams per shard, unsharded and on a 2-entry mesh of the card."""
+    from openwakeword_tpu_torch import config
+    from openwakeword_tpu_torch.parallel import Mesh
+    from openwakeword_tpu_torch.parallel.engine import MultiStreamEngine
+    monkeypatch.setattr(config, "PRIME_BLOCK_STREAMS", 16)
+    S, T = 40, 5
+    pcm = _engine_pcm(T, S, seed=27)
+    for where, shards in ((dict(device=cuda), 1), (dict(mesh=Mesh([cuda, cuda])), 2)):
+        e = MultiStreamEngine(wakeword_models=["alexa", "timer"], n_streams=S, **where)
+        before = (cnn_step_cuda.cnn_prime.launches["3pass"], cnn_step_cuda.cnn_step.launches["3pass"])
+        e.predict_frames(pcm)
+        assert (cnn_step_cuda.cnn_prime.launches["3pass"] - before[0],
+                cnn_step_cuda.cnn_step.launches["3pass"] - before[1]) == \
+            (shards * math.ceil(S / shards / 16), shards * (T - 1)), shards
+        assert e.prime_steps == shards
+
+
+def test_engine_cnn_kernels_run_inside_the_cnn_spans(cuda):
+    """What ``cnn_device_ms.stream`` and ``conv_ms.stream`` read, through the
+    benchmark's own reduction of a profiler trace: at 'high' every
+    ``conv_mma_kernel`` launch, 20 a prime and 20 a step, is launched inside
+    ``oww/engine.prime`` / ``oww/engine.cnn``, and no convolution runs."""
+    from perfbench import trace
+    from openwakeword_tpu_torch.parallel.engine import MultiStreamEngine
+    S = 64
+    pcm = _engine_pcm(4, S, seed=28)
+    e = MultiStreamEngine(wakeword_models=["alexa", "timer"], n_streams=S, device=cuda)
+    e.predict(pcm[0])
+    e.predict(pcm[1])
+    e.reset()
+    torch.cuda.synchronize()
+    with trace.profiler() as prof:
+        with torch.profiler.record_function(trace.PREFIX + trace.WINDOW):
+            e.predict(pcm[2])
+            e.predict(pcm[3])
+            torch.cuda.synchronize()
+    t = trace.reduce(prof)
+    mma = [op for op in t.ops if "conv_mma_kernel" in op.name]
+    assert len(mma) == 40
+    assert sum("oww/engine.prime" in op.launched_by for op in mma) == 20
+    assert sum("oww/engine.cnn" in op.launched_by for op in mma) == 20
+    convs = {"aten::convolution", "aten::_convolution", "aten::cudnn_convolution", "aten::conv2d"}
+    assert not [op.name for op in t.ops if op.launched_by & convs]
+    assert not [ev.name for ev in prof.events() if ev.name in convs]
+
+
+def test_engine_on_the_cnn_kernels_matches_the_eager_cnn(cuda, monkeypatch):
+    """30 steps at 'high' (a prime, steady and masked steps, a re-primed
+    stream) on K3-high / K4-high against the same engine with the route
+    forced off (the eager float32 CNN): scores within 1e-4, the caches in
+    JAX's (S, 2, W, C) layout."""
+    from openwakeword_tpu_torch.models import embedding_stream
+    from openwakeword_tpu_torch.parallel import engine as engine_module
+    S = 100
+    pcm = _engine_pcm(30, S, seed=29)
+    mask = np.random.default_rng(30).random((10, S)) < 0.7
+
+    def run(e):
+        out = [e.predict(pcm[t]) for t in range(10)]
+        out += [e.predict_masked(pcm[10 + t], mask[t]) for t in range(10)]
+        e.reset_stream(7)
+        out += list(e.predict_frames(pcm[20:]))
+        return np.stack(out), e.state["conv_caches"]
+
+    def engine():
+        return engine_module.MultiStreamEngine(wakeword_models=["alexa", "timer"], n_streams=S, device=cuda)
+
+    routed = engine()
+    assert routed._replicas[routed.device].cnn_kernel is not None
+    before = cnn_step_cuda.cnn_step.launches["3pass"]
+    got, caches = run(routed)
+    assert cnn_step_cuda.cnn_step.launches["3pass"] - before == 28        # 30 steps less two primes
+    monkeypatch.setattr(engine_module, "cnn_kernel_route", lambda *_: False)
+    eager = engine()
+    assert eager._replicas[eager.device].cnn_kernel is None
+    want, want_caches = run(eager)
+    assert np.isfinite(got).all()
+    assert np.abs(got - want).max() <= 1e-4
+    for k, shape in embedding_stream.cache_shapes().items():
+        assert tuple(caches[k].shape) == (S, *shape)
+        scale = float(want_caches[k].abs().max())
+        assert float((caches[k] - want_caches[k]).abs().max()) <= 1e-4 * max(scale, 1.0), k

@@ -27,6 +27,9 @@ STEP_STAGES = {"oww/engine.mel", "oww/engine.ring", "oww/engine.cnn", "oww/engin
 
 PY_FRAME = re.compile(r"\.py\(\d+\): ")
 CNN_MODULES = re.compile(r"models/embedding(_stream)?\.py\(")
+# the CNN-kernel route: its permutes in the engine and the kernels' wrappers
+KERNEL_ROUTE = re.compile(r"parallel/engine\.py\(\d+\): _(kernel_step|kernel_prime|swap_stream_axis)$"
+                          r"|ops/cnn_step(_cuda)?\.py\(")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -148,6 +151,29 @@ def test_every_conv_runs_inside_the_cnn_spans():
         assert any(cast for _, cast, _ in ops), precision
     # at 'bf16' the engine stores the caches in bf16: the cast is a copy a step
     assert len([op for op in ops if op[:2] == ("aten::_to_copy", True)]) == 3 * len(e._emb.cache_shapes())
+
+
+def test_the_kernel_route_runs_inside_the_cnn_spans(monkeypatch):
+    """With the CNN-kernel route forced on the CPU (where its kernel calls
+    run their plain versions), every op that the route's functions (the
+    caches' and mel rows' permutes), the wrappers and the plain versions'
+    modules launch runs inside ``engine.cnn`` / ``engine.prime``, and no
+    convolution runs."""
+    real = engine_module.cnn_kernel_route
+    monkeypatch.setattr(engine_module, "cnn_kernel_route", lambda _dev, *rest: real("cuda", *rest))
+    e = _engine()
+    assert e._replicas[e.device].cnn_kernel is not None
+    with profile(activities=[ProfilerActivity.CPU], with_stack=True) as prof:
+        e.predict_frames(_pcm(3))
+    ops = []
+    for ev, chain in _chains(prof):
+        frame = next((n for n in chain if PY_FRAME.search(n)), "")
+        if ev.name.startswith("aten::") and (KERNEL_ROUTE.search(frame) or CNN_MODULES.search(frame)):
+            ops.append((ev.name, frame, bool(set(chain) & {"oww/engine.cnn", "oww/engine.prime"})))
+    assert [op for op in ops if not op[2]] == []
+    assert {"aten::clone", "aten::cat", "aten::t"} <= {name for name, _, _ in ops}
+    assert any(frame.endswith(": _swap_stream_axis") for _, frame, _ in ops)
+    assert not any(ev.name == "aten::convolution" for ev in prof.events())
 
 
 def test_masked_packet_step_opens_its_spans():

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Times the port's CNN step and prime kernels on one card, for comparing two trees in one call.
 
-    python3 tools/cnn_times.py [--tree DIR] [--label NAME]
+    python3 tools/cnn_times.py [--tree DIR] [--label NAME] [--streams S]
 
 Imports ``openwakeword_tpu_torch`` from ``DIR`` (default: the checkout that
 holds this script), builds its CUDA library, holds each CNN variant (K3/K4
@@ -10,18 +10,22 @@ its plain version on a prime and one step at S = 21 (ragged block tiles,
 4-byte loads) and S = 36 (16-byte loads), each step fed the plain version's
 caches: within 1e-4 (fp32), 1e-4 + 2 E (1-pass, E the plain 1-pass
 version's distance from the plain fp32 one) or 1e-4 of each tensor's scale
-(3-pass). Then it times each variant's step and prime at S = 4096 with CUDA
-events (the better of two runs of 50 steps or 10 primes after warm-up
-calls) and traces one 1-pass and one 3-pass step and prime under
-``torch.profiler`` for each conv's device time. Prints the card's name and
+(3-pass). Then it times each variant's step at S = ``--streams`` (default
+4096) and its prime at S or at the engine's prime block
+(``config.PRIME_BLOCK_STREAMS``), whichever is less, with CUDA events (the
+better of two runs of 50 steps or 10 primes after warm-up calls), and
+traces one 1-pass and one 3-pass step and prime under ``torch.profiler``
+for each conv's device time; the step's caches are the plain prime's,
+repeated along the streams past the prime's S. Prints the card's name and
 power limit, the ptxas register and spill lines of the CNN kernels (the
 fp32 ones from ``cnn_step.cu``, the 1-pass ones from ``cnn_step_bf16.cu``,
 the 3-pass ones from ``cnn_step_high.cu``), and one JSON line ``{"label":
-..., "tree": ..., "card": ..., "ms": {variant: {"step": t, "prime": t}},
-"max_err": {variant: e}, "convs_1pass": {"step": [ms per conv], "prime":
-[...]}, "convs_3pass": {...}}``. To compare two commits, unpack the other
-one with ``git archive`` into a git-ignored directory (``dist/``) and run
-both trees in turns in one call: A, B, B, A.
+..., "tree": ..., "card": ..., "streams": {"step": S, "prime": S'}, "ms":
+{variant: {"step": t, "prime": t}}, "max_err": {variant: e}, "convs_1pass":
+{"step": [ms per conv], "prime": [...]}, "convs_3pass": {...}}``. To
+compare two commits, unpack the other one with ``git archive`` into a
+git-ignored directory (``dist/``) and run both trees in turns in one call:
+A, B, B, A.
 """
 
 import argparse
@@ -135,13 +139,14 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--tree", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     ap.add_argument("--label", default=None)
+    ap.add_argument("--streams", type=int, default=STREAMS, help="streams of the timed step (default 4096)")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         sys.exit("cnn_times: needs an NVIDIA GPU (torch.cuda.is_available() is false)")
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
-    from openwakeword_tpu_torch import convert
+    from openwakeword_tpu_torch import config, convert
     from openwakeword_tpu_torch.models import embedding
     from openwakeword_tpu_torch.ops import cnn_step, cnn_step_cuda
     from openwakeword_tpu_torch.utils import cuda_build
@@ -162,10 +167,13 @@ def main():
     dev = torch.device("cuda", 0)
     folded = {k: {n: t.to(dev) for n, t in v.items()} for k, v in folded_weights(convert, embedding).items()}
     ref = cnn_step.prep_params(folded)
+    n_step, n_prime = args.streams, min(args.streams, int(config.PRIME_BLOCK_STREAMS))
     rng = np.random.default_rng(7)
-    window = torch.from_numpy(rng.uniform(-2, 8, (76, 32, STREAMS)).astype(np.float32)).to(dev)
-    new = torch.from_numpy(rng.uniform(-2, 8, (8, 32, STREAMS)).astype(np.float32)).to(dev)
-    caches = cnn_step_cuda.cnn_prime_plain(ref, window)[1]
+    window = torch.from_numpy(rng.uniform(-2, 8, (76, 32, n_prime)).astype(np.float32)).to(dev)
+    new = torch.from_numpy(rng.uniform(-2, 8, (8, 32, n_step)).astype(np.float32)).to(dev)
+    # the plain prime's caches, repeated along the streams up to the step's S
+    caches = [c.repeat(1, 1, 1, -(-n_step // n_prime))[..., :n_step].contiguous()
+              for c in cnn_step_cuda.cnn_prime_plain(ref, window)[1]]
     ms, errs, convs = {}, {}, {}
     n_convs = len(cnn_step.conv_table())
     for arith in cnn_step_cuda.VARIANTS:
@@ -175,12 +183,13 @@ def main():
         prime = lambda: cnn_step_cuda.cnn_prime(params, window)           # noqa: E731
         ms[arith] = {"step": min(cuda_ms(step, 50) for _ in range(2)),
                      "prime": min(cuda_ms(prime, 10) for _ in range(2))}
-        print(f"{arith}: step {ms[arith]['step']:.4f} ms, prime {ms[arith]['prime']:.4f} ms at S={STREAMS}, "
-              f"max error vs plain {errs[arith]:.3e} at S={CHECK_STREAMS}", flush=True)
+        print(f"{arith}: step {ms[arith]['step']:.4f} ms at S={n_step}, prime {ms[arith]['prime']:.4f} ms "
+              f"at S={n_prime}, max error vs plain {errs[arith]:.3e} at S={CHECK_STREAMS}", flush=True)
         if arith != "fp32":
             convs[arith] = {"step": conv_ms(step, n_convs), "prime": conv_ms(prime, n_convs)}
             print(f"{arith} per conv: {json.dumps(convs[arith])}")
-    print(json.dumps({"label": args.label or tree, "tree": tree, "card": card, "ms": ms, "max_err": errs,
+    print(json.dumps({"label": args.label or tree, "tree": tree, "card": card,
+                      "streams": {"step": n_step, "prime": n_prime}, "ms": ms, "max_err": errs,
                       "convs_1pass": convs["1pass"], "convs_3pass": convs["3pass"]}))
 
 
