@@ -2003,12 +2003,13 @@ def slice_g(card: str) -> int:
         fail(f"sharded scores are not finite values in [0, 1] of shape {(2 * F, S, 11)}: {got.shape}")
     n_leaves = 0
     for k, st in enumerate(sharded.shard_states):
-        stack = [st]
+        stack = [(sharded.stream_axes(k), st)]
         while stack:
-            for leaf in stack.pop().values():
+            axes, tree = stack.pop()
+            for key, leaf in tree.items():
                 if isinstance(leaf, dict):
-                    stack.append(leaf)
-                elif leaf.shape[0] != S // MESH_ENTRIES or leaf.device != devs[k]:
+                    stack.append((axes[key], leaf))
+                elif leaf.shape[axes[key]] != S // MESH_ENTRIES or leaf.device != devs[k]:
                     fail(f"shard {k} holds a state leaf of shape {tuple(leaf.shape)} on {leaf.device}")
                 else:
                     n_leaves += 1
@@ -2023,8 +2024,8 @@ def slice_g(card: str) -> int:
     print(f"19a sharded engine, S={S} ({S // MESH_ENTRIES} per shard), {F} frames through predict and {F} through "
           f"predict_frames: max |dscore| vs the unsharded engine {err:.3e} (limit {SHARD_TOL}); "
           f"{MESH_ENTRIES} K1-3pass launches per step; every shard's {n_leaves // MESH_ENTRIES} state leaves hold "
-          f"{S // MESH_ENTRIES} rows on its entry's device; save_state -> unsharded load_state -> one step: "
-          f"max |dscore| {load_err:.3e}")
+          f"{S // MESH_ENTRIES} streams on their stream axis on its entry's device; save_state -> unsharded "
+          f"load_state -> one step: max |dscore| {load_err:.3e}")
     if not (err <= SHARD_TOL and load_err <= SHARD_TOL):
         fail(f"the sharded engine disagrees with the unsharded one: {err}, after the snapshot {load_err}")
     steady = pcm[:F]

@@ -15,9 +15,11 @@ tail as computed, in float32 (the engine stores them in its state dtype).
 The engine's incremental CNN stage runs ``init_caches`` and ``step`` on the
 CPU and at every tier but 'high' on CUDA. At 'high' on CUDA it runs the
 hand-written 3-pass kernels instead (``parallel.engine.cnn_kernel_route``:
-K3-high and K4-high of ``ops.cnn_step_cuda``, on these caches permuted to
-the kernels' (C, 2, W, S) layout and back); ``_forward_t`` below is their
-plain version.
+K3-high and K4-high of ``ops.cnn_step_cuda``), and a shard there holds its
+caches in the kernels' (C, 2, W, S) layout across steps, converted to this
+NHWC layout only where the engine's public state is read or written
+(``MultiStreamEngine.state``, ``save_state`` / ``load_state``);
+``_forward_t`` below is the kernels' plain version.
 """
 
 from typing import Dict, List, Optional, Tuple

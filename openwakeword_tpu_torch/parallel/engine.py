@@ -4,7 +4,8 @@
 All per-stream state -- PCM look-back, mel ring, embedding ring, conv caches,
 score history, warm-up / patience / debounce counters, and the noise
 suppressor's and the VAD's state where they are on -- lives in tensors on
-one device with a leading stream axis. One step advances every stream by
+one device with a leading stream axis (a trailing one for the conv caches
+of a shard on the CNN kernels, item 2). One step advances every stream by
 80 ms in three stages:
 
 1. mel frontend: the PCM tail and the chunk (noise-suppressed first with
@@ -16,10 +17,15 @@ one device with a leading stream axis. One step advances every stream by
 2. incremental embedding CNN, re-primed from the mel ring in blocks of
    PRIME_BLOCK_STREAMS when a stream starts. On a CUDA device at 'high'
    (``cnn_kernel_route``) the step runs K3-high and the prime K4-high, the
-   hand-written 3-pass kernels (``ops.cnn_step_cuda``), on the caches
-   permuted to their (C, 2, W, S) layout and back inside the stage; every
-   other tier, the student and the CPU run ``models.embedding_stream``
-   eagerly. With ``embedding="student"`` the student network
+   hand-written 3-pass kernels (``ops.cnn_step_cuda``), and such a shard
+   holds its conv caches in the kernels' (C, 2, W, S) layout across steps,
+   stream axis last; every other tier, the student and the CPU run
+   ``models.embedding_stream`` eagerly on JAX's (S, 2, W, C) caches. The
+   public state (``state``, ``save_state`` / ``load_state``,
+   ``init_state``) is in JAX's layout whatever a shard holds:
+   ``_stream_axes`` names each leaf's stream axis as a shard holds it, and
+   ``_swap_caches`` converts where that layout is read or written. With
+   ``embedding="student"`` the student network
    (``models.embedding_student``), whose streaming state is a (S, 19, 256)
    block ring;
 3. the feature ring, the heads (same-architecture dnn/mlp heads stacked;
@@ -109,26 +115,52 @@ def cnn_kernel_route(device, embedding: str, cnn_mode, state_dtype: torch.dtype,
             and state_dtype == torch.float32)
 
 
+def _stream_axis(key: str, routed: bool) -> int:
+    """The stream axis of the state leaves under top-level ``key`` as a
+    shard holds them: the last of the conv caches on a shard that runs the
+    CNN kernels (``routed``: their (C, 2, W, S) layout), else 0 (JAX's
+    layout, that of every leaf of the public state)."""
+    return -1 if routed and key == "conv_caches" else 0
+
+
+def _stream_axes(tree: Dict, routed: bool) -> Dict:
+    """A tree of ``tree``'s shape holding each leaf's ``_stream_axis``."""
+    def fill(v, axis):
+        return {k: fill(x, axis) for k, x in v.items()} if isinstance(v, dict) else axis
+    return {k: fill(v, _stream_axis(k, routed)) for k, v in tree.items()}
+
+
 def _swap_stream_axis(cache: torch.Tensor) -> torch.Tensor:
-    """(S, 2, W, C) <-> (C, 2, W, S), contiguous: the engine's cache layout
-    (JAX's) and the CNN kernels'."""
+    """(S, 2, W, C) <-> (C, 2, W, S), contiguous: JAX's cache layout and the
+    CNN kernels'."""
     return cache.permute(3, 1, 2, 0).contiguous()
+
+
+def _swap_caches(tree: Dict, routed: bool) -> Dict:
+    """A state tree with its conv caches swapped between JAX's layout and
+    the kernels' where ``routed`` (``tree`` itself otherwise). The swap is
+    its own inverse: it lays a public tree out as a routed shard holds it,
+    and gives a routed shard's tree back in the public layout, as a copy of
+    the caches that shares every other leaf."""
+    if not routed:
+        return tree
+    return {k: _tree_map(_swap_stream_axis, v) if _stream_axis(k, routed) else v for k, v in tree.items()}
 
 
 def _kernel_step(params: cnn_step_cuda.CnnParams, caches: Dict, new_mel: torch.Tensor) -> Tuple[Dict, torch.Tensor]:
     """``embedding_stream.step`` through K3-high: (S, 8, 32) new mel rows and
-    the (S, 2, W, C) caches -> (new caches, embedding (S, 96))."""
+    the caches as a routed shard holds them, (C, 2, W, S), passed as they
+    are -> (the kernel's new caches in that layout, embedding (S, 96))."""
     names = [name for name, _ in params.cache_shapes]
-    emb, new = cnn_step_cuda.cnn_step(params, [_swap_stream_axis(caches[n]) for n in names],
-                                      new_mel.permute(1, 2, 0).contiguous())
-    return {n: _swap_stream_axis(c) for n, c in zip(names, new)}, emb.t()
+    emb, new = cnn_step_cuda.cnn_step(params, [caches[n] for n in names], new_mel.permute(1, 2, 0).contiguous())
+    return dict(zip(names, new)), emb.t()
 
 
 def _kernel_prime(params: cnn_step_cuda.CnnParams, mel_window: torch.Tensor) -> Tuple[Dict, torch.Tensor]:
     """``embedding_stream.init_caches`` through K4-high: (S, 76, 32) mel
-    window -> ((S, 2, W, C) caches, embedding (S, 96))."""
+    window -> (the kernel's (C, 2, W, S) caches, embedding (S, 96))."""
     emb, caches = cnn_step_cuda.cnn_prime(params, mel_window.permute(1, 2, 0).contiguous())
-    return {name: _swap_stream_axis(c) for (name, _), c in zip(params.cache_shapes, caches)}, emb.t()
+    return {name: c for (name, _), c in zip(params.cache_shapes, caches)}, emb.t()
 
 
 class _Embedding(NamedTuple):
@@ -595,8 +627,9 @@ class MultiStreamEngine:
     def init_state(self, n_streams: int, rng_seed: Optional[int] = None) -> Dict:
         """Fresh per-stream state: mel ring of ones and a feature ring seeded
         with the embeddings of ``default_rng(seed).integers(-1000, 1000, n)``
-        noise, shared by all streams (JAX engine ``init_state``); ``seed`` is
-        ``rng_seed`` or the constructor's."""
+        noise, shared by all streams (JAX engine ``init_state``), in the
+        public layout (``state``); ``seed`` is ``rng_seed`` or the
+        constructor's."""
         F = self.max_head_frames
         S, dev, f32, ring = n_streams, self.device, torch.float32, self._state_dtype
         n_labels = len(self.labels)
@@ -672,21 +705,43 @@ class MultiStreamEngine:
                 entries[i] = t
             return fetch_sharded(entries, self._layout, axis)
 
+    def _routed(self, shard: int) -> bool:
+        """Whether shard ``shard`` runs the CNN kernels, and so holds its
+        caches in their layout."""
+        return self._replicas[self._shard_devices[shard]].cnn_kernel is not None
+
+    def stream_axes(self, shard: int) -> Dict:
+        """A tree of ``shard_states[shard]``'s shape holding the stream axis
+        of each leaf as that shard holds it: the last axis of the conv
+        caches where the shard runs the CNN kernels (``cnn_kernel_route``),
+        else 0."""
+        return _stream_axes(self.shard_states[shard], self._routed(shard))
+
+    def _public(self, shard: int) -> Dict:
+        """Shard ``shard``'s tree in the public layout."""
+        return _swap_caches(self.shard_states[shard], self._routed(shard))
+
     @property
     def state(self) -> Dict:
-        """The per-stream state in the global layout. Unsharded, the state
-        itself; on a mesh, a copy gathered on ``self.device`` (write
-        ``engine.state = tree`` to lay a changed tree out again). Each
-        shard's own tree is in ``shard_states``."""
+        """The per-stream state in the global layout, JAX's: every leaf's
+        stream axis first, the conv caches (S, 2, W, C). Unsharded, the
+        state itself, except that a shard running the CNN kernels
+        (``cnn_kernel_route``) holds its caches in their (C, 2, W, S) layout
+        and this returns a converted copy of them; on a mesh, a copy
+        gathered on ``self.device``. A change to a copy reaches the engine
+        only through ``engine.state = tree``, which lays the tree out again.
+        Each shard's own tree, as it holds it, is in ``shard_states``
+        (``stream_axes``)."""
         if self._layout.size == 1:
-            return self.shard_states[0]
+            return self._public(0)
         if len(self.shard_states) != self._layout.size:
             raise ValueError("this process holds only part of the mesh's state; read shard_states")
-        return _tree_map(lambda *xs: torch.cat([x.to(self.device) for x in xs]), *self.shard_states)
+        return _tree_map(lambda *xs: torch.cat([x.to(self.device) for x in xs]),
+                         *(self._public(k) for k in range(len(self.shard_states))))
 
     @state.setter
     def state(self, tree: Dict):
-        self.shard_states = self._split(tree)
+        self.shard_states = [_swap_caches(t, self._routed(k)) for k, t in enumerate(self._split(tree))]
 
     def shard(self, mesh: Mesh):
         """Lay the current state out over a 1-D stream mesh (one shard per
@@ -715,9 +770,10 @@ class MultiStreamEngine:
             if rows.start <= sid < rows.stop:
                 dev = self._shard_devices[k]
                 if dev not in self._fresh_rows:
-                    self._fresh_rows[dev] = convert.to_device(self.init_state(1), dev)
-                _tree_map(lambda full, fresh: full.__setitem__(sid - rows.start, fresh[0]),
-                          self.shard_states[k], self._fresh_rows[dev])
+                    self._fresh_rows[dev] = convert.to_device(
+                        _swap_caches(self.init_state(1), self._routed(k)), dev)
+                _tree_map(lambda axis, full, fresh: full.select(axis, sid - rows.start).copy_(fresh.select(axis, 0)),
+                          self.stream_axes(k), self.shard_states[k], self._fresh_rows[dev])
 
     def save_state(self, path: str):
         """Snapshot all per-stream state to an ``.npz`` (serving failover /
@@ -734,7 +790,7 @@ class MultiStreamEngine:
                 else:
                     tag = "bf16:" if v[0].dtype == torch.bfloat16 else ""
                     flat[f"{tag}{prefix}{k}"] = self._gather(v)
-        record("", _tree_map(lambda *xs: xs, *self.shard_states))
+        record("", _tree_map(lambda *xs: xs, *(self._public(k) for k in range(len(self.shard_states)))))
         with open(path, "wb") as f:
             np.savez(f, **flat)
 
@@ -762,7 +818,7 @@ class MultiStreamEngine:
                     raise ValueError(f"state leaf '{key}' shape {arr.shape} != engine shape {shape}")
                 out[k] = torch.from_numpy(np.ascontiguousarray(arr)).to(v.dtype)
             return out
-        tree = rebuild("", self.shard_states[0])
+        tree = rebuild("", self._public(0))
         self.state = tree
         self._frames_seen_host = tree["frames_seen"].numpy().astype(np.int64)
 
@@ -781,7 +837,8 @@ class MultiStreamEngine:
         if mel_ring.shape[0] <= blk:
             return block(mel_ring)
         parts = [block(mel_ring[i:i + blk]) for i in range(0, mel_ring.shape[0], blk)]
-        caches = {k: torch.cat([c[k] for c, _ in parts]) for k in parts[0][0]}
+        axis = _stream_axis("conv_caches", rep.cnn_kernel is not None)
+        caches = {k: torch.cat([c[k] for c, _ in parts], dim=axis) for k in parts[0][0]}
         return caches, torch.cat([e for _, e in parts])
 
     def _step(self, st: Dict, chunk: torch.Tensor, prime: bool, rep: _Replica,
@@ -911,14 +968,14 @@ class MultiStreamEngine:
                 # streams without a frame keep their audio-path state (the
                 # suppressor's and the VAD's too); score history and ticks
                 # advance for every call
-                def keep(n, o):
-                    if isinstance(n, dict):
-                        return {k: keep(v, o[k]) for k, v in n.items()}
-                    return torch.where(valid.reshape((-1,) + (1,) * (n.ndim - 1)), n, o)
-                for k in ("pcm_tail", "mel_ring", "feat_ring", "frames_seen", "conv_caches", "ns",
-                          "vad_h", "vad_c", "vad_ring"):
-                    if k in new:
-                        new[k] = keep(new[k], st[k])
+                def keep(axis, n, o):
+                    shape = [1] * n.ndim
+                    shape[axis] = -1
+                    return torch.where(valid.reshape(shape), n, o)
+                kept = [k for k in ("pcm_tail", "mel_ring", "feat_ring", "frames_seen", "conv_caches", "ns",
+                                    "vad_h", "vad_c", "vad_ring") if k in new]
+                axes = _stream_axes(new, rep.cnn_kernel is not None)
+                new.update(_tree_map(keep, *({k: t[k] for k in kept} for t in (axes, new, st))))
         if self.vad_threshold > 0:
             with span("engine.gating"):
                 # the gate window ring[0:3] is the VAD buffer's [-7:-4]; the score

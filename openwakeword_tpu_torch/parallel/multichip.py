@@ -6,7 +6,8 @@
 ``dryrun_multichip(n, device)`` builds an n-entry mesh and runs one
 data-parallel training step of a head, the stream-sharded engine step with
 the VAD gate on, and ``predict_packets`` on it; then it checks that every
-stream-major state leaf of each shard holds S / n rows, that the sharded
+state leaf of each shard holds S / n streams on its stream axis
+(``MultiStreamEngine.stream_axes``), that the sharded
 scores equal the unsharded engine's within 1e-5, and measures weak scaling
 (a fixed number of streams per entry over 1, 2, 4 and n entries).
 """
@@ -96,20 +97,21 @@ def dryrun_multichip(n_devices: int, device: str = "cuda", streams_per_device: i
     for c in counts:
         scores_at[c], walls[c] = timed_run(c)
 
-    # structural check: every stream-major state leaf of each shard holds
-    # S / n rows on its own entry's device
+    # structural check: every state leaf of each shard holds S / n streams
+    # on its stream axis (the last of the conv caches where the shard runs
+    # the CNN kernels, else the first), on its own entry's device
     eng = MultiStreamEngine(wakeword_models=["alexa"], n_streams=streams_per_device * n_devices, rng_seed=0,
                             mesh=Mesh(devs, ("streams",)))
     eng.predict_frames(np.zeros((2, eng.n_streams, 1280), np.float32))
     _require(len(eng.shard_states) == n_devices, f"{len(eng.shard_states)} shards on {n_devices} entries")
     n_leaves = 0
     for k, st in enumerate(eng.shard_states):
-        for leaf in _leaves(st):
-            _require(leaf.shape[0] == streams_per_device and leaf.device == devs[k],
+        for axis, leaf in zip(_leaves(eng.stream_axes(k)), _leaves(st)):
+            _require(leaf.shape[axis] == streams_per_device and leaf.device == devs[k],
                      f"shard {k} holds a state leaf of shape {tuple(leaf.shape)} on {leaf.device}: "
-                     f"expected {streams_per_device} rows on {devs[k]}")
+                     f"expected {streams_per_device} streams on axis {axis} on {devs[k]}")
             n_leaves += k == 0
-    _require(n_leaves >= 3, "no stream-major state leaves found to check")
+    _require(n_leaves >= 3, "no state leaves found to check")
     del eng
 
     # stream independence: sharding changes no score

@@ -1,18 +1,20 @@
 """The engine's CNN-kernel route on the CPU (``parallel.engine.cnn_kernel_route``).
 
 On a CUDA device at 'high' the engine's incremental CNN stage runs K3-high
-and K4-high (``ops.cnn_step_cuda``) on its caches permuted to the kernels'
-(C, 2, W, S) layout. Here the route's predicate is forced on a CPU engine,
-so the same calls take the kernels' plain 3-pass versions: the permutes, the
-cache names, the prime blocks and the embedding's transpose all run. The
-engine's state keeps JAX's (S, 2, W, C) layout through a prime, steady and
-masked steps, ``reset_stream`` and a snapshot round trip; its scores equal
-those of ``CnnStepKernel('high')`` composed by hand into the eager engine,
-and lie within 1e-4 of the eager float32 engine's and of the JAX engine's
-at 'high' over the same session, whose snapshot the routed one matches key
-for key and shape for shape. The predicate holds at
-'high' on CUDA with the default embedding and float32 caches, and nowhere
-else.
+and K4-high (``ops.cnn_step_cuda``), and such a shard holds its caches in
+the kernels' (C, 2, W, S) layout across steps. Here the route's predicate is
+forced on a CPU engine, so the same calls take the kernels' plain 3-pass
+versions: the cache names, the prime blocks (joined on the stream axis, the
+last) and the embedding's transpose all run. A routed shard holds each
+cache as (C, 2, W, S) and hands K3-high the very tensors it holds, with no
+copy; the engine's public state keeps JAX's (S, 2, W, C) layout through a
+prime, steady and masked steps, ``reset_stream``, a snapshot round trip and
+a mesh; its scores equal those of ``CnnStepKernel('high')`` composed by hand
+into the eager engine, and lie within 1e-4 of the eager float32 engine's
+and of the JAX engine's at 'high' over the same session, whose snapshot the
+routed one matches key for key and shape for shape; snapshots cross between
+routed and eager engines bit for bit. The predicate holds at 'high' on CUDA
+with the default embedding and float32 caches, and nowhere else.
 """
 
 import jax
@@ -25,10 +27,11 @@ from openwakeword_tpu.parallel.engine import MultiStreamEngine as JaxEngine
 from openwakeword_tpu_torch import config, convert
 from openwakeword_tpu_torch.io.checkpoints import save_checkpoint
 from openwakeword_tpu_torch.models import embedding, embedding_stream, heads
-from openwakeword_tpu_torch.ops import cnn_step
+from openwakeword_tpu_torch.ops import cnn_step, cnn_step_cuda
 from openwakeword_tpu_torch.parallel import Mesh
 from openwakeword_tpu_torch.parallel import engine as engine_module
 from openwakeword_tpu_torch.parallel.engine import MultiStreamEngine, cnn_kernel_route
+from openwakeword_tpu_torch.parallel.multichip import dryrun_multichip
 
 S = 5
 PRIME_BLOCK = 2            # blocks of 2, 2 and 1 streams
@@ -103,6 +106,29 @@ def _assert_public_caches(engine):
     assert all(v.dtype == torch.float32 for v in engine.state["conv_caches"].values())
 
 
+def _assert_held_caches(engine):
+    """The public caches in JAX's layout, and every shard's as the route
+    has it hold them: the kernels' (C, 2, W, S), contiguous, stream axis
+    last (``stream_axes``), every other leaf's stream axis first."""
+    _assert_public_caches(engine)
+    for k, st in enumerate(engine.shard_states):
+        n = engine.n_streams // len(engine.shard_states)
+        for name, (two, w, c) in embedding_stream.cache_shapes().items():
+            held = st["conv_caches"][name]
+            assert tuple(held.shape) == (c, two, w, n) and held.is_contiguous(), name
+        axes = engine.stream_axes(k)
+        assert axes.pop("conv_caches") == dict.fromkeys(embedding_stream.cache_shapes(), -1)
+        assert all(a == 0 for a in axes.values() if not isinstance(a, dict))
+
+
+def _flat(tree, prefix=""):
+    """A state tree's leaves by their snapshot keys."""
+    out = {}
+    for k, v in tree.items():
+        out.update(_flat(v, f"{prefix}{k}/") if isinstance(v, dict) else {prefix + k: v})
+    return out
+
+
 def _session(engine, path, reset_stream=None, check=_assert_public_caches):
     """Scores over a prime, steady steps, masked steps, a reset of stream 3
     (``engine.reset_stream`` unless given; its next step primes again), a
@@ -128,7 +154,7 @@ def test_forced_route_runs_the_kernels_calls(weights, forced, tmp_path):
     assert routed._replicas[routed.device].cnn_kernel is not None
     assert routed._replicas[routed.device].cnn_kernel.arith == "3pass"
     primes = routed.prime_steps
-    got = _session(routed, str(tmp_path / "routed.npz"))
+    got = _session(routed, str(tmp_path / "routed.npz"), check=_assert_held_caches)
     assert routed.prime_steps - primes == 2                   # the first step and the reset stream's
     hand = _by_hand(_engine(weights))
     want = _session(hand, str(tmp_path / "hand.npz"))
@@ -211,6 +237,109 @@ def test_forced_route_on_a_mesh_matches_unsharded(weights, forced):
     ids = np.array([4, 0, -1, 5, 2, -1])
     np.testing.assert_allclose(mesh.predict_packets(pcm[0], ids), whole.predict_packets(pcm[0], ids),
                                rtol=0, atol=1e-6)
+    _assert_held_caches(mesh)
+    for e in (mesh, whole):
+        e.reset_stream(4)                     # the second shard's local column 1
+    np.testing.assert_allclose(mesh.predict(pcm[1]), whole.predict(pcm[1]), rtol=0, atol=1e-6)
+    for k, v in whole.state["conv_caches"].items():
+        np.testing.assert_allclose(mesh.state["conv_caches"][k].numpy(), v.numpy(), rtol=0,
+                                   atol=1e-6 * max(float(v.abs().max()), 1.0), err_msg=k)
+
+
+def test_forced_route_hands_the_kernel_the_held_caches(weights, forced, monkeypatch):
+    """A steady step passes K3-high the tensors the shard holds (the same
+    ``data_ptr``: no copy or permute between steps) and the shard then holds
+    the kernel's outputs as they are; after a prime of one block, K4-high's."""
+    calls = {"step": [], "prime": []}
+
+    def wrap(kind, real):
+        def call(params, *args):
+            emb, new = real(params, *args)
+            calls[kind].append(([c.data_ptr() for c in args[0]] if kind == "step" else None,
+                                [c.data_ptr() for c in new]))
+            return emb, new
+        call.launches = real.launches       # the launcher counts in the module's wrappers
+        return call
+    monkeypatch.setattr(cnn_step_cuda, "cnn_step", wrap("step", cnn_step_cuda.cnn_step))
+    monkeypatch.setattr(cnn_step_cuda, "cnn_prime", wrap("prime", cnn_step_cuda.cnn_prime))
+    e = _engine(weights, n_streams=PRIME_BLOCK)
+    names = [name for name, _ in e._replicas[e.device].cnn_kernel.cache_shapes]
+
+    def held():
+        return [e.shard_states[0]["conv_caches"][n].data_ptr() for n in names]
+    pcm = _pcm(4, seed=11, streams=PRIME_BLOCK)
+    e.predict(pcm[0])
+    assert len(calls["prime"]) == 1 and held() == calls["prime"][0][1]
+    for t in range(1, 4):
+        before = held()
+        e.predict(pcm[t])
+        passed, returned = calls["step"][-1]
+        assert passed == before and held() == returned
+    assert len(calls["step"]) == 3 and len(set(held())) == len(names)
+
+
+def test_forced_route_masked_step_keeps_a_starved_streams_caches(weights, forced):
+    """On a masked step the starved streams' held caches stay bit for bit
+    what they were (``valid`` broadcast along the last axis), the fed
+    streams' move, and the public state says the same in JAX's layout."""
+    e = _engine(weights)
+    pcm = _pcm(3, seed=12)
+    e.predict(pcm[0])
+    e.predict(pcm[1])
+    before = {k: v.clone() for k, v in e.shard_states[0]["conv_caches"].items()}
+    public = {k: v.clone() for k, v in e.state["conv_caches"].items()}
+    valid = np.array([True, False, True, True, False])
+    e.predict_masked(pcm[2], valid)
+    moved = []
+    for k, v in e.shard_states[0]["conv_caches"].items():
+        np.testing.assert_array_equal(v[..., ~valid].numpy(), before[k][..., ~valid].numpy(), err_msg=k)
+        np.testing.assert_array_equal(e.state["conv_caches"][k][~valid].numpy(), public[k][~valid].numpy(),
+                                      err_msg=k)
+        moved.append(bool((v[..., valid] != before[k][..., valid]).any()))
+    assert all(moved)
+
+
+def test_forced_route_snapshot_crosses_to_the_eager_engine_and_back(weights, forced, monkeypatch, tmp_path):
+    """A routed engine's snapshot loads into an eager engine, whose public
+    state is then the routed one's bit for bit and whose own snapshot is
+    the routed one key for key and bit for bit; that snapshot loads into a
+    routed engine, which holds the saving engine's caches and scores the
+    next steps exactly as it does (the eager engine within the tolerance)."""
+    routed_path, eager_path = str(tmp_path / "routed.npz"), str(tmp_path / "eager.npz")
+    routed = _engine(weights)
+    _session(routed, str(tmp_path / "session.npz"))
+    routed.save_state(routed_path)
+    public = routed.state
+    forced_route = engine_module.cnn_kernel_route
+    monkeypatch.setattr(engine_module, "cnn_kernel_route", lambda *_: False)
+    eager = _engine(weights)
+    eager.load_state(routed_path)
+    assert eager._replicas[eager.device].cnn_kernel is None
+    got, ref = _flat(eager.state), _flat(public)
+    assert got.keys() == ref.keys()
+    for k, v in ref.items():
+        np.testing.assert_array_equal(got[k].numpy(), v.numpy(), err_msg=k)
+    eager.save_state(eager_path)
+    with np.load(routed_path) as a, np.load(eager_path) as b:
+        assert sorted(a.files) == sorted(b.files)
+        for k in a.files:
+            np.testing.assert_array_equal(b[k], a[k], err_msg=k)
+    monkeypatch.setattr(engine_module, "cnn_kernel_route", forced_route)
+    again = _engine(weights)
+    again.load_state(eager_path)
+    for k, v in routed.shard_states[0]["conv_caches"].items():
+        np.testing.assert_array_equal(again.shard_states[0]["conv_caches"][k].numpy(), v.numpy(), err_msg=k)
+    pcm = _pcm(4, seed=13)
+    want = routed.predict_frames(pcm)
+    np.testing.assert_array_equal(again.predict_frames(pcm), want)
+    np.testing.assert_allclose(eager.predict_frames(pcm), want, rtol=0, atol=SCORE_ATOL)
+
+
+def test_forced_route_dryrun_multichip_checks_each_leaf_on_its_stream_axis(forced, capsys):
+    """``dryrun_multichip``'s structural check on a 2-entry CPU mesh whose
+    shards take the route: the caches hold their streams on the last axis."""
+    scaling = dryrun_multichip(2, "cpu", streams_per_device=2)
+    assert scaling["structural_shard_check"] and scaling["shard_invariant_scores"]
 
 
 def _mixed_per_conv():

@@ -1018,3 +1018,56 @@ def test_engine_on_the_cnn_kernels_matches_the_eager_cnn(cuda, monkeypatch):
         assert tuple(caches[k].shape) == (S, *shape)
         scale = float(want_caches[k].abs().max())
         assert float((caches[k] - want_caches[k]).abs().max()) <= 1e-4 * max(scale, 1.0), k
+
+
+def test_engine_holds_the_caches_in_the_kernels_layout(cuda, monkeypatch, tmp_path):
+    """At 'high' on the card the shard holds each cache as (C, 2, W, S),
+    hands K3-high those very tensors (the same ``data_ptr``) and holds the
+    kernel's outputs as they are; ``state`` gives them in JAX's layout; a
+    snapshot loads into an eager engine, which saves it back bit for bit,
+    and a routed engine that loads that goes on bit for bit as the one that
+    saved it."""
+    from openwakeword_tpu_torch.models import embedding_stream
+    from openwakeword_tpu_torch.parallel import engine as engine_module
+    S = 100
+    pcm = _engine_pcm(8, S, seed=31)
+    passed = []
+    real = cnn_step_cuda.cnn_step
+
+    def step(params, caches, mel_t):
+        emb, new = real(params, caches, mel_t)
+        passed.append(([c.data_ptr() for c in caches], [c.data_ptr() for c in new]))
+        return emb, new
+    step.launches = real.launches           # the launcher counts in the module's ``cnn_step``
+    monkeypatch.setattr(cnn_step_cuda, "cnn_step", step)
+
+    def engine():
+        return engine_module.MultiStreamEngine(wakeword_models=["alexa", "timer"], n_streams=S, device=cuda)
+    routed = engine()
+    names = [name for name, _ in routed._replicas[routed.device].cnn_kernel.cache_shapes]
+    for t in range(4):
+        held = [routed.shard_states[0]["conv_caches"][n].data_ptr() for n in names]
+        routed.predict(pcm[t])
+        if t:
+            assert passed[-1][0] == held
+            assert [routed.shard_states[0]["conv_caches"][n].data_ptr() for n in names] == passed[-1][1]
+    assert len(passed) == 3
+    public = routed.state["conv_caches"]
+    for k, (two, w, c) in embedding_stream.cache_shapes().items():
+        held = routed.shard_states[0]["conv_caches"][k]
+        assert tuple(held.shape) == (c, two, w, S) and held.is_contiguous(), k
+        assert torch.equal(public[k], held.permute(3, 1, 2, 0)), k
+    first, back = str(tmp_path / "routed.npz"), str(tmp_path / "eager.npz")
+    routed.save_state(first)
+    monkeypatch.setattr(engine_module, "cnn_kernel_route", lambda *_: False)
+    eager = engine()
+    eager.load_state(first)
+    eager.save_state(back)
+    with np.load(first) as a, np.load(back) as b:
+        assert sorted(a.files) == sorted(b.files)
+        for k in a.files:
+            np.testing.assert_array_equal(b[k], a[k], err_msg=k)
+    monkeypatch.undo()
+    again = engine()
+    again.load_state(back)
+    np.testing.assert_array_equal(again.predict_frames(pcm[4:]), routed.predict_frames(pcm[4:]))

@@ -27,7 +27,8 @@ STEP_STAGES = {"oww/engine.mel", "oww/engine.ring", "oww/engine.cnn", "oww/engin
 
 PY_FRAME = re.compile(r"\.py\(\d+\): ")
 CNN_MODULES = re.compile(r"models/embedding(_stream)?\.py\(")
-# the CNN-kernel route: its permutes in the engine and the kernels' wrappers
+# the CNN-kernel route: its functions in the engine (the cache layout swap,
+# which a step must not reach) and the kernels' wrappers
 KERNEL_ROUTE = re.compile(r"parallel/engine\.py\(\d+\): _(kernel_step|kernel_prime|swap_stream_axis)$"
                           r"|ops/cnn_step(_cuda)?\.py\(")
 
@@ -155,10 +156,10 @@ def test_every_conv_runs_inside_the_cnn_spans():
 
 def test_the_kernel_route_runs_inside_the_cnn_spans(monkeypatch):
     """With the CNN-kernel route forced on the CPU (where its kernel calls
-    run their plain versions), every op that the route's functions (the
-    caches' and mel rows' permutes), the wrappers and the plain versions'
-    modules launch runs inside ``engine.cnn`` / ``engine.prime``, and no
-    convolution runs."""
+    run their plain versions), every op that the route's functions (the mel
+    rows' permute), the wrappers and the plain versions' modules launch runs
+    inside ``engine.cnn`` / ``engine.prime``, and no convolution runs. The
+    shard holds its caches in the kernels' layout, so no step swaps them."""
     real = engine_module.cnn_kernel_route
     monkeypatch.setattr(engine_module, "cnn_kernel_route", lambda _dev, *rest: real("cuda", *rest))
     e = _engine()
@@ -172,7 +173,8 @@ def test_the_kernel_route_runs_inside_the_cnn_spans(monkeypatch):
             ops.append((ev.name, frame, bool(set(chain) & {"oww/engine.cnn", "oww/engine.prime"})))
     assert [op for op in ops if not op[2]] == []
     assert {"aten::clone", "aten::cat", "aten::t"} <= {name for name, _, _ in ops}
-    assert any(frame.endswith(": _swap_stream_axis") for _, frame, _ in ops)
+    assert any(frame.endswith(": _kernel_step") for _, frame, _ in ops)
+    assert not any(frame.endswith(": _swap_stream_axis") for _, frame, _ in ops)
     assert not any(ev.name == "aten::convolution" for ev in prof.events())
 
 
