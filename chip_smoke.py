@@ -36,7 +36,10 @@ Phases, each of which exits nonzero on failure:
    be finite, in [0, 1], shaped (50, 4096, 11), and K1-3pass must have
    launched once per step of the timed run; over both runs K4-high must
    have launched once per prime block of the first step and K3-high once on
-   each of the other 99 (the engine's CNN stage at 'high'). Then the same with
+   each of the other 99 (the engine's CNN stage at 'high'), and every frame
+   of both runs must have gone through the engine's pinned frame ring
+   (``staged_frames``; ``feed_waits`` reported on the ``kernels`` line as
+   ``engine_feed``). Then the same with
    ``mel_dft="factored"`` (K2-3pass must launch), whose scores must agree
    with the direct run's within 1e-3;
 6. CNN kernels vs plain: kernel 4 (prime) and kernel 3 (step) of
@@ -2371,6 +2374,7 @@ def main():
                                                dtype=np.int16)
     scale_scores = {}
     engine_cnn = {"prime_high": 0, "step_high": 0}
+    engine_feed = {"staged_frames": 0, "feed_waits": 0}
     cnn_want = (-(-SCALE_STREAMS // config.PRIME_BLOCK_STREAMS), 2 * SCALE_FRAMES - 1)
     for dft in melspec_cuda.DFTS:
         name = melspec_cuda.variant(dft, "3pass")           # the default tier 'high' runs K1-3pass / K2-3pass
@@ -2396,6 +2400,12 @@ def main():
                  f"over one prime and {cnn_want[1]} steady steps, expected {cnn_want[0]} and {cnn_want[1]}")
         engine_cnn["prime_high"] += cnn_used[0]
         engine_cnn["step_high"] += cnn_used[1]
+        # on the card every frame of both runs goes through the pinned ring
+        if engine.staged_frames != 2 * SCALE_FRAMES:
+            fail(f"the engine ({dft}) staged {engine.staged_frames} frames through its pinned ring over "
+                 f"{2 * SCALE_FRAMES} fed")
+        engine_feed["staged_frames"] += engine.staged_frames
+        engine_feed["feed_waits"] += engine.feed_waits
         if scores.shape != (SCALE_FRAMES, SCALE_STREAMS, 11):
             fail(f"scale scores ({dft}) have shape {scores.shape}")
         if not (np.isfinite(scores).all() and scores.min() >= 0.0 and scores.max() <= 1.0):
@@ -2407,7 +2417,8 @@ def main():
         print(f"scale ({dft}): {SCALE_FRAMES} frames x {SCALE_STREAMS} streams in {wall:.4f} s "
               f"({wall / SCALE_FRAMES * 1e3:.3f} ms per step; warm-up run {warm_s:.2f} s), "
               f"{rt:.0f} streams in real time, {mel_launches[name]} {name} mel launches, K4-high {cnn_used[0]} and "
-              f"K3-high {cnn_used[1]} launches, on {card}")
+              f"K3-high {cnn_used[1]} launches, {engine.staged_frames} frames staged with {engine.feed_waits} "
+              f"feed waits, on {card}")
         scale_scores[dft] = scores
         del engine, scores
     dft_err = float(np.abs(scale_scores["factored"] - scale_scores["direct"]).max())
@@ -2758,7 +2769,7 @@ def main():
         {"name": name, "route": "cuda", "source": f"openwakeword_tpu_torch/csrc/{src}", "replaces": replaces,
          "launches": launches, "max_abs_err": err, "ms": ms[0], "plain_ms": ms[1], "bound_ms": bnd[0],
          "bound_by": bnd[1], "library_ms": None}
-        for name, src, replaces, launches, err, ms, bnd in kernels]}))
+        for name, src, replaces, launches, err, ms, bnd in kernels], "engine_feed": engine_feed}))
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -54,6 +54,12 @@ The single-step entry points copy their input to the card from pinned host
 memory without blocking; with ``sync=False`` the scores come back as a
 ``HostScores`` whose copy to the host is already enqueued, so a serving
 loop can ingest the next tick while the card computes this one.
+``predict_frames`` on CUDA shards feeds its frames one at a time through a
+small ring of pinned host slots per shard, reused across calls: helper
+threads copy frame t + 1's rows into a slot while the calling thread issues
+step t, a copy stream per device carries each slot to the card while the
+steps run, and each step waits on its own frame's copy alone; each step's
+scores go back by a non-blocking copy as it is issued (``_FrameFeed``).
 
 With ``mesh=`` (``parallel.mesh.Mesh``) the streams are split into the
 mesh's equal row ranges, one shard per entry (the JAX engine's stream
@@ -67,6 +73,8 @@ starts.
 import functools
 import logging
 import time
+import weakref
+from concurrent import futures
 from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -90,6 +98,14 @@ from openwakeword_tpu_torch.tracing import span
 
 MEL_RING = config.EMB_WINDOW_FRAMES          # 76 frames
 VAD_RING = 7                                 # enough for the [-7:-4] gate window
+# pinned slots of a CUDA shard's frame ring in ``predict_frames``: frame t + 1
+# is staged while step t is issued, into the slot that step t - 2 read, so the
+# host runs at most two steps ahead of the device
+FEED_SLOTS = 3
+# helper threads that stage a frame, each a share of every shard's rows: one
+# thread copies 42 MB (16384 streams of int16) in 5.7-8.1 ms on the H100's
+# host, about a whole device step, so a frame is split
+STAGE_THREADS = 4
 
 
 def seed_embeddings(emb_folded: Dict, noise: torch.Tensor, n_frames: int,
@@ -215,13 +231,17 @@ def _tree_map(fn, *trees):
             for k, v in trees[0].items()}
 
 
+def _host_dtype(dtype) -> np.dtype:
+    """The dtype the engine feeds a host array of ``dtype`` as: int16, int64
+    and bool as they are (PCM is cast on the device), others as float32."""
+    dtype = np.dtype(dtype)
+    return dtype if dtype in (np.int16, np.int64, np.bool_) else np.dtype(np.float32)
+
+
 def _host(arr) -> np.ndarray:
-    """A host array as the engine feeds it: int16, int64 and bool as they
-    are (PCM is cast on the device), other dtypes as float32."""
+    """A host array as the engine feeds it (``_host_dtype``)."""
     arr = np.asarray(arr)
-    if arr.dtype not in (np.int16, np.int64, np.bool_):
-        arr = arr.astype(np.float32, copy=False)
-    return arr
+    return arr.astype(_host_dtype(arr.dtype), copy=False)
 
 
 def _check_layout(layout: Mesh):
@@ -287,6 +307,49 @@ class HostScores:
         return self._host.numpy()
 
 
+class _FrameFeed:
+    """One CUDA shard's buffers for ``predict_frames``, allocated once and
+    reused by every later call: ``FEED_SLOTS`` pinned host slots of its rows
+    of one frame, each with the event that the compute stream records after
+    the step that read it and that step's score copy (the slot is free once
+    it has passed), and a pinned (T, rows, L) float32 buffer, grown to the
+    longest call, that the steps' scores are copied into."""
+
+    def __init__(self, n_rows: int, dtype: np.dtype, device: torch.device):
+        self.device = device
+        self.slots = [torch.empty((n_rows, config.CHUNK_SAMPLES), dtype=torch.from_numpy(np.empty(0, dtype)).dtype,
+                                  pin_memory=True) for _ in range(FEED_SLOTS)]
+        self.views = [slot.numpy() for slot in self.slots]
+        self.released = [torch.cuda.Event() for _ in range(FEED_SLOTS)]
+        self.copied = torch.cuda.Event()
+        self.scores = self.scores_view = None
+
+    def reserve(self, n_frames: int, n_labels: int):
+        """A score buffer of at least ``n_frames`` rows."""
+        if self.scores is None or self.scores.shape[0] < n_frames:
+            self.scores = torch.empty((n_frames, self.slots[0].shape[0], n_labels), dtype=torch.float32,
+                                      pin_memory=True)
+            self.scores_view = self.scores.numpy()
+
+    def upload(self, slot: int, copier: torch.cuda.Stream, compute: torch.cuda.Stream) -> torch.Tensor:
+        """The frame in ``slot`` on the card: copied on ``copier`` into a
+        fresh buffer of that stream's pool, which ``compute`` waits for and
+        which the allocator keeps until ``compute`` is past its last use."""
+        with torch.cuda.stream(copier):
+            x = torch.empty(self.slots[slot].shape, dtype=self.slots[slot].dtype, device=self.device)
+            x.copy_(self.slots[slot], non_blocking=True)
+            self.copied.record(copier)
+        compute.wait_event(self.copied)
+        x.record_stream(compute)
+        return x
+
+    def download(self, t: int, scores: torch.Tensor, slot: int, compute: torch.cuda.Stream):
+        """Step t's scores into row t, then ``slot`` released, on ``compute``."""
+        with torch.cuda.stream(compute):
+            self.scores[t].copy_(scores.float(), non_blocking=True)
+            self.released[slot].record(compute)
+
+
 class MultiStreamEngine:
     """Scores ``n_streams`` independent 16 kHz streams, one 80 ms frame per
     step, on one device or sharded over a ``mesh``.
@@ -339,6 +402,16 @@ class MultiStreamEngine:
     (``cnn_kernel_route``: CUDA, 'high', the default embedding),
     ``ops.cnn_step_cuda.cnn_step.launches["3pass"]`` counts its steady
     shard steps and ``cnn_prime.launches["3pass"]`` its prime blocks.
+
+    Counters of ``predict_frames`` on CUDA shards (plain ints, only grow):
+    ``staged_frames`` counts shard-frames fed through the pinned frame ring,
+    ``feed_waits`` the times the calling thread blocked on a ring slot (the
+    device had not finished the step two frames back) or on the helper
+    threads (the frame was not staged yet). ``feed_waits / staged_frames``
+    near one shard's share says the feed waits every frame, so the device
+    or the staging copy sets the pace; near zero, the calling thread's own
+    issue of the steps does. Both stay 0 on the CPU, which feeds each call's
+    frames in one copy.
 
     ``use_pallas_melspec`` keeps the JAX engine's name for the choice of
     mel frontend: None (the default) or True runs the mel kernel of the
@@ -588,11 +661,18 @@ class MultiStreamEngine:
         self._home = _Replica(self._step_params, *(None if v is None else torch.from_numpy(v).to(self.device)
                                                    for v in (patience_vec, threshold_vec, recycle, ver_mask)))
         self._replicas: Dict[torch.device, _Replica] = {}
+        # predict_frames on CUDA: a copy stream per device and the threads
+        # that stage frames into the pinned slots, both made at first use
+        self._copy_streams: Dict[torch.device, torch.cuda.Stream] = {}
+        self._stager: Optional[futures.ThreadPoolExecutor] = None
         self._lay_out(layout)
         self.reset()
         #: shard steps that primed, rows those primes computed, and rows among
         #: them that started (see the class docstring)
         self.prime_steps = self.primed_rows = self.started_rows = 0
+        #: shard-frames fed through the pinned frame ring, and the times the
+        #: calling thread waited for it (see the class docstring)
+        self.staged_frames = self.feed_waits = 0
 
         # ---- serving-capacity guardrail (JAX engine :526-558) ----
         self._frame_budget_s = float(frame_budget_s)
@@ -672,6 +752,8 @@ class MultiStreamEngine:
         device)."""
         spans = layout.rows(self.n_streams)
         self._layout = layout
+        # (shard, host dtype) -> _FrameFeed, for this layout's shards
+        self._frame_feeds: Dict[Tuple[int, np.dtype], _FrameFeed] = {}
         self._shard_rows = [spans[i] for i in layout.owned]
         self._shard_devices = [layout.devices[i] for i in layout.owned]
         #: the distinct devices of the owned shards
@@ -1113,7 +1195,7 @@ class MultiStreamEngine:
 
         Runs ``predict_frames`` on zero PCM (a warm-up run, then the median
         of ``repeats``; each ends with the scores on the host); the serving
-        state, its host mirror and the prime counters are snapshotted and
+        state, its host mirror and the counters are snapshotted and
         restored, so the measurement is side-effect free. Returns ``{"wall_s",
         "per_frame_s", "rt_streams", "realtime"}``, where ``rt_streams`` is
         the stream count this device sustains in real time at the measured
@@ -1123,7 +1205,8 @@ class MultiStreamEngine:
 
         saved = [_tree_map(torch.clone, st) for st in self.shard_states]
         saved_host = self._frames_seen_host.copy()
-        saved_counts = self.prime_steps, self.primed_rows, self.started_rows
+        saved_counts = (self.prime_steps, self.primed_rows, self.started_rows, self.staged_frames,
+                        self.feed_waits)
         frames = np.zeros((n_frames, self.n_streams, config.CHUNK_SAMPLES), np.int16)
         try:
             self.predict_frames(frames)
@@ -1134,7 +1217,8 @@ class MultiStreamEngine:
                 walls.append(time.perf_counter() - t0)
         finally:
             self.shard_states, self._frames_seen_host = saved, saved_host
-            self.prime_steps, self.primed_rows, self.started_rows = saved_counts
+            (self.prime_steps, self.primed_rows, self.started_rows, self.staged_frames,
+             self.feed_waits) = saved_counts
         wall = float(np.median(walls))
         per_frame = wall / n_frames
         return {"wall_s": wall, "per_frame_s": per_frame,
@@ -1144,6 +1228,12 @@ class MultiStreamEngine:
     def predict_frames(self, frames: np.ndarray) -> np.ndarray:
         """Advance every stream by T frames.
 
+        On CUDA shards the frames go to the card one at a time, overlapped
+        with the steps, and the scores come back as the steps are issued
+        (``_stream_frames``); elsewhere the whole array is copied first and
+        the scores gathered after the last step. Either way the call returns
+        once every score is on the host, in a new array of its own.
+
         Args:
             frames: (T, n_streams, 1280) PCM.
         Returns:
@@ -1152,9 +1242,96 @@ class MultiStreamEngine:
         frames = np.asarray(frames)
         if frames.shape[0] == 0:
             return np.zeros((0, self.n_streams, len(self.labels)), dtype=np.float32)
+        if all(dev.type == "cuda" for dev in self._shard_devices):
+            return self._stream_frames(frames)
         xs = self._feed(frames, axis=1)
         steps = [self._advance([x[t] for x in xs]) for t in range(frames.shape[0])]
         return self._gather([torch.stack(per_shard) for per_shard in zip(*steps)], axis=1)
+
+    def _stream_frames(self, frames: np.ndarray) -> np.ndarray:
+        """``predict_frames`` on CUDA shards. Per frame t: wait for the
+        helpers to have staged frame t's rows into each shard's slot t %
+        FEED_SLOTS; copy each slot to the card on its device's copy stream;
+        once the step that read the next slot (step t - 2) is done, have the
+        helpers stage frame t + 1 there; issue step t, which waits on its own
+        frame's copy alone; copy its scores into row t of the shard's pinned
+        score buffer. Rows whose copies are known done go into the result
+        while later steps run; the last ones after the last step."""
+        T = frames.shape[0]
+        if frames.shape[1:] != (self.n_streams, config.CHUNK_SAMPLES):
+            raise ValueError(f"frames must be (T, {self.n_streams}, {config.CHUNK_SAMPLES}); got {frames.shape}")
+        dtype = _host_dtype(frames.dtype)
+        n_labels = len(self.labels)
+        feeds = []
+        for k, (rows, dev) in enumerate(zip(self._shard_rows, self._shard_devices)):
+            if (k, dtype) not in self._frame_feeds:
+                self._frame_feeds[k, dtype] = _FrameFeed(rows.stop - rows.start, dtype, dev)
+            feeds.append(self._frame_feeds[k, dtype])
+            feeds[-1].reserve(T, n_labels)
+            if dev not in self._copy_streams:
+                self._copy_streams[dev] = torch.cuda.Stream(device=dev)
+        copiers = [self._copy_streams[dev] for dev in self._shard_devices]
+        computes = [torch.cuda.current_stream(dev) for dev in self._shard_devices]
+        if self._stager is None:
+            self._stager = futures.ThreadPoolExecutor(max_workers=STAGE_THREADS, thread_name_prefix="oww-stage")
+            weakref.finalize(self, self._stager.shutdown, wait=False)
+
+        def stage(t, part):
+            for feed, rows in zip(feeds, self._shard_rows):
+                n = rows.stop - rows.start
+                lo, hi = n * part // STAGE_THREADS, n * (part + 1) // STAGE_THREADS
+                np.copyto(feed.views[t % FEED_SLOTS][lo:hi], frames[t, rows.start + lo:rows.start + hi],
+                          casting="unsafe")
+
+        def staging(t):
+            return [self._stager.submit(stage, t, part) for part in range(STAGE_THREADS)]
+
+        def fill(start, stop):
+            for feed, rows in zip(feeds, self._shard_rows):
+                out[start:stop, rows] = feed.scores_view[start:stop]
+            return max(start, stop)
+
+        whole = sum(r.stop - r.start for r in self._shard_rows) == self.n_streams
+        out = (np.empty if whole else np.zeros)((T, self.n_streams, n_labels), dtype=np.float32)
+        pending = staging(0)
+        filled = ready = 0             # rows of ``out`` written; rows whose score copies are done
+        try:
+            for t in range(T):
+                slot = t % FEED_SLOTS
+                with span("engine.feed"):
+                    self.feed_waits += not all(job.done() for job in pending)
+                    for job in pending:
+                        job.result()
+                    pending = None
+                    xs = [f.upload(slot, c, s) for f, c, s in zip(feeds, copiers, computes)]
+                    self.staged_frames += len(feeds)
+                    if t + 1 < T:
+                        released = [f.released[(t + 1) % FEED_SLOTS] for f in feeds]
+                        if not all(e.query() for e in released):
+                            self.feed_waits += 1
+                            for e in released:
+                                e.synchronize()
+                        ready = max(ready, t - 1)
+                        pending = staging(t + 1)
+                scores = self._advance(xs)
+                del xs
+                with span("engine.scores"):
+                    for feed, s, compute in zip(feeds, scores, computes):
+                        feed.download(t, s, slot, compute)
+                    filled = fill(filled, ready)
+            with span("engine.scores"):
+                for feed in feeds:
+                    feed.released[(T - 1) % FEED_SLOTS].synchronize()
+                fill(filled, T)
+        except BaseException:
+            # nothing may still write a slot or read one when the next call
+            # stages into it
+            if pending is not None:
+                futures.wait(pending)
+            for copier in copiers:
+                copier.synchronize()
+            raise
+        return out
 
     def predict_clips(self, clips: np.ndarray, padding: int = 1) -> np.ndarray:
         """Score a batch of equal-length clips (n_streams, samples) with 1 s

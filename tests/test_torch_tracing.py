@@ -7,6 +7,7 @@ profiler changes no score and no state; the prime and serving counters
 count what the host already knows.
 """
 
+import contextlib
 import re
 import threading
 import time
@@ -195,6 +196,118 @@ def test_predict_frames_opens_one_step_span_a_frame():
     top = [n for n, p in ranges if p is None]
     assert top == ["oww/engine.feed"] + ["oww/engine.step"] * 3 + ["oww/engine.scores"]
     assert _names(ranges).count("oww/engine.prime") == 1
+
+
+@pytest.mark.parametrize("shards", [1, 2])
+def test_cpu_predict_frames_feeds_in_one_copy_and_counts_nothing(monkeypatch, shards):
+    """A CPU engine feeds the whole array in one ``_feed`` and gathers once,
+    with scores bit-equal to per-frame ``predict`` on a twin; no frame goes
+    through the pinned ring, so its counters stay 0 and no thread starts."""
+    kwargs = dict(device="cpu") if shards == 1 else dict(mesh=Mesh(["cpu"] * shards))
+    e, twin = (MultiStreamEngine(wakeword_models=["alexa", "timer"], n_streams=S, **kwargs) for _ in range(2))
+    calls = []
+    for name in ("_feed", "_gather"):
+        real = getattr(e, name)
+        monkeypatch.setattr(e, name, lambda *a, _real=real, _name=name, **k: calls.append(_name) or _real(*a, **k))
+    pcm = _pcm(5)
+    got = e.predict_frames(pcm)
+    np.testing.assert_array_equal(got, np.stack([twin.predict(pcm[t]) for t in range(5)]))
+    assert calls == ["_feed", "_gather"]
+    assert (e.staged_frames, e.feed_waits) == (0, 0)
+    assert e._stager is None and e._frame_feeds == {}
+
+
+class _StandInStream:
+    """A CUDA stream stand-in: work queued on it runs, in order, only when an
+    event recorded after it is waited on."""
+
+    def __init__(self, device=None):
+        self.work, self.done = [], 0
+
+    def run(self, n):
+        while self.done < n:
+            self.work[self.done]()
+            self.done += 1
+
+    def wait_event(self, event):
+        event.synchronize()
+
+    def synchronize(self):
+        self.run(len(self.work))
+
+
+class _StandInEvent:
+    def __init__(self, *args, **kwargs):
+        self.stream, self.n = None, 0
+
+    def record(self, stream=None):
+        self.stream, self.n = stream, len(stream.work)
+
+    def query(self):
+        return self.stream is None or self.stream.done >= self.n
+
+    def synchronize(self):
+        if self.stream is not None:
+            self.stream.run(self.n)
+
+
+@pytest.fixture()
+def stand_in_cuda(monkeypatch):
+    """``_stream_frames``'s CUDA calls on the CPU: pinned memory as plain
+    memory, streams and events as stand-ins, and each step's score copy
+    deferred until the event recorded after it is waited on, its row NaN
+    until then; so a row read before its copy is known done shows."""
+    streams = {}
+    real_empty = torch.empty
+    monkeypatch.setattr(torch, "empty", lambda *a, pin_memory=False, **k: real_empty(*a, **k))
+    monkeypatch.setattr(torch.cuda, "Event", _StandInEvent)
+    monkeypatch.setattr(torch.cuda, "Stream", _StandInStream)
+    monkeypatch.setattr(torch.cuda, "stream", lambda stream: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev=None: streams.setdefault(dev, _StandInStream()))
+    monkeypatch.setattr(torch.Tensor, "record_stream", lambda self, stream: None, raising=False)
+
+    def download(self, t, scores, slot, compute):
+        row, src = self.scores[t], scores.float().clone()
+        row.fill_(float("nan"))
+        compute.work.append(lambda: row.copy_(src))
+        self.released[slot].record(compute)
+    monkeypatch.setattr(engine_module._FrameFeed, "download", download)
+
+
+@pytest.mark.parametrize("shards", [1, 2])
+def test_stream_frames_host_logic_with_stand_ins(stand_in_cuda, monkeypatch, shards):
+    """The overlapped feed's host side (``_stream_frames``) on the CPU with
+    stand-ins for the CUDA calls: bit-equal to the CPU path for T below,
+    at and above the ring's depth, a float64 view with negative strides
+    (cast frame by frame), on a mesh; every frame staged on every shard;
+    every score copy waited for before its row is read; a step that raises
+    leaves the next call right; a wrongly shaped input raises."""
+    kwargs = dict(device="cpu") if shards == 1 else dict(mesh=Mesh(["cpu"] * shards))
+    e, twin = (MultiStreamEngine(wakeword_models=["alexa", "timer"], n_streams=S, **kwargs) for _ in range(2))
+    pcm = _pcm(18, seed=11)
+    parts = [pcm[:1], pcm[1:3], pcm[3:6], pcm[6:13], pcm[13:18].astype(np.float64)[:, ::-1]]
+    for part in parts:
+        np.testing.assert_array_equal(e._stream_frames(part), twin.predict_frames(part))
+    assert e.staged_frames == 18 * shards
+    assert e.feed_waits > 0 and e._stager is not None
+    assert len(e._frame_feeds) == 2 * shards                  # an int16 and a float32 ring per shard
+
+    real_advance = e._advance
+    calls = []
+
+    def failing(chunks, *args):
+        calls.append(1)
+        if len(calls) == 3:
+            raise RuntimeError("step failed")
+        return real_advance(chunks, *args)
+    monkeypatch.setattr(e, "_advance", failing)
+    with pytest.raises(RuntimeError, match="step failed"):
+        e._stream_frames(pcm[:5])
+    monkeypatch.setattr(e, "_advance", real_advance)
+    twin.predict_frames(pcm[:2])                              # the two steps issued before the fault
+    np.testing.assert_array_equal(e._stream_frames(pcm[5:9]), twin.predict_frames(pcm[5:9]))
+    with pytest.raises(ValueError, match="frames must be"):
+        e._stream_frames(pcm[:2, :S // 2])
 
 
 def test_sync_server_tick_opens_its_spans():
